@@ -18,6 +18,26 @@ Prints one JSON object per line, in phases:
    counts and the MatchStore tensors must equal the kernel run's.
 6. ``reference`` — the example graph of examples/distributed_listing.py,
    whose host-engine counts are known, checked on the card.
+7. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
+   plain version on its float64 accumulators: one gatedgcn edge slice
+   ([2**24, 70] bf16, ids over 2,449,029 nodes with 1 % set to n and
+   0.5 % to -1), the meshgraphnet and graphsage widths, a ones column
+   (exact), and edge cases; max |kernel - plain| <= 1e-5 * max(1, max
+   |plain|), with the kernel's, the plain version's and ``index_add_``'s
+   median ms beside the byte bound.
+8. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
+   its full config (16 layers, d_hidden 70, bf16, d_in 100) on the
+   ``ogb_products`` shape (2,449,029 nodes, 123,718,280 directed edges,
+   ``build_graph_data`` seed 0), once with the kernels (every segment sum
+   through the CUDA kernel: 16 layers x 2 sums x 8 edge slices launches)
+   and once plain; outputs finite. ``gnn_profile``: one more kernel
+   forward under ``torch.profiler``. ``gnn_equal``: max |kernel - plain|
+   <= 3e-2 * max |plain|, the share of equal outputs, and the largest
+   difference between the two kernel forwards.
+9. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
+   and meshgraphnet (bf16, 3e-2) at their full configs on
+   ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
+   kernel against plain.
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
@@ -47,10 +67,15 @@ WT_INITIAL_COUNT = 395_050
 EXAMPLE_COUNTS = {"q1_square": (1282, 1238, 1128, 1086), "q2_triangle": (188, 182, 172, 168)}
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
-# tensor cores as the peak for 32-bit integer compares.
+# tensor cores as the peak for 32-bit integer compares and float32 adds.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 N_BATCHES = 3
+DDSL_KERNELS = ("member_probe", "set_intersect")
+# The GNN slice: gatedgcn on ogb_products (configs/registry.py GNN_SHAPES;
+# a full-graph run doubles the undirected edges, launch/steps.py).
+GNN_ARCH, GNN_SHAPE = "gatedgcn", "ogb_products"
+GNN_SMALL = (("graphsage-reddit", 1e-4), ("meshgraphnet", 3e-2))
 
 
 def emit(obj) -> None:
@@ -260,17 +285,17 @@ def drive(config, use_kernels: bool, label: str):
     return recs, snaps, pipe
 
 
-def profile_batch(pipe):
-    """One more batch under ``torch.profiler``: wall time, summed device
-    time of its kernels, and the kernels that took most of it."""
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: its result, and wall time, summed
+    device time of its kernels, idle share and the kernels that took most
+    of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    upd = pipe.next_update()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        d = {k: int(v) for k, v in pipe.apply(upd).items()}
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Kernels only: a CPU-side op also reports its kernels' device time, and
@@ -280,10 +305,220 @@ def profile_batch(pipe):
            and not e.key.startswith("Command Buffer")]
     busy = sum(s for _, s, _ in dev)
     top = sorted(dev, key=lambda r: -r[1])[:12]
-    emit({"phase": "profile", "count": d["count"], "overflow": d["overflow"],
-          "wall_s": wall, "device_s": busy, "idle_share": max(0.0, 1 - busy / wall),
-          "top": [{"kernel": k[:90], "s": s, "calls": n} for k, s, n in top]})
+    return result, {"wall_s": wall, "device_s": busy, "idle_share": max(0.0, 1 - busy / wall),
+                    "top": [{"kernel": k[:90], "s": s, "calls": n} for k, s, n in top]}
+
+
+def profile_batch(pipe):
+    """One more batch under ``torch.profiler``."""
+    upd = pipe.next_update()
+    d, prof = profiled(lambda: {k: int(v) for k, v in pipe.apply(upd).items()})
+    emit({"phase": "profile", "count": d["count"], "overflow": d["overflow"], **prof})
     return d
+
+
+# ---------------------------------------------------------------------------
+# GNN slice: segment_sum and full-graph inference
+# ---------------------------------------------------------------------------
+
+def segment_ids(e: int, n: int, gen, out_of_range: bool = True) -> torch.Tensor:
+    """Ids uniform over [0, n), unsorted; 1 % set to n and 0.5 % to -1."""
+    seg = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32, device="cuda")
+    if out_of_range:
+        r = torch.rand(e, generator=gen, device="cuda")
+        seg[r < 0.01] = n
+        seg[(r >= 0.01) & (r < 0.015)] = -1
+    return seg
+
+
+def segment_sum_phase():
+    """The segment-sum kernel against its plain version on their float64
+    accumulators (``ref.ACC_DTYPE``), at the GNN path's shapes and at edge
+    cases. The bound and the ``index_add_`` yardstick are those of the
+    function itself, whose accumulator is float32: the kernel's float64
+    traffic shows as distance from the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_sum import segment_sum_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    big_n, big_e = 2_449_029, 1 << 24
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rows(e, d, dtype):
+        return torch.randn((e, d), generator=gen, device="cuda").to(dtype)
+
+    cases = {
+        # one gatedgcn edge slice (msg / eta) at full width
+        "gatedgcn_slice": (rows(big_e, 70, bf16), segment_ids(big_e, big_n, gen), big_n),
+        # the _segment_mean ones column over the same ids: integer sums, exact
+        "ones_column": (torch.ones((big_e, 1), dtype=bf16, device="cuda"),
+                        segment_ids(big_e, big_n, gen), big_n),
+        # meshgraphnet (d 128, bf16) and graphsage layer 0 (d 1433, float32)
+        # on full_graph_sm
+        "meshgraphnet": (rows(21_112, 128, bf16), segment_ids(21_112, 2708, gen), 2708),
+        "graphsage_l0": (rows(21_112, 1433, f32), segment_ids(21_112, 2708, gen), 2708),
+        # edge cases
+        "empty": (rows(0, 70, bf16), segment_ids(0, 10, gen), 10),
+        "all_out_of_range": (rows(5000, 70, bf16),
+                             torch.where(segment_ids(5000, 2, gen, False) == 0, -1, 64).int(), 64),
+        "n_1": (rows(4097, 3, f32), segment_ids(4097, 1, gen), 1),
+        "unsorted_duplicates": (rows(3001, 5, f32),
+                                torch.randint(-2, 9, (3001,), generator=gen, dtype=torch.int32,
+                                              device="cuda"), 7),
+    }
+    out = []
+    for name, (data, seg, n) in cases.items():
+        e, d = data.shape
+        zeros = lambda: torch.zeros((n, d), dtype=ref.ACC_DTYPE, device="cuda")  # noqa: E731
+        got = segment_sum_cuda(data, seg, zeros())
+        want = ref.segment_sum_ref(data, seg, n, zeros())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        top = float(want.abs().max()) if want.numel() else 0.0
+        limit = 0.0 if name in ("ones_column", "empty", "all_out_of_range") else \
+            1e-5 * max(1.0, top)
+        check(err <= limit, f"segment_sum {name}: max |kernel - plain| {err} > {limit}")
+        if name == "all_out_of_range":
+            check(not got.any(), "segment_sum: out-of-range ids were added")
+        rec = {"case": name, "rows": e, "d": d, "n": n, "dtype": str(data.dtype).split(".")[-1],
+               "max_abs_err": err, "max_abs_ref": top, "limit": limit}
+        if e * d >= 1 << 20:
+            keep = (seg >= 0) & (seg < n)
+            src = torch.where(keep[:, None], data.float(), 0.0)
+            idx = seg.clamp(0, n - 1)
+            acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+            rec["ms"] = cuda_ms(lambda: segment_sum_cuda(data, seg, got))
+            rec["plain_ms"] = cuda_ms(lambda: ref.segment_sum_ref(data, seg, n, want), reps=3)
+            rec["library_ms"] = cuda_ms(lambda: acc.index_add_(0, idx, src))
+            # the function's bytes: data and ids read once, a float32 [n, d]
+            # accumulator written once; e * d float32 adds
+            n_bytes = e * d * data.element_size() + 4 * e + 4 * n * d
+            rec["bytes"] = n_bytes
+            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, e * d)
+            del keep, src, idx, acc
+        out.append(rec)
+        del data, seg, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_forward(params, g, cfg, use_kernels: bool, label: str):
+    """One full-graph forward; its record, output and launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gnn.forward(params, g, cfg, use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rec = {"phase": "gnn_forward", "arch": cfg.name, "run": label, "seconds": seconds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "segment_sum_launches": counts["segment_sum"], "inference_mode": out.is_inference(),
+           "shape": list(out.shape), "dtype": str(out.dtype).split(".")[-1],
+           "finite": bool(torch.isfinite(out).all()), "max_abs_out": float(out.abs().max())}
+    check(rec["finite"], f"{cfg.name} {label}: output is not finite")
+    check(rec["inference_mode"], f"{cfg.name} {label}: forward ran outside inference_mode")
+    return rec, out, counts
+
+
+def compare_outputs(name: str, out_k, out_p, tol: float):
+    delta = (out_k.float() - out_p.float()).abs()
+    diff = float(delta.max())
+    top = float(out_p.float().abs().max())
+    rec = {"arch": name, "max_abs_diff": diff, "max_abs_plain": top,
+           "ratio": diff / top if top else 0.0, "limit_ratio": tol,
+           "equal_share": float((delta == 0).float().mean())}
+    check(diff <= tol * top, f"{name}: max |kernel - plain| {diff} > {tol} * {top}")
+    return rec
+
+
+def gnn_profile(params, g, cfg):
+    """One kernel forward under ``torch.profiler``; returns its output."""
+    from repro_torch.models import gnn
+
+    out, prof = profiled(lambda: gnn.forward(params, g, cfg, use_kernels=True))
+    emit({"phase": "gnn_profile", "arch": cfg.name, **prof})
+    return out
+
+
+def gnn_phase():
+    """gatedgcn full-graph inference at ogb_products size, kernels then
+    plain; returns the kernel run's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import graph_from_numpy
+    from repro_torch.data import build_graph_data
+    from repro_torch.models import gnn
+    import dataclasses
+
+    spec = get_arch(GNN_ARCH)
+    shape = spec.shape(GNN_SHAPE)
+    cfg = dataclasses.replace(spec.config, d_in=shape.d_feat)
+    n_nodes, n_edges = shape.n_nodes, 2 * shape.n_edges
+    t0 = time.perf_counter()
+    raw = build_graph_data(n_nodes, n_edges, shape.d_feat, seed=0)
+    data_s = time.perf_counter() - t0
+    g = graph_from_numpy(raw, "cuda")
+    del raw
+    params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    slices = math.ceil(n_edges / gnn.EDGE_SLICE)
+    predicted = cfg.n_layers * 2 * slices
+    emit({"phase": "gnn_plan", "arch": cfg.name, "shape": GNN_SHAPE, "nodes": n_nodes,
+          "edges": n_edges, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden, "d_out": cfg.d_out,
+          "layers": cfg.n_layers, "dtype": cfg.dtype, "edge_slice": gnn.EDGE_SLICE,
+          "slices": slices, "predicted_segment_sum_launches": predicted,
+          "data_seconds": data_s, "setup_seconds": time.perf_counter() - t0,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+
+    rec, out_k, counts = gnn_forward(params, g, cfg, True, "kernels")
+    emit(rec)
+    check(counts["segment_sum"] == predicted,
+          f"segment_sum launched {counts['segment_sum']} times, predicted {predicted}")
+    for name in DDSL_KERNELS:
+        check(counts[name] == 0, f"{name} launched on the GNN path")
+    rec, out_p, plain_counts = gnn_forward(params, g, cfg, False, "plain")
+    emit(rec)
+    check(not any(plain_counts.values()), f"the plain forward launched kernels: {plain_counts}")
+    equal = compare_outputs(cfg.name, out_k, out_p, 3e-2)
+    del out_p
+    # a second kernel forward (profiled): the float64 sums make it repeat
+    out_r = gnn_profile(params, g, cfg)
+    equal["kernel_repeat_max_abs_diff"] = float((out_r.float() - out_k.float()).abs().max())
+    emit({"phase": "gnn_equal", **equal})
+    del out_k, out_r, g, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gnn_small_phase():
+    """graphsage-reddit and meshgraphnet at full width on full_graph_sm."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import graph_from_numpy
+    from repro_torch.data import build_graph_data
+    from repro_torch.models import gnn
+    import dataclasses
+
+    for arch, tol in GNN_SMALL:
+        spec = get_arch(arch)
+        shape = spec.shape("full_graph_sm")
+        cfg = dataclasses.replace(spec.config, d_in=shape.d_feat)
+        raw = build_graph_data(shape.n_nodes, 2 * shape.n_edges, shape.d_feat,
+                               d_edge=cfg.d_edge_in, seed=0)
+        g = graph_from_numpy(raw, "cuda")
+        params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+        rec_k, out_k, counts = gnn_forward(params, g, cfg, True, "kernels")
+        rec_p, out_p, _ = gnn_forward(params, g, cfg, False, "plain")
+        check(counts["segment_sum"] > 0, f"{arch}: segment_sum never launched")
+        emit({"phase": "gnn_small", "shape": "full_graph_sm", "nodes": shape.n_nodes,
+              "edges": 2 * shape.n_edges, "dtype": cfg.dtype,
+              "segment_sum_launches": counts["segment_sum"],
+              "kernel_seconds": rec_k["seconds"], "plain_seconds": rec_p["seconds"],
+              **compare_outputs(arch, out_k, out_p, tol)})
 
 
 def main() -> None:
@@ -292,6 +527,11 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.run import EXAMPLE_Q1, WT_Q1, Pipeline, stages
     import dataclasses
+
+    # float32 products in full float32 on the card (no TF32), stated here:
+    # the GNN comparisons hold float32 outputs to 1e-4.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     check(torch.cuda.device_count() == 1,
           f"expects one visible card, sees {torch.cuda.device_count()} "
@@ -321,8 +561,8 @@ def main() -> None:
           f"initial count {recs_k[0]['count']} != host {WT_INITIAL_COUNT}")
     for r in recs_k:
         check(r["overflow"] == 0, f"overflow in {r}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in DDSL_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the main path")
 
     # where a batch's device time goes: one more batch under the profiler
     final = profile_batch(pipe)
@@ -367,6 +607,18 @@ def main() -> None:
             got.append(d["count"])
         check(tuple(got) == want, f"reference {pname}: {got} != host {list(want)}")
         emit({"phase": "reference", "pattern": pname, "counts": got, "host": list(want)})
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 7. segment_sum against its plain version at the GNN path's shapes
+    checks["segment_sum"] = segment_sum_phase()
+    emit({"phase": "kernel_check", "segment_sum": checks["segment_sum"]})
+
+    # 8. GNN full-graph inference; launches counted over the kernel forward
+    launches["segment_sum"] = gnn_phase()["segment_sum"]
+
+    # 9. the two other architectures at full width on the small graph
+    gnn_small_phase()
 
     # summary lines
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -380,7 +632,9 @@ def main() -> None:
     sources = {"member_probe": ("src/repro_torch/kernels/csrc/member_probe.cu",
                                 "src/repro/kernels/member_probe.py:52", "filter_sets"),
                "set_intersect": ("src/repro_torch/kernels/csrc/set_intersect.cu",
-                                 "src/repro/kernels/set_intersect.py:34", "ccjoin")}
+                                 "src/repro/kernels/set_intersect.py:34", "ccjoin"),
+               "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
+                               "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice")}
     kernels = []
     for name, (src, replaces, case) in sources.items():
         rec = next(r for r in checks[name] if r["case"] == case)

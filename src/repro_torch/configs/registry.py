@@ -1,0 +1,76 @@
+"""Architecture registry of the port: the GNN family only.
+
+Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch`` and ``GNN_SHAPES`` from
+``repro/configs/registry.py``, restricted to the three GNN architectures
+the port runs (gatedgcn, graphsage-reddit, meshgraphnet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, Tuple
+
+__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES", "get_arch", "all_archs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # full_graph | minibatch | batched_graphs
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanouts: Tuple[int, ...] = ()
+    batch_graphs: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                  # gnn
+    config: Any
+    smoke: Any
+    shapes: Tuple[ShapeSpec, ...]
+    notes: str = ""
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.name}: unknown shape {name}")
+
+
+_MODULES = ["gatedgcn", "graphsage_reddit", "meshgraphnet"]
+
+_REGISTRY: Dict[str, ArchSpec] = {}
+
+
+def _load():
+    if _REGISTRY:
+        return
+    for mod in _MODULES:
+        spec = importlib.import_module(f"{__package__}.{mod}").SPEC
+        _REGISTRY[spec.name] = spec
+
+
+def get_arch(name: str) -> ArchSpec:
+    _load()
+    return _REGISTRY[name]
+
+
+def all_archs() -> Dict[str, ArchSpec]:
+    _load()
+    return dict(_REGISTRY)
+
+
+# n_edges counts undirected edges; a full-graph run doubles them into
+# directed ones (repro/launch/steps.py _gnn_counts).
+GNN_SHAPES = (
+    ShapeSpec(name="full_graph_sm", kind="full_graph", n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeSpec(name="minibatch_lg", kind="minibatch", n_nodes=232965, n_edges=114615892,
+              batch_nodes=1024, fanouts=(15, 10), d_feat=602),
+    ShapeSpec(name="ogb_products", kind="full_graph", n_nodes=2449029, n_edges=61859140, d_feat=100),
+    ShapeSpec(name="molecule", kind="batched_graphs", n_nodes=30, n_edges=64, batch_graphs=128, d_feat=16),
+)

@@ -5,6 +5,8 @@ The ``*_from_numpy`` functions take the leaves of the JAX
 those attributes whose values ``numpy.asarray`` accepts) and build the
 port's tensors; :func:`comp_to_numpy` hands port tensors back as NumPy
 arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
+:func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
+parameters and a ``build_graph_data`` dict across.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from .engine import CompTensors, PaddedPartition, map_tensors
 from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
-           "comp_to_numpy", "to_numpy"]
+           "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "graph_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -58,3 +60,27 @@ def to_numpy(x):
 def comp_to_numpy(tc: CompTensors) -> CompTensors:
     """A port ``CompTensors`` with NumPy leaves (for ``comp_to_host``)."""
     return to_numpy(tc)
+
+
+def gnn_params_from_numpy(params, device="cuda"):
+    """Port tensors of a JAX GNN parameter dict (NumPy-convertible leaves),
+    in each leaf's own type. bfloat16 leaves pass through float32, which
+    holds every bfloat16 value exactly."""
+    out = {}
+    for name, v in params.items():
+        arr = np.asarray(v)
+        if arr.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+    return out
+
+
+def graph_from_numpy(raw, device="cuda"):
+    """A port ``models.gnn.GraphData`` from a ``build_graph_data`` dict.
+    The model layer is imported here, not with this module, so that the
+    DDSL state converters do not pull it in."""
+    from .models.gnn import GraphData
+
+    return GraphData(**{k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
+                        for k in GraphData.__dataclass_fields__})

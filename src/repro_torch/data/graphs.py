@@ -1,9 +1,9 @@
-"""R-MAT graphs and batch updates.
+"""R-MAT graphs, batch updates and padded GNN graphs.
 
-Host copy (NumPy only) of ``rmat_graph`` and ``sample_update`` from
-``repro/data/graphs.py``. Both draw from ``numpy.random.default_rng(seed)``
-exactly as the originals do, so a seed gives the same graph and the same
-batch in both packages.
+Host copy (NumPy only) of ``rmat_graph``, ``sample_update`` and
+``build_graph_data`` from ``repro/data/graphs.py``. Each draws from
+``numpy.random.default_rng(seed)`` exactly as the original does, so a seed
+gives the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 
 from ..core.graph import Graph, GraphUpdate
 
-__all__ = ["rmat_graph", "sample_update"]
+__all__ = ["rmat_graph", "sample_update", "build_graph_data"]
 
 
 def rmat_graph(n_log2: int, n_edges: int, seed: int = 0,
@@ -51,3 +51,30 @@ def sample_update(graph: Graph, n_delete: int, n_add: int, seed: int = 0) -> Gra
         codes.add(code)
         add.append((min(int(a_), int(b_)), max(int(a_), int(b_))))
     return GraphUpdate(delete=dele, add=np.asarray(add, np.int64).reshape(-1, 2))
+
+
+def build_graph_data(n_nodes: int, n_edges: int, d_feat: int, d_edge: int = 0,
+                     seed: int = 0, pad_nodes: int | None = None,
+                     pad_edges: int | None = None, geometric: bool = False):
+    """Copy of ``repro.data.graphs.build_graph_data``: padded GraphData
+    arrays (NumPy) for the GNN models, uniform random edges."""
+    rng = np.random.default_rng(seed)
+    pn = pad_nodes or n_nodes
+    pe = pad_edges or n_edges
+    x = np.zeros((pn, d_feat), np.float32)
+    x[:n_nodes] = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    src = np.full(pe, pn - 1, np.int32)
+    dst = np.full(pe, pn - 1, np.int32)
+    src[:n_edges] = rng.integers(0, n_nodes, n_edges)
+    dst[:n_edges] = rng.integers(0, n_nodes, n_edges)
+    ea = np.zeros((pe, max(d_edge, 1)), np.float32)
+    if d_edge:
+        ea[:n_edges] = rng.normal(size=(n_edges, d_edge)).astype(np.float32)
+    nm = np.zeros(pn, bool)
+    nm[:n_nodes] = True
+    em = np.zeros(pe, bool)
+    em[:n_edges] = True
+    pos = np.zeros((pn, 3), np.float32)
+    if geometric:
+        pos[:n_nodes] = rng.normal(size=(n_nodes, 3)).astype(np.float32)
+    return dict(x=x, src=src, dst=dst, edge_attr=ea, node_mask=nm, edge_mask=em, positions=pos)

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "member_probe_launch": (_P, _P, _P, _P, _L, _I, _P, _P),
     # a, b, g, ca, cb, pad, out, stream
     "set_intersect_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # data, is_bf16, seg, rows, d, n, acc, stream
+    "segment_sum_launch": (_P, _I, _P, _L, _L, _L, _P, _P),
 }
 
 

@@ -1,4 +1,4 @@
-"""Dispatch of the engine's two kernels (twin of ``repro/kernels/ops.py``).
+"""Dispatch of the port's kernels (twin of ``repro/kernels/ops.py``).
 
 The path follows the tensor's device: a CUDA tensor with
 ``use_kernels=True`` launches the hand-written kernel; ``use_kernels=False``
@@ -8,17 +8,21 @@ tensor raises. A failed build or launch raises — nothing falls back.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import ref
+from .ref import ACC_DTYPE
 from .member_probe import member_probe_cuda
+from .segment_sum import segment_sum_cuda
 from .set_intersect import set_intersect_cuda
 
-__all__ = ["set_intersect", "member_probe", "launch_counts", "reset_launch_counts"]
+__all__ = ["set_intersect", "member_probe", "segment_sum", "ACC_DTYPE", "launch_counts",
+           "reset_launch_counts"]
 
-_KERNELS = {"member_probe": member_probe_cuda, "set_intersect": set_intersect_cuda}
+_KERNELS = {"member_probe": member_probe_cuda, "set_intersect": set_intersect_cuda,
+            "segment_sum": segment_sum_cuda}
 
 
 def _use_kernel(t: torch.Tensor, use_kernels: bool, name: str) -> bool:
@@ -45,6 +49,27 @@ def member_probe(q_hi: torch.Tensor, q_lo: torch.Tensor, t_hi: torch.Tensor,
         return member_probe_cuda(q_hi.contiguous(), q_lo.contiguous(),
                                  t_hi.contiguous(), t_lo.contiguous())
     return ref.member_probe_ref(q_hi, q_lo, t_hi, t_lo)
+
+
+def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int, *, use_kernels: bool,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[s, :] = Σ_{i : seg[i] = s} data[i, :]``; ids outside ``[0, n)``
+    are dropped and need not be sorted.
+
+    Sums in ``ACC_DTYPE`` (float64). Without ``acc`` it returns
+    ``[n, D]`` in ``data.dtype``; with ``acc`` (``ACC_DTYPE`` ``[n, D]``)
+    it adds into that buffer and returns it, so a caller can sum over
+    slices of the rows.
+    """
+    if acc is not None and (acc.dtype != ACC_DTYPE or tuple(acc.shape) != (n, data.shape[1])):
+        raise ValueError(f"segment_sum: acc must be {ACC_DTYPE} [{n}, {data.shape[1]}], "
+                         f"got {acc.dtype} {tuple(acc.shape)}")
+    if not _use_kernel(data, use_kernels, "segment_sum"):
+        return ref.segment_sum_ref(data, seg, n, acc)
+    out = acc if acc is not None else torch.zeros((n, data.shape[1]), dtype=ACC_DTYPE,
+                                                  device=data.device)
+    segment_sum_cuda(data.contiguous(), seg.contiguous(), out)
+    return out if acc is not None else out.to(data.dtype)
 
 
 def launch_counts() -> Dict[str, int]:

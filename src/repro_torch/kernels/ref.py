@@ -11,7 +11,7 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref"]
+__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -19,6 +19,18 @@ _BIG = 2**31 - 1
 _SLICE_CELLS = 1 << 28
 # Queries per slice of the binary search: bounds its int32 transients.
 _PROBE_SLICE = 1 << 26
+# Cells per slice of the segment sum: bounds its float64 copy of the rows.
+_SEGMENT_CELLS = 1 << 26
+# The segment sum's accumulator type, kernel and plain version alike. The
+# float64 sum of m float32 (bfloat16) values is exact while their exponents
+# span fewer than 29 - log2(m) (45 - log2(m)) binades, so its rounding to the
+# output type almost never depends on the order of the adds: the kernel's
+# atomics and index_add_ give the same output, run after run. With float32
+# sums the order decides some roundings, and the 16-layer bf16 gatedgcn
+# grows those last-bit flips into large differences (PERF.md). Float32 is
+# the function's own accumulator type; float64 is provisional until a
+# deterministic sum or a revised check lets it go back (ROADMAP).
+ACC_DTYPE = torch.float64
 
 
 def set_intersect_ref(a: torch.Tensor, b: torch.Tensor, pad: int) -> torch.Tensor:
@@ -74,3 +86,26 @@ def member_probe_ref(q_hi: torch.Tensor, q_lo: torch.Tensor,
         found = (th[pos] == qh) & (tl[pos] == ql)
         flat[s:s + _PROBE_SLICE] = found & ~((qh == -1) & (ql == -1))
     return out
+
+
+def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor, n: int,
+                    acc: torch.Tensor | None = None) -> torch.Tensor:
+    """out[s, :] = Σ_{i : seg[i] = s} data[i, :]; ids outside [0, n) dropped.
+
+    Twin of ``repro.kernels.ref.segment_sum_ref`` (``jax.ops.segment_sum``,
+    which drops negative ids too). Ids need not be sorted. The rows are
+    summed in :data:`ACC_DTYPE` with ``index_add_``, ``_SEGMENT_CELLS``
+    cells at a time. Without ``acc`` the result is cast to ``data.dtype``;
+    with ``acc`` (``ACC_DTYPE`` ``[n, D]``) the sums are added into it and
+    it is returned as it is.
+    """
+    d = data.shape[1]
+    out = acc if acc is not None else torch.zeros((n, d), dtype=ACC_DTYPE, device=data.device)
+    if n > 0 and d > 0:
+        step = max(1, _SEGMENT_CELLS // d)
+        for s in range(0, data.shape[0], step):
+            ids = seg[s:s + step]
+            keep = (ids >= 0) & (ids < n)
+            rows = torch.where(keep[:, None], data[s:s + step].to(ACC_DTYPE), 0.0)
+            out.index_add_(0, ids.clamp(0, n - 1), rows)
+    return out if acc is not None else out.to(data.dtype)

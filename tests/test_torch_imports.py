@@ -17,6 +17,16 @@ from repro_torch.run import EXAMPLE_Q1, Pipeline, stages
 s1, b0 = stages(Pipeline(EXAMPLE_Q1, "cpu", use_kernels=False), 1)
 assert s1["phase"] == "stage1" and s1["count"] == 1282 and s1["overflow"] == 0, s1
 assert b0["phase"] == "batch" and b0["count"] == 1238 and b0["overflow"] == 0, b0
+import torch
+from repro_torch.configs import get_arch
+from repro_torch.data import build_graph_data
+from repro_torch.convert import graph_from_numpy
+from repro_torch.models import gnn
+cfg = get_arch("gatedgcn").smoke
+params = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+out = gnn.forward(params, graph_from_numpy(build_graph_data(32, 96, cfg.d_in), "cpu"), cfg,
+                  use_kernels=False)
+assert out.shape == (32, cfg.d_out) and bool(torch.isfinite(out).all()), out
 assert not any(m == "repro" or m.startswith(("repro.", "jax")) for m in sys.modules
                if sys.modules[m] is not None), "repro or jax was imported"
 print("standalone OK")
@@ -51,4 +61,4 @@ def test_no_source_imports_jax_or_repro():
 
 def test_kernel_sources_are_shipped():
     csrc = os.path.join(PKG, "kernels", "csrc")
-    assert sorted(os.listdir(csrc)) == ["member_probe.cu", "set_intersect.cu"]
+    assert sorted(os.listdir(csrc)) == ["member_probe.cu", "segment_sum.cu", "set_intersect.cu"]
