@@ -38,6 +38,34 @@ Prints one JSON object per line, in phases:
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
    kernel against plain.
+10. ``kernel_check`` (``flash_attention``) — the attention kernel against
+   its plain version at the serving shapes (prefill q [4, 24, 8192, 128]
+   over k/v [4, 8, 8208, 128]; the second 4,096-token chunk at offset
+   4,096; decode at offsets 8,192 and 8,206) and at edge cases (float32
+   and bf16; Dh 8, 20, 64, 128, 256; MHA; Lq 1; q_offset + Lq = Lk;
+   non-causal; Lk not a multiple of the tile; a bf16 Dh 20 must raise).
+   Each output element is held to the plain version on the inputs in
+   float32 (see ``attention_limits``): within 1e-5 * sum_j p_j |v_j| in
+   float32, and within one bf16 rounding of that in bf16. With the
+   kernel's, the plain version's and ``scaled_dot_product_attention``'s
+   median ms beside the bound.
+11. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
+   (32 layers, d_model 3,072, 24/8 heads of 128, d_ff 8,192, vocab
+   200,064, bf16, random weights from seed 0) through
+   ``repro_torch.launch.serve.serve``: 4 prompts of 8,192 tokens, prefill
+   then 15 greedy decode steps, once with the kernels (32 launches of
+   the 64-row ``flash_attention`` kernel and 480 of the one-row
+   ``flash_decode`` kernel) and once plain, teacher-forced on the kernel
+   run's tokens (0 launches); outputs finite. ``lm_chunked``:
+   ``prefill_chunked`` (chunk 4,096, 64 launches) on the same prompts;
+   its last logits and its cache within 1e-2 * max |unchunked| of the
+   unchunked prefill's, and the same first token. ``lm_profile``: one
+   more kernel prefill and one decode step under ``torch.profiler``.
+   ``lm_equal``: the gate, the same model in
+   float32 (2 prompts of 2,048 tokens, 8 tokens each), kernel against
+   plain within 1e-3 * max |plain| of the logits at every step; and,
+   reported, the bf16 run's largest logit difference and its share of
+   equal greedy tokens.
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
@@ -66,16 +94,24 @@ import torch  # noqa: E402
 WT_INITIAL_COUNT = 395_050
 EXAMPLE_COUNTS = {"q1_square": (1282, 1238, 1128, 1086), "q2_triangle": (188, 182, 172, 168)}
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
-# tensor cores as the peak for 32-bit integer compares and float32 adds.
+# NVIDIA H100 SXM data sheet: HBM3 rate, the float32 rate outside the
+# tensor cores as the peak for 32-bit integer compares and float32 adds and
+# float32 attention, and the dense bf16 tensor-core rate for bf16 attention.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 N_BATCHES = 3
 DDSL_KERNELS = ("member_probe", "set_intersect")
 # The GNN slice: gatedgcn on ogb_products (configs/registry.py GNN_SHAPES;
 # a full-graph run doubles the undirected edges, launch/steps.py).
 GNN_ARCH, GNN_SHAPE = "gatedgcn", "ogb_products"
 GNN_SMALL = (("graphsage-reddit", 1e-4), ("meshgraphnet", 3e-2))
+# The LM slice: phi4-mini-3.8b serving (configs/phi4_mini_3_8b.py _FULL).
+# The repo's prefill_32k shape (32 x 32,768 tokens) needs a 137 GB cache:
+# cut to 4 prompts of 8,192 tokens and 16 generated tokens each.
+LM_ARCH = "phi4-mini-3.8b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHUNK = 4, 8192, 16, 4096
+LM_EQ_BATCH, LM_EQ_PROMPT, LM_EQ_GEN = 2, 2048, 8
 
 
 def emit(obj) -> None:
@@ -114,9 +150,9 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -521,6 +557,295 @@ def gnn_small_phase():
               **compare_outputs(arch, out_k, out_p, tol)})
 
 
+# ---------------------------------------------------------------------------
+# LM slice: flash_attention and phi4-mini-3.8b serving
+# ---------------------------------------------------------------------------
+
+def attention_work(b, hq, hkv, lq, lk, dh, off, causal, elem):
+    """The function's keys admitted per query row, operations and bytes:
+    4 * b * hq * dh FLOP per admitted (query, key) pair; q and out once, and
+    the admitted key/value rows of each KV head once."""
+    admitted = off + lq if causal else lk
+    pairs = lq * off + lq * (lq + 1) // 2 if causal else lq * lk
+    flops = 4 * b * hq * dh * pairs
+    n_bytes = elem * (2 * b * hq * lq * dh + 2 * b * hkv * admitted * dh)
+    return admitted, flops, n_bytes
+
+
+def sdpa_call(q, k, v, off, causal):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function, on K/V cut to the admitted keys (its yardstick; the port
+    never calls it)."""
+    import torch.nn.functional as F
+
+    lq = q.shape[2]
+    admitted = off + lq if causal else k.shape[2]
+    kc, vc = k[:, :, :admitted].contiguous(), v[:, :, :admitted].contiguous()
+    if causal and lq == admitted:
+        return lambda: F.scaled_dot_product_attention(q, kc, vc, is_causal=True, enable_gqa=True)
+    mask = None
+    if causal:
+        i = torch.arange(lq, device=q.device)[:, None]
+        mask = torch.arange(admitted, device=q.device)[None, :] <= i + (admitted - lq)
+    return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask, enable_gqa=True)
+
+
+def attention_limits(q, k, v, off, causal):
+    """The plain version on the inputs in float32, and the limit each
+    output element is held to. A float32 evaluation of the softmax-weighted
+    mean sum_j p_j v_j errs by some float32 roundings of sum_j p_j |v_j|
+    (the plain version over |v|): the float32 limit is 1e-5 of that. A
+    bfloat16 output is one rounding of such a float32 value, off by at
+    most 2**-8 of its size."""
+    from repro_torch.kernels import ref
+
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = ref.flash_attention_ref(q32, k32, v32, causal=causal, q_offset=off)
+    limit = 1e-5 * ref.flash_attention_ref(q32, k32, v32.abs(), causal=causal, q_offset=off)
+    if q.dtype == torch.bfloat16:
+        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    return want, limit
+
+
+def flash_attention_phase():
+    """The attention kernel against its plain version at the serving
+    shapes and at edge cases, each timed beside its plain version, SDPA
+    and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    mx = LM_PROMPT + LM_GEN
+    # name: (b, hq, hkv, lq, lk, dh, q_offset, causal, dtypes)
+    cases = {
+        "prefill": (LM_BATCH, 24, 8, LM_PROMPT, mx, 128, 0, True, (bf16,)),
+        "chunk_2": (LM_BATCH, 24, 8, LM_CHUNK, mx, 128, LM_CHUNK, True, (bf16,)),
+        "decode_first": (LM_BATCH, 24, 8, 1, mx, 128, LM_PROMPT, True, (bf16,)),
+        "decode_last": (LM_BATCH, 24, 8, 1, mx, 128, mx - 2, True, (bf16,)),
+        "prefill_f32_gate": (LM_EQ_BATCH, 24, 8, LM_EQ_PROMPT, LM_EQ_PROMPT + LM_EQ_GEN, 128, 0,
+                             True, (f32,)),
+        "dh8": (2, 6, 2, 300, 333, 8, 0, True, (f32, bf16)),
+        "dh64_mha": (2, 8, 8, 257, 257, 64, 0, True, (f32, bf16)),
+        "lq1": (3, 6, 2, 1, 1000, 128, 517, True, (f32, bf16)),
+        "offset_plus_lq_eq_lk": (1, 6, 2, 100, 357, 128, 257, True, (f32, bf16)),
+        "noncausal": (2, 6, 2, 200, 512, 128, 0, False, (f32, bf16)),
+        "lk_not_tile_multiple": (1, 3, 1, 1000, 1001, 128, 1, True, (f32, bf16)),
+        "dh256_short": (1, 4, 2, 9, 40, 256, 31, True, (f32, bf16)),
+        # Dh 20: five 16-byte float32 chunks, a partial column block
+        "dh20": (2, 4, 2, 50, 77, 20, 27, True, (f32,)),
+        "dh20_lq3": (2, 4, 2, 3, 77, 20, 74, True, (f32,)),
+    }
+    # Dh 20 in bf16 is not a whole number of 16-byte chunks: refused
+    q, k = (torch.zeros(s, device="cuda", dtype=bf16) for s in ((1, 2, 3, 20), (1, 2, 9, 20)))
+    try:
+        flash_attention_cuda(q, k, k, causal=True, q_offset=0)
+        fail("flash_attention took a bf16 Dh of 20")
+    except ValueError:
+        pass
+    out = []
+    for name, (b, hq, hkv, lq, lk, dh, off, causal, dtypes) in cases.items():
+        for dtype in dtypes:
+            q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                       for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)))
+            got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+            want32, limit = attention_limits(q, k, v, off, causal)
+            dev = (got.float() - want32).abs()
+            worst = float((dev / limit).max())
+            err = float((got.float() - want.float()).abs().max())
+            tag = str(dtype).split(".")[-1]
+            check(worst <= 1.0, f"flash_attention {name} {tag}: |kernel - plain in float32| "
+                                f"reaches {worst} of its limit")
+            rec = {"case": name, "dtype": tag, "b": b, "hq": hq, "hkv": hkv, "lq": lq, "lk": lk,
+                   "dh": dh, "q_offset": off, "causal": causal, "max_abs_err": err,
+                   "max_abs_ref": float(want32.abs().max()),
+                   "max_abs_err_f32_plain": float(dev.max()), "max_err_over_limit": worst}
+            del want32, limit, dev
+            admitted, flops, n_bytes = attention_work(b, hq, hkv, lq, lk, dh, off, causal,
+                                                      q.element_size())
+            rec["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                             q_offset=off))
+            rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, q_offset=off), reps=3)
+            rec["library_ms"] = cuda_ms(sdpa_call(q, k, v, off, causal))
+            rec["admitted_keys"], rec["flops"], rec["bytes"] = admitted, flops, n_bytes
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                n_bytes, flops, PEAK_BF16_FLOPS if dtype == bf16 else PEAK_OPS_PER_S)
+            rec["tflop_per_s"] = flops / rec["ms"] / 1e9
+            out.append(rec)
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=None):
+    """One ``serve`` call (prefill + gen - 1 decode steps); its record,
+    result and launch counts, the counts taken over exactly this call."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve(cfg, params, prompt, gen, use_kernels=use_kernels, forced=forced)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    b = prompt.shape[0]
+    prefill_s = res.records[0]["seconds"]
+    decode = [r["seconds"] for r in res.records[1:]]
+    rec = {"phase": "lm_serve", "arch": cfg.name, "run": label, "dtype": cfg.dtype, "batch": b,
+           "prompt_len": prompt.shape[1], "gen": gen, "teacher_forced": forced is not None,
+           "prefill_seconds": prefill_s, "decode_seconds": sum(decode),
+           "decode_ms_per_step": 1e3 * sum(decode) / len(decode),
+           "decode_ms_median": 1e3 * statistics.median(decode),
+           "decode_tokens_per_s": b * len(decode) / sum(decode),
+           "generated_tokens_per_s": b * gen / wall, "wall_seconds": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "flash_attention_launches": counts["flash_attention"],
+           "flash_decode_launches": counts["flash_decode"],
+           "finite": bool(torch.isfinite(res.logits).all()),
+           "ids_first_request": res.ids[0].tolist()}
+    check(rec["finite"], f"{cfg.name} {label}: logits are not finite")
+    check(tuple(res.ids.shape) == (b, gen), f"{cfg.name} {label}: ids {tuple(res.ids.shape)}")
+    return rec, res, counts
+
+
+def step_ratios(res_k, res_p):
+    """max |kernel - plain| / max |plain| of the logits at each step."""
+    out = []
+    for i in range(res_k.logits.shape[1]):
+        lk, lp = res_k.logits[:, i].float(), res_p.logits[:, i].float()
+        out.append(float((lk - lp).abs().max()) / float(lp.abs().max()))
+    return out
+
+
+def lm_phase():
+    """phi4-mini-3.8b serving at full width: kernels, plain, chunked,
+    profiled, and the float32 gate; returns the kernel run's launches.
+    A prefill launches the 64-row kernel once a layer, a decode step the
+    one-row kernel once a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as tf
+    import dataclasses
+
+    cfg = get_arch(LM_ARCH).config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2**30
+    prompt = torch.from_numpy(prompt_tokens(cfg.vocab, LM_BATCH, LM_PROMPT, 0)).cuda()
+    predicted = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (LM_GEN - 1)}
+    emit({"phase": "lm_plan", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.d_head,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "params": cfg.param_count(), "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+          "gen": LM_GEN, "max_len": LM_PROMPT + LM_GEN,
+          "predicted_launches": predicted, "init_seconds": init_s,
+          "resident_gib": resident})
+
+    rec, res_k, counts = lm_run(cfg, params, prompt, LM_GEN, True, "kernels")
+    rec["resident_gib"] = resident
+    emit(rec)
+    for name, n in predicted.items():
+        check(counts[name] == n, f"{name} launched {counts[name]} times, predicted {n}")
+    others = {k: n for k, n in counts.items() if k not in predicted and n}
+    check(not others, f"other kernels launched on the LM path: {others}")
+    rec, res_p, plain_counts = lm_run(cfg, params, prompt, LM_GEN, False, "plain",
+                                      forced=res_k.ids)
+    rec["resident_gib"] = resident
+    emit(rec)
+    check(not any(plain_counts.values()), f"the plain serve launched kernels: {plain_counts}")
+    ratios = step_ratios(res_k, res_p)
+    bf16_equal = {"dtype": "bfloat16", "max_ratio": max(ratios), "step_ratios": ratios,
+                  "equal_token_share": float((res_k.ids == res_p.ids).float().mean())}
+    del res_p
+    torch.cuda.empty_cache()
+
+    # chunked prefill against the kernel run's unchunked prefill
+    from repro_torch.kernels import ops
+
+    cache = tf.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_c, _ = tf.prefill_chunked(params, prompt, cache, cfg, chunk=LM_CHUNK, use_kernels=True)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    chunk_counts = ops.launch_counts()
+    n_chunk = chunk_counts["flash_attention"]
+    want = cfg.n_layers * (LM_PROMPT // LM_CHUNK)
+    check(n_chunk == want and chunk_counts["flash_decode"] == 0,
+          f"chunked prefill launched {chunk_counts}, predicted {want} flash_attention")
+    whole = res_k.logits[:, 0].float()
+    rec = {"phase": "lm_chunked", "chunk": LM_CHUNK, "seconds": chunked_s,
+           "flash_attention_launches": n_chunk,
+           "finite": bool(torch.isfinite(logits_c).all()),
+           "logits_max_abs_diff": float((logits_c[:, -1].float() - whole).abs().max()),
+           "logits_max_abs_unchunked": float(whole.abs().max()),
+           "same_first_token": bool(torch.equal(logits_c[:, -1].argmax(-1), res_k.ids[:, 0]))}
+    for i, name in enumerate(("k", "v")):
+        a = cache["dense"][i][:, :, :, :LM_PROMPT].float()
+        b = res_k.cache["dense"][i][:, :, :, :LM_PROMPT].float()
+        rec[f"cache_{name}_max_abs_diff"] = float((a - b).abs().max())
+        rec[f"cache_{name}_max_abs"] = float(b.abs().max())
+        del a, b
+    emit(rec)
+    check(rec["finite"], "chunked prefill logits are not finite")
+    check(rec["same_first_token"], "chunked prefill picks another first token")
+    for name in ("logits", "cache_k", "cache_v"):
+        top = rec["logits_max_abs_unchunked" if name == "logits" else f"{name}_max_abs"]
+        check(rec[f"{name}_max_abs_diff"] <= 1e-2 * top,
+              f"chunked prefill {name}: max |chunked - unchunked| "
+              f"{rec[f'{name}_max_abs_diff']} > 1e-2 * {top}")
+    del cache, logits_c, res_k
+    torch.cuda.empty_cache()
+
+    # where a prefill's and a decode step's device time goes
+    cache = tf.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN)
+    (logits, _), prof = profiled(lambda: tf.prefill(params, prompt, cache, cfg,
+                                                    use_kernels=True))
+    emit({"phase": "lm_profile", "arch": cfg.name, "stage": "prefill", **prof})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    _, prof = profiled(lambda: tf.decode_step(params, tok, cache, LM_PROMPT, cfg,
+                                              use_kernels=True))
+    emit({"phase": "lm_profile", "arch": cfg.name, "stage": "decode", "pos": LM_PROMPT, **prof})
+    del cache, params, logits
+    torch.cuda.empty_cache()
+
+    # the gate: the same model in float32, kernels against plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tf.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt32 = torch.from_numpy(prompt_tokens(cfg.vocab, LM_EQ_BATCH, LM_EQ_PROMPT, 1)).cuda()
+    rec_k, res_k, c32 = lm_run(cfg32, params32, prompt32, LM_EQ_GEN, True, "kernels")
+    rec_p, res_p, _ = lm_run(cfg32, params32, prompt32, LM_EQ_GEN, False, "plain",
+                             forced=res_k.ids)
+    check(c32["flash_attention"] == cfg.n_layers
+          and c32["flash_decode"] == cfg.n_layers * (LM_EQ_GEN - 1),
+          f"float32 run launched {c32}")
+    ratios = step_ratios(res_k, res_p)
+    f32_equal = {"dtype": "float32", "batch": LM_EQ_BATCH, "prompt_len": LM_EQ_PROMPT,
+                 "gen": LM_EQ_GEN, "limit_ratio": 1e-3, "max_ratio": max(ratios),
+                 "step_ratios": ratios,
+                 "equal_token_share": float((res_k.ids == res_p.ids).float().mean()),
+                 "kernel_prefill_seconds": rec_k["prefill_seconds"],
+                 "plain_prefill_seconds": rec_p["prefill_seconds"],
+                 "kernel_decode_ms_per_step": rec_k["decode_ms_per_step"],
+                 "plain_decode_ms_per_step": rec_p["decode_ms_per_step"]}
+    emit({"phase": "lm_equal", "gate": f32_equal, "reported": bf16_equal})
+    check(max(ratios) <= 1e-3, f"float32 logits: max |kernel - plain| / max |plain| "
+                               f"{max(ratios)} > 1e-3")
+    del params32, res_k, res_p
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -620,6 +945,16 @@ def main() -> None:
     # 9. the two other architectures at full width on the small graph
     gnn_small_phase()
 
+    # 10. flash_attention against its plain version at the serving shapes
+    checks["flash_attention"] = flash_attention_phase()
+    emit({"phase": "kernel_check", "flash_attention": checks["flash_attention"]})
+
+    # 11. phi4-mini-3.8b serving; launches counted over the kernel serve
+    lm_counts = lm_phase()
+    for name in ("flash_attention", "flash_decode"):
+        launches[name] = lm_counts[name]
+    checks["flash_decode"] = checks["flash_attention"]
+
     # summary lines
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -634,7 +969,11 @@ def main() -> None:
                "set_intersect": ("src/repro_torch/kernels/csrc/set_intersect.cu",
                                  "src/repro/kernels/set_intersect.py:34", "ccjoin"),
                "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
-                               "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice")}
+                               "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:84", "prefill"),
+               "flash_decode": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:84", "decode_first")}
     kernels = []
     for name, (src, replaces, case) in sources.items():
         rec = next(r for r in checks[name] if r["case"] == case)

@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the GNN family only.
+"""Architecture registry of the port: the GNN and LM families it runs.
 
-Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch`` and ``GNN_SHAPES`` from
-``repro/configs/registry.py``, restricted to the three GNN architectures
-the port runs (gatedgcn, graphsage-reddit, meshgraphnet).
+Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES`` and
+``GNN_SHAPES`` from ``repro/configs/registry.py``, restricted to the
+architectures the port runs: gatedgcn, graphsage-reddit and meshgraphnet
+(GNN full-graph inference) and phi4-mini-3.8b (LM serving).
 """
 
 from __future__ import annotations
@@ -11,13 +12,15 @@ import dataclasses
 import importlib
 from typing import Any, Dict, Tuple
 
-__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES", "get_arch", "all_archs"]
+__all__ = ["ShapeSpec", "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "get_arch", "all_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # full_graph | minibatch | batched_graphs
+    kind: str  # train | prefill | decode | full_graph | minibatch | batched_graphs
+    seq_len: int = 0
+    global_batch: int = 0
     n_nodes: int = 0
     n_edges: int = 0
     d_feat: int = 0
@@ -29,7 +32,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                  # gnn
+    family: str                  # lm | gnn
     config: Any
     smoke: Any
     shapes: Tuple[ShapeSpec, ...]
@@ -42,7 +45,7 @@ class ArchSpec:
         raise KeyError(f"{self.name}: unknown shape {name}")
 
 
-_MODULES = ["gatedgcn", "graphsage_reddit", "meshgraphnet"]
+_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet"]
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
@@ -64,6 +67,16 @@ def all_archs() -> Dict[str, ArchSpec]:
     _load()
     return dict(_REGISTRY)
 
+
+LM_SHAPES = (
+    ShapeSpec(name="train_4k", kind="train", seq_len=4096, global_batch=256),
+    ShapeSpec(name="prefill_32k", kind="prefill", seq_len=32768, global_batch=32),
+    ShapeSpec(name="decode_32k", kind="decode", seq_len=32768, global_batch=128),
+    # long_500k lowers serve_step (1 new token against a 512k KV cache) —
+    # O(L) per token, runnable for full-attention archs; a 500k *prefill*
+    # would need sub-quadratic attention and is not defined here.
+    ShapeSpec(name="long_500k", kind="decode", seq_len=524288, global_batch=1),
+)
 
 # n_edges counts undirected edges; a full-graph run doubles them into
 # directed ones (repro/launch/steps.py _gnn_counts).

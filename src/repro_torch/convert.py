@@ -6,7 +6,8 @@ those attributes whose values ``numpy.asarray`` accepts) and build the
 port's tensors; :func:`comp_to_numpy` hands port tensors back as NumPy
 arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
 :func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
-parameters and a ``build_graph_data`` dict across.
+parameters and a ``build_graph_data`` dict across, :func:`lm_params_from_numpy`
+the transformer's nested parameter dict.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from .engine import CompTensors, PaddedPartition, map_tensors
 from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
-           "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "graph_from_numpy"]
+           "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "lm_params_from_numpy",
+           "graph_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -62,18 +64,26 @@ def comp_to_numpy(tc: CompTensors) -> CompTensors:
     return to_numpy(tc)
 
 
+def _param(v, device) -> torch.Tensor:
+    """A port tensor of one NumPy-convertible parameter leaf, in its own
+    type. bfloat16 passes through float32, which holds every bfloat16
+    value exactly."""
+    arr = np.asarray(v)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+
+
 def gnn_params_from_numpy(params, device="cuda"):
-    """Port tensors of a JAX GNN parameter dict (NumPy-convertible leaves),
-    in each leaf's own type. bfloat16 leaves pass through float32, which
-    holds every bfloat16 value exactly."""
-    out = {}
-    for name, v in params.items():
-        arr = np.asarray(v)
-        if arr.dtype.name == "bfloat16":
-            out[name] = torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
-        else:
-            out[name] = torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
-    return out
+    """Port tensors of a JAX GNN parameter dict (NumPy-convertible leaves)."""
+    return {name: _param(v, device) for name, v in params.items()}
+
+
+def lm_params_from_numpy(params, device="cuda"):
+    """Port tensors of a JAX transformer parameter dict: ``embed``,
+    ``final_norm``, ``lm_head`` and the layer-stacked ``dense`` dict."""
+    return {name: lm_params_from_numpy(v, device) if isinstance(v, dict) else _param(v, device)
+            for name, v in params.items()}
 
 
 def graph_from_numpy(raw, device="cuda"):

@@ -36,6 +36,9 @@ _SIGNATURES = {
     "set_intersect_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     # data, is_bf16, seg, rows, d, n, acc, stream
     "segment_sum_launch": (_P, _I, _P, _L, _L, _L, _P, _P),
+    # q, k, v, out, is_bf16, one_row, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P),
 }
 
 

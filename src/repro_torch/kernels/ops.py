@@ -14,15 +14,20 @@ import torch
 
 from . import ref
 from .ref import ACC_DTYPE
+from .flash_attention import flash_attention_cuda
 from .member_probe import member_probe_cuda
 from .segment_sum import segment_sum_cuda
 from .set_intersect import set_intersect_cuda
 
-__all__ = ["set_intersect", "member_probe", "segment_sum", "ACC_DTYPE", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["set_intersect", "member_probe", "segment_sum", "flash_attention", "ACC_DTYPE",
+           "launch_counts", "reset_launch_counts"]
 
-_KERNELS = {"member_probe": member_probe_cuda, "set_intersect": set_intersect_cuda,
-            "segment_sum": segment_sum_cuda}
+# kernel name: (wrapper, its attribute that counts the kernel's launches)
+_COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
+             "set_intersect": (set_intersect_cuda, "launches"),
+             "segment_sum": (segment_sum_cuda, "launches"),
+             "flash_attention": (flash_attention_cuda, "launches"),
+             "flash_decode": (flash_attention_cuda, "decode_launches")}
 
 
 def _use_kernel(t: torch.Tensor, use_kernels: bool, name: str) -> bool:
@@ -72,11 +77,23 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int, *, use_kernels: b
     return out if acc is not None else out.to(data.dtype)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    q_offset: int = 0, use_kernels: bool) -> torch.Tensor:
+    """Grouped-query attention of ``q [B, Hq, Lq, Dh]`` over ``k, v
+    [B, Hkv, Lk, Dh]``: query ``i`` sees keys ``j ≤ i + q_offset`` when
+    ``causal``. The kernel keeps the TPU kernel's contracts and raises on
+    them; the plain version, like the JAX reference, does not."""
+    if _use_kernel(q, use_kernels, "flash_attention"):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal, q_offset=q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel."""
-    return {name: fn.launches for name, fn in _KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _KERNELS.values():
-        fn.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "ACC_DTYPE"]
+__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "flash_attention_ref",
+           "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -21,6 +22,9 @@ _SLICE_CELLS = 1 << 28
 _PROBE_SLICE = 1 << 26
 # Cells per slice of the segment sum: bounds its float64 copy of the rows.
 _SEGMENT_CELLS = 1 << 26
+# Score cells (b · hq · rows · lk) per query slice of the plain attention:
+# bounds its float32 scores and probabilities at 1 GiB each.
+_ATTN_CELLS = 1 << 28
 # The segment sum's accumulator type, kernel and plain version alike. The
 # float64 sum of m float32 (bfloat16) values is exact while their exponents
 # span fewer than 29 - log2(m) (45 - log2(m)) binades, so its rounding to the
@@ -28,8 +32,10 @@ _SEGMENT_CELLS = 1 << 26
 # atomics and index_add_ give the same output, run after run. With float32
 # sums the order decides some roundings, and the 16-layer bf16 gatedgcn
 # grows those last-bit flips into large differences (PERF.md). Float32 is
-# the function's own accumulator type; float64 is provisional until a
-# deterministic sum or a revised check lets it go back (ROADMAP).
+# the function's own accumulator type. Float64 stays until the segment-sum
+# kernel is redesigned for this card; the redesign chooses between a
+# deterministic float32 CSR sum and float64, with a check that both paths
+# share (ROADMAP Queue 2 item 3).
 ACC_DTYPE = torch.float64
 
 
@@ -109,3 +115,36 @@ def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor, n: int,
             rows = torch.where(keep[:, None], data[s:s + step].to(ACC_DTYPE), 0.0)
             out.index_add_(0, ids.clamp(0, n - 1), rows)
     return out if acc is not None else out.to(data.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Grouped-query attention: query ``i`` of head ``h`` attends to keys
+    ``j ≤ i + q_offset`` (all keys if not ``causal``) of KV head
+    ``h // (Hq / Hkv)``. q: ``[B, Hq, Lq, Dh]``, k, v: ``[B, Hkv, Lk, Dh]``.
+
+    Twin of ``repro.kernels.ref.flash_attention_ref``: scores, softmax and
+    sums in float32, the output in q's type. The query axis is taken
+    ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time, so the score
+    transient stays bounded whatever the prompt length.
+    """
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kt = k.float().transpose(-1, -2)       # [B, Hkv, Dh, Lk]
+    vf = v.float()
+    root = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=q.device))
+    qg = q.reshape(b, hkv, group, lq, dh)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
+    for s in range(0, lq, step):
+        rows = min(step, lq - s)
+        qs = qg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
+        logits = (torch.matmul(qs, kt) / root).view(b, hkv, group, rows, lk)
+        if causal:
+            qpos = torch.arange(s, s + rows, device=q.device)[:, None] + q_offset
+            kpos = torch.arange(lk, device=q.device)[None, :]
+            logits.masked_fill_(kpos > qpos, -math.inf)
+        probs = torch.softmax(logits, dim=-1).view(b, hkv, group * rows, lk)
+        out[:, :, s:s + rows] = torch.matmul(probs, vf).view(b, hq, rows, dh).to(q.dtype)
+    return out

@@ -1,5 +1,6 @@
-"""Model ports of ``repro/models``: GNN full-graph inference."""
+"""Model ports of ``repro/models``: GNN full-graph inference and
+transformer serving."""
 
-from . import gnn
+from . import gnn, transformer
 
-__all__ = ["gnn"]
+__all__ = ["gnn", "transformer"]

@@ -27,6 +27,14 @@ params = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 out = gnn.forward(params, graph_from_numpy(build_graph_data(32, 96, cfg.d_in), "cpu"), cfg,
                   use_kernels=False)
 assert out.shape == (32, cfg.d_out) and bool(torch.isfinite(out).all()), out
+from repro_torch.models import transformer as tf
+lm = get_arch("phi4-mini-3.8b").smoke
+lm_params = tf.init_params(lm, torch.Generator().manual_seed(0), "cpu")
+cache = tf.init_cache(lm, 2, 12, "cpu")
+logits, cache = tf.prefill(lm_params, torch.randint(0, lm.vocab, (2, 8)), cache, lm,
+                           use_kernels=False)
+assert logits.shape == (2, 1, lm.vocab) and bool(torch.isfinite(logits).all()), logits
+assert bool(cache["dense"][0][:, :, :, :8].any()) and not cache["dense"][0][:, :, :, 8:].any()
 assert not any(m == "repro" or m.startswith(("repro.", "jax")) for m in sys.modules
                if sys.modules[m] is not None), "repro or jax was imported"
 print("standalone OK")
@@ -61,4 +69,5 @@ def test_no_source_imports_jax_or_repro():
 
 def test_kernel_sources_are_shipped():
     csrc = os.path.join(PKG, "kernels", "csrc")
-    assert sorted(os.listdir(csrc)) == ["member_probe.cu", "segment_sum.cu", "set_intersect.cu"]
+    assert sorted(os.listdir(csrc)) == ["flash_attention.cu", "member_probe.cu", "segment_sum.cu",
+                                        "set_intersect.cu"]

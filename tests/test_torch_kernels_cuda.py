@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions, on a GPU (exact
 equality for the integer kernels; segment_sum's float64 sums within 1e-5
-of the largest, exact for integer sums). Imports no JAX, so it runs on the machine with the card:
+of the largest, exact for integer sums; flash_attention element by
+element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
+float32, and within one bfloat16 rounding of that in bfloat16). Imports no
+JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
@@ -105,3 +108,71 @@ def test_segment_sum_kernel_counts_exactly_and_accumulates(cuda_device):
     want = ref.segment_sum_ref(data, ids, 900, torch.zeros_like(acc))
     assert (acc - want).abs().max() <= 1e-5 * float(want.abs().max())
     assert not ops.segment_sum(data, torch.full_like(ids, -1), 900, use_kernels=True).any()
+
+
+def _attn_inputs(seed, b, hq, hkv, lq, lk, dh, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+            for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,dh,off,causal", [
+    (2, 6, 2, 300, 300, 128, 0, True),     # prefill, group 3
+    (2, 6, 2, 100, 357, 128, 200, True),   # a later chunk; lk not a tile multiple
+    (2, 6, 2, 1, 357, 128, 300, True),     # decode
+    (1, 4, 4, 77, 77, 64, 0, True),        # MHA, Dh 64
+    (1, 2, 1, 33, 256, 8, 0, False),       # non-causal, Dh 8
+    (1, 2, 2, 5, 40, 256, 35, True),       # Dh 256, q_offset + lq == lk
+    (2, 4, 2, 50, 77, 24, 27, True),       # Dh 24: a partial column block
+    (2, 4, 2, 3, 77, 24, 74, True),        # Dh 24 with one-row tiles
+    (1, 3, 3, 16, 640, 64, 0, False),      # Lq 16, non-causal
+    (1, 3, 1, 17, 40, 128, 23, True),      # Lq 17: the smallest 64-row tile
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, lq, lk, dh, off, causal,
+                                              dtype):
+    """Each element against the plain version on the inputs in float32: a
+    float32 evaluation of sum_j p_j v_j errs by some roundings of
+    sum_j p_j |v_j| (limit 1e-5 of that), and a bfloat16 output is one
+    rounding of such a value (at most 2**-8 of its size more)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(lq + lk + dh, b, hq, hkv, lq, lk, dh, dtype, cuda_device)
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    assert got.dtype == dtype and got.shape == q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    limit = 1e-5 * ref.flash_attention_ref(q, k, v.abs(), causal=causal, q_offset=off)
+    if dtype == torch.bfloat16:
+        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    worst = float(((got.float() - want).abs() / limit).max())
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
+    from repro_torch.kernels import ops
+
+    q, k, v = _attn_inputs(0, 1, 4, 2, 16, 200, 32, torch.bfloat16, cuda_device)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, q_offset=184, use_kernels=True)  # Lq 16: one-row kernel
+    assert ops.launch_counts()["flash_decode"] == 1
+    assert torch.equal(out, ops.flash_attention(q, k, v, q_offset=184, use_kernels=True))
+    ops.flash_attention(q[:, :, :15], k, v, q_offset=0, use_kernels=True)
+    ops.flash_attention(torch.cat([q, q[:, :, :1]], 2), k, v, q_offset=0, use_kernels=True)
+    assert ops.launch_counts()["flash_decode"] == 3
+    assert ops.launch_counts()["flash_attention"] == 1  # Lq 17: the 64-row kernel
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, k, v, causal=False, use_kernels=True)
+    with pytest.raises(ValueError, match="past the last"):
+        ops.flash_attention(q, k, v, q_offset=185, use_kernels=True)
+    with pytest.raises(ValueError, match="type"):
+        ops.flash_attention(q.float(), k, v, q_offset=184, use_kernels=True)
+    with pytest.raises(ValueError, match="16-byte"):   # Dh 20 in bf16
+        ops.flash_attention(q[..., :20], k[..., :20], v[..., :20], use_kernels=True)
+    shifted = torch.zeros(k.numel() + 1, dtype=k.dtype, device=cuda_device)[1:].view_as(k)
+    with pytest.raises(ValueError, match="aligned"):   # contiguous, 2 bytes off
+        ops.flash_attention(q, shifted, v, q_offset=184, use_kernels=True)
+    assert ops.launch_counts()["flash_decode"] == 3
+    assert ops.launch_counts()["flash_attention"] == 1
