@@ -66,6 +66,28 @@ Prints one JSON object per line, in phases:
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
+12. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
+   its plain version on a ``[26,000,000, 64]`` float32 table (the 26
+   stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
+   ``serve_p99`` (13,312) must be equal; ``multi_hot`` (batch 4,096 with
+   MLPerf DLRM-DCNv2's per-field bag sizes, 214 rows a sample) within
+   n_b * 2**-23 * sum |rows| of the float64 sum, kernel and plain alike;
+   edge cases (bf16 within one bf16 rounding more, empty bags, bag ids
+   num_bags and -1, a row index V (NaN in its bag only), N = 0 and
+   num_bags = 0 without a launch, D = 13). With the kernel's, the plain
+   version's and ``torch.nn.functional.embedding_bag``'s median ms beside
+   the byte bound.
+13. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
+   (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
+   random weights from seed 0; TF32 off) through
+   ``repro_torch.launch.serve.serve_recsys``: 8 ``serve_p99`` requests
+   of 512, 2 ``serve_bulk`` requests of 262,144 and 2 ``retrieval_cand``
+   requests (1 query x 1,000,000 candidates), each shape after one
+   warm-up request, once with the kernels (one ``embedding_bag`` launch a
+   request: 15) and once plain (0). ``dlrm_equal``: logits of every request within 1e-5 *
+   max |plain|, and the embedding outputs (one-row bags) bitwise equal.
+   ``dlrm_profile``: three more ``serve_bulk`` forwards under
+   ``torch.profiler``, after a warm-up forward.
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
@@ -112,6 +134,15 @@ GNN_SMALL = (("graphsage-reddit", 1e-4), ("meshgraphnet", 3e-2))
 LM_ARCH = "phi4-mini-3.8b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CHUNK = 4, 8192, 16, 4096
 LM_EQ_BATCH, LM_EQ_PROMPT, LM_EQ_GEN = 2, 2048, 8
+# The DLRM slice: dlrm-rm2 serving (configs/dlrm_rm2.py _FULL, nothing
+# cut) at the three RECSYS_SHAPES, requests per shape.
+DLRM_ARCH = "dlrm-rm2"
+DLRM_REQUESTS = {"serve_p99": 8, "serve_bulk": 2, "retrieval_cand": 2}
+DLRM_PROFILED = 3  # serve_bulk forwards under the profiler
+# Lookups per field of MLPerf Training DLRM-DCNv2 on multi-hot Criteo
+# (214 a sample); the serve path keeps the repo's multi_hot = 1.
+MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3,
+                   1, 1)
 
 
 def emit(obj) -> None:
@@ -341,8 +372,22 @@ def profiled(fn):
            and not e.key.startswith("Command Buffer")]
     busy = sum(s for _, s, _ in dev)
     top = sorted(dev, key=lambda r: -r[1])[:12]
+    # device time of the kernels each host op launched itself (a kernel
+    # launched outside any op, as the port's are, is in "top" only)
+    by_op = sorted(((e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                   key=lambda r: -r[1])[:12]
+    # the device timeline: the profiler may miss the first kernels after it
+    # starts, so the kernel count and the span show what it saw
+    kern = [(e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    span = (max(a + d for a, d in kern) - min(a for a, _ in kern)) / 1e9 if kern else 0.0
     return result, {"wall_s": wall, "device_s": busy, "idle_share": max(0.0, 1 - busy / wall),
-                    "top": [{"kernel": k[:90], "s": s, "calls": n} for k, s, n in top]}
+                    "device_events": len(kern), "device_span_s": span,
+                    "span_idle_share": max(0.0, 1 - sum(d for _, d in kern) / 1e9 / span)
+                    if span else None,
+                    "top": [{"kernel": k[:90], "s": s, "calls": n} for k, s, n in top],
+                    "by_op": [{"op": k, "s": s, "calls": n} for k, s, n in by_op]}
 
 
 def profile_batch(pipe):
@@ -846,6 +891,270 @@ def lm_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# DLRM slice: embedding_bag and dlrm-rm2 serving
+# ---------------------------------------------------------------------------
+
+def dlrm_lookups(batch: int, sizes, v: int, gen):
+    """Row indices and bag ids of one DLRM forward over the stacked tables
+    (models/dlrm.py ``_embedding_bags``): ``sizes[f]`` uniform ids of field
+    f per example, row ``f * v + id``, bag ``b * F + f``, sorted by bag."""
+    n_f = len(sizes)
+    field = torch.repeat_interleave(torch.arange(n_f, device="cuda"),
+                                    torch.tensor(sizes, device="cuda"))          # [per example]
+    ids = torch.randint(0, v, (batch, field.shape[0]), generator=gen, device="cuda")
+    rows = (field[None, :] * v + ids).to(torch.int32).reshape(-1)
+    bags = (torch.arange(batch, device="cuda")[:, None] * n_f + field[None, :])
+    return rows, bags.to(torch.int32).reshape(-1), batch * n_f
+
+
+def bag_limits(table, idx, bag, nb):
+    """float64 bag sums of the rows in range, the limit a float32 sum is
+    held to (n_b * 2**-23 * sum |rows|), the rows per bag and the bags with
+    an out-of-range row (NaN by contract)."""
+    v, d = table.shape
+    keep = (bag >= 0) & (bag < nb)
+    b, i = bag[keep].long(), idx[keep].long()
+    ok = (i >= 0) & (i < v)
+    rows = table[i.clamp(0, v - 1)].double()
+    s = torch.zeros((nb, d), dtype=torch.float64, device="cuda").index_add_(0, b, rows)
+    a = torch.zeros_like(s).index_add_(0, b, rows.abs())
+    cnt = torch.bincount(b, minlength=nb)[:, None].double()
+    nan = torch.zeros(nb, dtype=torch.bool, device="cuda")
+    nan[b[~ok]] = True
+    return s, cnt * 2.0**-23 * a, cnt, nan
+
+
+def embedding_bag_phase():
+    """The embedding-bag kernel against its plain version at the DLRM
+    serving shapes, a multi-hot shape and edge cases, each timed beside
+    ``F.embedding_bag`` and its byte bound where it is large."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    cfg = get_arch(DLRM_ARCH).config
+    n_f, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    big = torch.randn((n_f * v, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    one = (1,) * n_f
+
+    def small(rows, width, dtype=torch.float32):
+        return torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
+
+    def unsorted(n, nb, v_rows):
+        idx = torch.randint(0, v_rows, (n,), generator=gen, dtype=torch.int32, device="cuda")
+        bag = torch.randint(0, nb, (n,), generator=gen, dtype=torch.int32, device="cuda")
+        return idx, bag
+
+    cases = {"serve_bulk": (big, *dlrm_lookups(262_144, one, v, gen)),
+             "serve_p99": (big, *dlrm_lookups(512, one, v, gen)),
+             "multi_hot": (big, *dlrm_lookups(4096, MULTI_HOT_SIZES, v, gen))}
+    t = small(5000, 64, torch.bfloat16)
+    cases["bf16"] = (t, *unsorted(60_000, 7000, 5000), 7000)
+    t = small(5000, 64)
+    idx, bag = unsorted(20_000, 3000, 5000)
+    cases["empty_bags"] = (t, idx, bag * 3, 9000)                 # two bags in three empty
+    idx, bag = unsorted(20_000, 3000, 5000)
+    bag[::50], bag[7::50] = 3000, -1
+    cases["bag_ids_out_of_range"] = (t, idx, bag, 3000)
+    idx, bag = unsorted(20_000, 3000, 5000)
+    idx[[11, 4321]] = 5000
+    cases["row_index_v"] = (t, idx, bag, 3000)
+    cases["d13"] = (small(5000, 13), *unsorted(30_000, 4000, 5000), 4000)
+    exact = ("serve_bulk", "serve_p99")
+    out = []
+    for name, (table, idx, bag, nb) in cases.items():
+        idx, bag = ops.sort_by_bag(idx, bag)
+        got = embedding_bag_cuda(table, idx, bag, nb)
+        want = ref.embedding_bag_ref(table, idx, bag, nb)
+        s, limit, cnt, nan = bag_limits(table, idx, bag, nb)
+        torch.cuda.synchronize()
+        if table.dtype == torch.bfloat16:
+            limit = 2.0**-8 * s.abs() + (1 + 2.0**-8) * limit
+        check(torch.equal(torch.isnan(got), nan[:, None].expand_as(got))
+              and torch.equal(torch.isnan(want), torch.isnan(got)),
+              f"embedding_bag {name}: NaN outside the bags of out-of-range rows")
+        fin = ~nan
+        worst = 0.0
+        for label, x in (("kernel", got), ("plain", want)):
+            dev = (x[fin].double() - s[fin]).abs()
+            share = float((dev / limit[fin].clamp_min(1e-300)).max()) if dev.numel() else 0.0
+            check(bool((dev <= limit[fin]).all()),
+                  f"embedding_bag {name}: {label} off the float64 sum by {share} of its limit")
+            worst = max(worst, share)
+        check(not got[(cnt[:, 0] == 0)].any(), f"embedding_bag {name}: an empty bag is not zero")
+        equal = torch.equal(got[fin], want[fin])
+        if name in exact:
+            check(equal, f"embedding_bag {name}: kernel and plain differ on one-row bags")
+        rec = {"case": name, "v": table.shape[0], "d": table.shape[1], "n": idx.shape[0],
+               "num_bags": nb, "dtype": str(table.dtype).split(".")[-1], "equal": equal,
+               "max_abs_err": float((got[fin].float() - want[fin].float()).abs().max()),
+               "max_abs_ref": float(want[fin].float().abs().max()),
+               "max_err_over_limit": worst, "nan_bags": int(nan.sum()),
+               "empty_bags": int((cnt == 0).sum())}
+        if name in ("serve_bulk", "serve_p99", "multi_hot"):
+            n = idx.shape[0]
+            rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
+            rec["plain_ms"] = cuda_ms(lambda: ref.embedding_bag_ref(table, idx, bag, nb), reps=3)
+            i64 = idx.long()
+            offsets = torch.searchsorted(bag, torch.arange(nb, device="cuda", dtype=torch.int32))
+            lib = lambda: F.embedding_bag(i64, table, offsets, mode="sum")  # noqa: E731
+            rec["library_equal"] = torch.equal(lib(), want) if name in exact else None
+            rec["library_ms"] = cuda_ms(lib)
+            rec["sort_ms"] = cuda_ms(lambda: ops.sort_by_bag(idx, bag))  # ops.embedding_bag's
+            # rows read once, bags written once, ids read once; n * d adds
+            n_bytes = (n + nb) * d * table.element_size() + 8 * n
+            rec["bytes"] = n_bytes
+            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n * d)
+            del i64, offsets
+        out.append(rec)
+        del got, want, s, limit, cnt, nan
+    # N = 0 and num_bags = 0: answered without a launch
+    before = embedding_bag_cuda.launches
+    e = torch.empty(0, dtype=torch.int32, device="cuda")
+    check(not embedding_bag_cuda(big, e, e, 5).any(), "embedding_bag N=0 is not zero")
+    i1 = torch.zeros(3, dtype=torch.int32, device="cuda")
+    check(embedding_bag_cuda(big, i1, i1, 0).shape == (0, d), "embedding_bag num_bags=0")
+    check(embedding_bag_cuda.launches == before, "embedding_bag launched for an empty input")
+    del cases, big
+    torch.cuda.empty_cache()
+    return out
+
+
+def dlrm_requests(cfg, shape, r: int):
+    """Request r of ``shape`` on the card, as ``serve_recsys`` draws it."""
+    from repro_torch.launch import steps
+
+    dense, sparse = (torch.from_numpy(a).cuda() for a in steps.recsys_requests(cfg, shape.batch, r))
+    return dense, sparse
+
+
+def dlrm_serve(cfg, params, shapes, use_kernels: bool, label: str):
+    """For each shape, a warm-up request (its first use of each product
+    shape), then DLRM_REQUESTS through ``serve_recsys``; a ``dlrm_serve``
+    line per shape. Returns the outputs by shape and the launches over the
+    whole run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve_recsys
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    outputs = {}
+    for name, n in DLRM_REQUESTS.items():
+        shape = shapes[name]
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()["embedding_bag"]
+        warm = serve_recsys(cfg, params, shape, 1, use_kernels=use_kernels, device="cuda",
+                            seed=1000)
+        res = serve_recsys(cfg, params, shape, n, use_kernels=use_kernels, device="cuda")
+        secs = [r["seconds"] for r in res.records]
+        examples = shape.n_candidates if shape.kind == "retrieval" else shape.batch
+        flops = steps.dlrm_flops(cfg, examples)["model_flops"]
+        rec = {"phase": "dlrm_serve", "run": label, "shape": name, "kind": shape.kind,
+               "requests": n, "batch": shape.batch, "candidates": shape.n_candidates,
+               "seconds": secs, "median_s": statistics.median(secs), "max_s": max(secs),
+               "examples_per_s": examples * n / sum(secs),
+               "model_flop_per_request": flops,
+               "model_tflop_per_s": flops / statistics.median(secs) / 1e12,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "warmup_s": warm.records[0]["seconds"],
+               "embedding_bag_launches": ops.launch_counts()["embedding_bag"] - before,
+               "finite": all(bool(torch.isfinite(o).all()) for o in res.outputs)}
+        del warm
+        emit(rec)
+        check(rec["finite"], f"dlrm {label} {name}: outputs are not finite")
+        check(all(tuple(o.shape) == (examples,) for o in res.outputs),
+              f"dlrm {label} {name}: output shapes {[tuple(o.shape) for o in res.outputs]}")
+        outputs[name] = res.outputs
+    return outputs, ops.launch_counts()
+
+
+def dlrm_phase():
+    """dlrm-rm2 serving at full width: plan, kernels, plain, equality and a
+    profiled serve_bulk forward; returns the kernel run's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dlrm
+
+    spec = get_arch(DLRM_ARCH)
+    cfg = spec.config
+    shapes = {name: spec.shape(name) for name in DLRM_REQUESTS}
+    check(not torch.backends.cuda.matmul.allow_tf32, "DLRM runs its float32 products in float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dlrm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # one launch a request, the warm-ups included
+    predicted = len(DLRM_REQUESTS) + sum(DLRM_REQUESTS.values())
+    emit({"phase": "dlrm_plan", "arch": cfg.name, "params": cfg.param_count(),
+          "tables": cfg.n_sparse, "rows_per_table": cfg.rows_per_table,
+          "embed_dim": cfg.embed_dim, "bot_mlp": list(cfg.bot_mlp), "top_mlp": list(cfg.top_mlp),
+          "multi_hot": cfg.multi_hot, "dtype": cfg.dtype,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "table_gib": params["tables"].numel() * params["tables"].element_size() / 2**30,
+          "shapes": [{"name": s.name, "kind": s.kind, "batch": s.batch,
+                      "candidates": s.n_candidates, "requests": DLRM_REQUESTS[s.name]}
+                     for s in shapes.values()],
+          "predicted_embedding_bag_launches": predicted, "init_seconds": init_s,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+
+    out_k, counts = dlrm_serve(cfg, params, shapes, True, "kernels")
+    check(counts["embedding_bag"] == predicted,
+          f"embedding_bag launched {counts['embedding_bag']} times, predicted {predicted}")
+    others = {k: n for k, n in counts.items() if k != "embedding_bag" and n}
+    check(not others, f"other kernels launched on the DLRM path: {others}")
+    out_p, plain_counts = dlrm_serve(cfg, params, shapes, False, "plain")
+    check(not any(plain_counts.values()), f"the plain serve launched kernels: {plain_counts}")
+
+    # the gate: logits of every request, and the embedding outputs bitwise
+    ratios, equal_share, emb_equal = {}, {}, True
+    with torch.inference_mode():
+        for name, n in DLRM_REQUESTS.items():
+            ratios[name] = [float((k - p).abs().max()) / float(p.abs().max())
+                            for k, p in zip(out_k[name], out_p[name])]
+            equal_share[name] = float(torch.cat([(k == p).float() for k, p in
+                                                 zip(out_k[name], out_p[name])]).mean())
+            for r in range(n):
+                _, sparse = dlrm_requests(cfg, shapes[name], r)
+                ek = dlrm._embedding_bags(params, sparse, cfg, use_kernels=True)
+                ep = dlrm._embedding_bags(params, sparse, cfg, use_kernels=False)
+                emb_equal &= torch.equal(ek, ep)
+                del ek, ep
+    worst = max(max(r) for r in ratios.values())
+    emit({"phase": "dlrm_equal", "limit_ratio": 1e-5, "max_ratio": worst, "ratios": ratios,
+          "equal_share": equal_share, "embedding_bitwise_equal": emb_equal})
+    check(worst <= 1e-5, f"dlrm logits: max |kernel - plain| / max |plain| {worst} > 1e-5")
+    check(emb_equal, "dlrm embedding outputs of one-row bags differ between kernel and plain")
+    del out_k, out_p
+    torch.cuda.empty_cache()
+
+    # where a serve_bulk forward's device time goes: DLRM_PROFILED forwards
+    # after a warm-up that fills the allocator's cache as serving does (the
+    # profiler can miss the first kernels of its window; over several
+    # forwards that is a small share), device times per forward
+    dense, sparse = dlrm_requests(cfg, shapes["serve_bulk"], 0)
+    dlrm.forward(params, dense, sparse, cfg, use_kernels=True)
+    _, prof = profiled(lambda: [dlrm.forward(params, dense, sparse, cfg, use_kernels=True)
+                                for _ in range(DLRM_PROFILED)])
+    ops_s = {o["op"]: o["s"] for o in prof["by_op"]}
+    split = {"embedding_bag": sum(k["s"] for k in prof["top"] if "embedding_bag" in k["kernel"]),
+             "sort": ops_s.get("aten::sort", 0.0), "mm": ops_s.get("aten::mm", 0.0),
+             "bmm": ops_s.get("aten::bmm", 0.0), "cat": ops_s.get("aten::cat", 0.0),
+             "add": ops_s.get("aten::add", 0.0), "relu": ops_s.get("aten::clamp_min", 0.0),
+             "index": ops_s.get("aten::index", 0.0)}
+    emit({"phase": "dlrm_profile", "arch": cfg.name, "shape": "serve_bulk",
+          "batch": shapes["serve_bulk"].batch, "forwards": DLRM_PROFILED,
+          "device_s_per_forward": prof["device_s"] / DLRM_PROFILED,
+          "split_s_per_forward": {k: v / DLRM_PROFILED for k, v in split.items()}, **prof})
+    del params, dense, sparse
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -854,7 +1163,8 @@ def main() -> None:
     import dataclasses
 
     # float32 products in full float32 on the card (no TF32), stated here:
-    # the GNN comparisons hold float32 outputs to 1e-4.
+    # the GNN comparisons hold float32 outputs to 1e-4, and the DLRM model
+    # is float32 throughout (logits within 1e-5).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -955,6 +1265,13 @@ def main() -> None:
         launches[name] = lm_counts[name]
     checks["flash_decode"] = checks["flash_attention"]
 
+    # 12. embedding_bag against its plain version at the DLRM shapes
+    checks["embedding_bag"] = embedding_bag_phase()
+    emit({"phase": "kernel_check", "embedding_bag": checks["embedding_bag"]})
+
+    # 13. dlrm-rm2 serving; launches counted over the kernel serve
+    launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
+
     # summary lines
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -973,7 +1290,9 @@ def main() -> None:
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:84", "prefill"),
                "flash_decode": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                "src/repro/kernels/flash_attention.py:84", "decode_first")}
+                                "src/repro/kernels/flash_attention.py:84", "decode_first"),
+               "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                                 "src/repro/kernels/embedding_bag.py:41", "serve_bulk")}
     kernels = []
     for name, (src, replaces, case) in sources.items():
         rec = next(r for r in checks[name] if r["case"] == case)

@@ -1,9 +1,11 @@
-"""Architecture registry of the port: the GNN and LM families it runs.
+"""Architecture registry of the port: the GNN, LM and recsys families it runs.
 
-Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES`` and
-``GNN_SHAPES`` from ``repro/configs/registry.py``, restricted to the
-architectures the port runs: gatedgcn, graphsage-reddit and meshgraphnet
-(GNN full-graph inference) and phi4-mini-3.8b (LM serving).
+Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES``,
+``GNN_SHAPES`` and ``RECSYS_SHAPES`` from ``repro/configs/registry.py``,
+restricted to the architectures the port runs: gatedgcn, graphsage-reddit
+and meshgraphnet (GNN full-graph inference), phi4-mini-3.8b (LM serving)
+and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
+registry's ``train_batch``, since the port does not train DLRM).
 """
 
 from __future__ import annotations
@@ -12,13 +14,15 @@ import dataclasses
 import importlib
 from typing import Any, Dict, Tuple
 
-__all__ = ["ShapeSpec", "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "get_arch", "all_archs"]
+__all__ = ["ShapeSpec", "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "get_arch",
+           "all_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
     kind: str  # train | prefill | decode | full_graph | minibatch | batched_graphs
+    #            | recsys_serve | retrieval
     seq_len: int = 0
     global_batch: int = 0
     n_nodes: int = 0
@@ -27,12 +31,14 @@ class ShapeSpec:
     batch_nodes: int = 0
     fanouts: Tuple[int, ...] = ()
     batch_graphs: int = 0
+    batch: int = 0
+    n_candidates: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                  # lm | gnn
+    family: str                  # lm | gnn | recsys
     config: Any
     smoke: Any
     shapes: Tuple[ShapeSpec, ...]
@@ -45,7 +51,7 @@ class ArchSpec:
         raise KeyError(f"{self.name}: unknown shape {name}")
 
 
-_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet"]
+_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet", "dlrm_rm2"]
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
@@ -86,4 +92,10 @@ GNN_SHAPES = (
               batch_nodes=1024, fanouts=(15, 10), d_feat=602),
     ShapeSpec(name="ogb_products", kind="full_graph", n_nodes=2449029, n_edges=61859140, d_feat=100),
     ShapeSpec(name="molecule", kind="batched_graphs", n_nodes=30, n_edges=64, batch_graphs=128, d_feat=16),
+)
+
+RECSYS_SHAPES = (
+    ShapeSpec(name="serve_p99", kind="recsys_serve", batch=512),
+    ShapeSpec(name="serve_bulk", kind="recsys_serve", batch=262144),
+    ShapeSpec(name="retrieval_cand", kind="retrieval", batch=1, n_candidates=1_000_000),
 )

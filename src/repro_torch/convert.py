@@ -6,8 +6,9 @@ those attributes whose values ``numpy.asarray`` accepts) and build the
 port's tensors; :func:`comp_to_numpy` hands port tensors back as NumPy
 arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
 :func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
-parameters and a ``build_graph_data`` dict across, :func:`lm_params_from_numpy`
-the transformer's nested parameter dict.
+parameters and a ``build_graph_data`` dict across, :func:`dlrm_params_from_numpy`
+the DLRM parameters, :func:`lm_params_from_numpy` the transformer's nested
+parameter dict.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from .engine import CompTensors, PaddedPartition, map_tensors
 from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
-           "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "lm_params_from_numpy",
-           "graph_from_numpy"]
+           "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "dlrm_params_from_numpy",
+           "lm_params_from_numpy", "graph_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -75,8 +76,13 @@ def _param(v, device) -> torch.Tensor:
 
 
 def gnn_params_from_numpy(params, device="cuda"):
-    """Port tensors of a JAX GNN parameter dict (NumPy-convertible leaves)."""
+    """Port tensors of a flat JAX parameter dict (NumPy-convertible leaves):
+    a GNN's, or DLRM's (``tables``, ``bot_w*``, ``bot_b*``, ``top_w*``,
+    ``top_b*``)."""
     return {name: _param(v, device) for name, v in params.items()}
+
+
+dlrm_params_from_numpy = gnn_params_from_numpy
 
 
 def lm_params_from_numpy(params, device="cuda"):

@@ -8,24 +8,26 @@ tensor raises. A failed build or launch raises — nothing falls back.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import ref
 from .ref import ACC_DTYPE
+from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
 from .member_probe import member_probe_cuda
 from .segment_sum import segment_sum_cuda
 from .set_intersect import set_intersect_cuda
 
-__all__ = ["set_intersect", "member_probe", "segment_sum", "flash_attention", "ACC_DTYPE",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["set_intersect", "member_probe", "segment_sum", "embedding_bag", "flash_attention",
+           "ACC_DTYPE", "launch_counts", "reset_launch_counts"]
 
 # kernel name: (wrapper, its attribute that counts the kernel's launches)
 _COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
              "set_intersect": (set_intersect_cuda, "launches"),
              "segment_sum": (segment_sum_cuda, "launches"),
+             "embedding_bag": (embedding_bag_cuda, "launches"),
              "flash_attention": (flash_attention_cuda, "launches"),
              "flash_decode": (flash_attention_cuda, "decode_launches")}
 
@@ -75,6 +77,27 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int, *, use_kernels: b
                                                   device=data.device)
     segment_sum_cuda(data.contiguous(), seg.contiguous(), out)
     return out if acc is not None else out.to(data.dtype)
+
+
+def sort_by_bag(indices: torch.Tensor,
+                bag_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(indices, bag_ids)`` reordered by a stable sort of the bag ids:
+    the embedding-bag kernel's input order (``repro/kernels/ops.py:100``)."""
+    bags, order = torch.sort(bag_ids, stable=True)
+    return indices[order], bags
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor, bag_ids: torch.Tensor,
+                  num_bags: int, *, use_kernels: bool) -> torch.Tensor:
+    """``out[b, :] = Σ_{i : bag_ids[i] = b} table[indices[i], :]`` in the
+    table's type: bags with no rows are zero, bag ids outside
+    ``[0, num_bags)`` are dropped, a row index outside ``[0, V)`` makes its
+    bag NaN. ``indices`` and ``bag_ids`` are int32 in any order; the kernel
+    path sorts them by bag first, as the JAX wrapper does."""
+    if not _use_kernel(table, use_kernels, "embedding_bag"):
+        return ref.embedding_bag_ref(table, indices, bag_ids, num_bags)
+    idx, bags = sort_by_bag(indices, bag_ids)
+    return embedding_bag_cuda(table.contiguous(), idx, bags, num_bags)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

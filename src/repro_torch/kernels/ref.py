@@ -11,8 +11,8 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "flash_attention_ref",
-           "ACC_DTYPE"]
+__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "embedding_bag_ref",
+           "flash_attention_ref", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -22,6 +22,9 @@ _SLICE_CELLS = 1 << 28
 _PROBE_SLICE = 1 << 26
 # Cells per slice of the segment sum: bounds its float64 copy of the rows.
 _SEGMENT_CELLS = 1 << 26
+# Cells per slice of the embedding bag: bounds its float32 copy of the
+# gathered rows at 256 MiB.
+_BAG_CELLS = 1 << 26
 # Score cells (b · hq · rows · lk) per query slice of the plain attention:
 # bounds its float32 scores and probabilities at 1 GiB each.
 _ATTN_CELLS = 1 << 28
@@ -115,6 +118,30 @@ def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor, n: int,
             rows = torch.where(keep[:, None], data[s:s + step].to(ACC_DTYPE), 0.0)
             out.index_add_(0, ids.clamp(0, n - 1), rows)
     return out if acc is not None else out.to(data.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor, bag_ids: torch.Tensor,
+                      num_bags: int) -> torch.Tensor:
+    """out[b, :] = Σ_{i : bag_ids[i] = b} table[indices[i], :]; bag ids
+    outside [0, num_bags) dropped, in any order.
+
+    Twin of ``repro.kernels.ref.embedding_bag_ref`` (``jnp.take`` then
+    ``jax.ops.segment_sum``): ``index_select`` then ``index_add_`` in
+    float32, ``_BAG_CELLS`` cells of gathered rows at a time, the result in
+    the table's type. A row index outside [0, V) makes its bag NaN, as a
+    JAX gather fills it (negative indices are not wrapped).
+    """
+    v, d = table.shape
+    out = torch.zeros((num_bags, d), dtype=torch.float32, device=table.device)
+    if num_bags > 0 and d > 0:
+        step = max(1, _BAG_CELLS // d)
+        for s in range(0, indices.shape[0], step):
+            idx, bag = indices[s:s + step], bag_ids[s:s + step]
+            rows = table.index_select(0, idx.clamp(0, max(v - 1, 0))).float()
+            rows.masked_fill_(((idx < 0) | (idx >= v))[:, None], math.nan)
+            keep = (bag >= 0) & (bag < num_bags)
+            out.index_add_(0, bag.clamp(0, num_bags - 1), rows.masked_fill_(~keep[:, None], 0.0))
+    return out.to(table.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,16 +1,25 @@
-"""Batched serving: prefill, then a greedy decode loop over a KV cache.
+"""Batched serving: an LM's prefill and greedy decode loop, or DLRM's requests.
 
-Twin of ``repro/launch/serve.py``. On the card (the default), with every
-attention through the CUDA ``flash_attention`` kernel::
+Twin of ``repro/launch/serve.py``; the arch's family picks the loop. For an
+LM (the default arch), on the card, with every attention through the CUDA
+``flash_attention`` kernel::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --batch 4 --prompt-len 8192 --gen 16 [--chunk 4096]
 
-On the CPU, with the plain versions, at the smoke configuration::
+It prints one JSON record per stage and the generated ids last. For DLRM,
+with every embedding bag through the CUDA ``embedding_bag`` kernel, it
+answers ``--requests`` requests of one ``RECSYS_SHAPES`` shape and prints a
+JSON record per request::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2 \\
+        --shape serve_bulk --requests 2
+
+On the CPU, with the plain versions, at the smoke configurations::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
-
-Prints one JSON record per stage and the generated ids last.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2 --device cpu \\
+        --smoke --shape serve_p99 --requests 2
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..configs import get_arch
+from ..configs import ShapeSpec, get_arch
+from ..models import dlrm
 from ..models import transformer as tf
+from . import steps
 
-__all__ = ["ServeResult", "prompt_tokens", "serve", "main"]
+__all__ = ["ServeResult", "RecsysResult", "prompt_tokens", "serve", "serve_recsys", "main"]
 
 
 @dataclasses.dataclass
@@ -94,10 +105,68 @@ def serve(cfg: tf.TransformerConfig, params, prompt: torch.Tensor, gen: int, *,
     return ServeResult(torch.stack(ids, 1), torch.stack(logits, 1), cache, records)
 
 
-def main(argv=None) -> ServeResult:
+@dataclasses.dataclass
+class RecsysResult:
+    outputs: List[torch.Tensor]  # per request: logits [B] or retrieval scores [N]
+    records: List[Dict]          # one per request
+
+
+def serve_recsys(cfg: dlrm.DLRMConfig, params, shape: ShapeSpec, requests: int, *,
+                 use_kernels: bool, device="cuda", seed: int = 0) -> RecsysResult:
+    """Answer ``requests`` requests of ``shape`` (``recsys_serve``: a batch
+    of ``shape.batch`` examples; ``retrieval``: one query against
+    ``shape.n_candidates`` candidates). Request ``r`` is drawn from seed
+    ``seed + r`` (:func:`steps.recsys_requests`) and copied to ``device``
+    before its clock starts; its record holds the host seconds of the step,
+    ending in a device synchronisation."""
+    device = torch.device(device)
+    outputs, records = [], []
+    for r in range(requests):
+        dense, sparse = (torch.from_numpy(a).to(device)
+                         for a in steps.recsys_requests(cfg, shape.batch, seed + r))
+        if shape.kind == "retrieval":
+            cand = torch.from_numpy(steps.retrieval_candidates(
+                cfg, shape.n_candidates, seed + r)).to(device)
+            examples = shape.n_candidates
+            step = lambda: steps.dlrm_retrieval_step(params, dense, sparse, cand, cfg,  # noqa: E731
+                                                     use_kernels=use_kernels)
+        else:
+            examples = shape.batch
+            step = lambda: steps.dlrm_serve_step(params, dense, sparse, cfg,  # noqa: E731
+                                                 use_kernels=use_kernels)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step()
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        outputs.append(out)
+        records.append({"stage": shape.kind, "shape": shape.name, "request": r,
+                        "batch": shape.batch, "candidates": shape.n_candidates,
+                        "seconds": seconds, "examples_per_s": examples / seconds})
+    return RecsysResult(outputs, records)
+
+
+def _main_recsys(args, spec, device: torch.device) -> RecsysResult:
+    cfg: dlrm.DLRMConfig = spec.smoke if args.smoke else spec.config
+    shape = spec.shape(args.shape)
+    if args.smoke:  # the smoke cell's sizes (repro/launch/steps.py _dlrm_cell)
+        shape = dataclasses.replace(shape, batch=min(shape.batch, 64),
+                                    n_candidates=min(shape.n_candidates, 1024))
+    params = dlrm.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    res = serve_recsys(cfg, params, shape, args.requests, use_kernels=device.type == "cuda",
+                       device=device)
+    for r in res.records:
+        print(json.dumps(r), flush=True)
+    return res
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--shape", default="serve_p99",
+                    help="recsys: serve_p99, serve_bulk or retrieval_cand")
+    ap.add_argument("--requests", type=int, default=2, help="recsys: requests to answer")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
@@ -111,6 +180,8 @@ def main(argv=None) -> ServeResult:
         raise RuntimeError("--device cuda needs an NVIDIA GPU; pass --device cpu for the "
                            "plain versions")
     spec = get_arch(args.arch)
+    if spec.family == "recsys":
+        return _main_recsys(args, spec, device)
     cfg: tf.TransformerConfig = spec.smoke if args.smoke else spec.config
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     prompt = torch.from_numpy(prompt_tokens(cfg.vocab, args.batch, args.prompt_len)).to(device)

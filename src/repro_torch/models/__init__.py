@@ -1,6 +1,6 @@
-"""Model ports of ``repro/models``: GNN full-graph inference and
-transformer serving."""
+"""Model ports of ``repro/models``: GNN full-graph inference, transformer
+serving and DLRM serving."""
 
-from . import gnn, transformer
+from . import dlrm, gnn, transformer
 
-__all__ = ["gnn", "transformer"]
+__all__ = ["dlrm", "gnn", "transformer"]

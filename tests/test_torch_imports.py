@@ -35,6 +35,13 @@ logits, cache = tf.prefill(lm_params, torch.randint(0, lm.vocab, (2, 8)), cache,
                            use_kernels=False)
 assert logits.shape == (2, 1, lm.vocab) and bool(torch.isfinite(logits).all()), logits
 assert bool(cache["dense"][0][:, :, :, :8].any()) and not cache["dense"][0][:, :, :, 8:].any()
+from repro_torch.launch import steps
+from repro_torch.models import dlrm
+rec = get_arch("dlrm-rm2").smoke
+dense, sparse = steps.recsys_requests(rec, 4, 0)
+scores = dlrm.forward(dlrm.init_params(rec, torch.Generator().manual_seed(0), "cpu"),
+                      torch.from_numpy(dense), torch.from_numpy(sparse), rec, use_kernels=False)
+assert scores.shape == (4,) and bool(torch.isfinite(scores).all()), scores
 assert not any(m == "repro" or m.startswith(("repro.", "jax")) for m in sys.modules
                if sys.modules[m] is not None), "repro or jax was imported"
 print("standalone OK")
@@ -69,5 +76,5 @@ def test_no_source_imports_jax_or_repro():
 
 def test_kernel_sources_are_shipped():
     csrc = os.path.join(PKG, "kernels", "csrc")
-    assert sorted(os.listdir(csrc)) == ["flash_attention.cu", "member_probe.cu", "segment_sum.cu",
-                                        "set_intersect.cu"]
+    assert sorted(os.listdir(csrc)) == ["embedding_bag.cu", "flash_attention.cu", "member_probe.cu",
+                                        "segment_sum.cu", "set_intersect.cu"]

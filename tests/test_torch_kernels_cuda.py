@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on a GPU (exact
 equality for the integer kernels; segment_sum's float64 sums within 1e-5
-of the largest, exact for integer sums; flash_attention element by
+of the largest, exact for integer sums; embedding_bag's float32 bag sums
+within n_b · 2⁻²³ · Σ|rows| of the float64 sum (one bfloat16 rounding more
+in bfloat16), one-row bags equal; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
 float32, and within one bfloat16 rounding of that in bfloat16). Imports no
 JAX, so it runs on the machine with the card:
@@ -108,6 +110,72 @@ def test_segment_sum_kernel_counts_exactly_and_accumulates(cuda_device):
     want = ref.segment_sum_ref(data, ids, 900, torch.zeros_like(acc))
     assert (acc - want).abs().max() <= 1e-5 * float(want.abs().max())
     assert not ops.segment_sum(data, torch.full_like(ids, -1), 900, use_kernels=True).any()
+
+
+def _bag_inputs(seed, v, d, n, nb, dtype, device):
+    """A table, row indices and unsorted bag ids with empty bags, ids nb
+    and -1 mixed in, and two row indices out of range (v and -1)."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(device, dtype)
+    idx = rng.integers(0, v, n)
+    idx[[n // 3, n // 2]] = [v, -1]
+    bag = rng.integers(0, nb // 2, n) * 2          # odd bags empty
+    bag[rng.random(n) < 0.05] = nb
+    bag[rng.random(n) < 0.05] = -1
+    return table, *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (idx, bag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 8, 13, 64])
+def test_embedding_bag_kernel_matches_plain(cuda_device, d, dtype):
+    """Against the float64 sums: within n_b · 2⁻²³ · Σ|rows| in float32,
+    one bfloat16 rounding (2⁻⁸ of the sum) more in bfloat16; NaN exactly in
+    the bags of the out-of-range rows; empty bags zero."""
+    from repro_torch.kernels import ops
+
+    v, n, nb = 5000, 40_000, 3001
+    table, idx, bag = _bag_inputs(d, v, d, n, nb, dtype, cuda_device)
+    got = ops.embedding_bag(table, idx, bag, nb, use_kernels=True).float()
+    want = ops.embedding_bag(table, idx, bag, nb, use_kernels=False).float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = (bag >= 0) & (bag < nb)
+    b, i = bag[keep].long(), idx[keep].long()
+    ok = (i >= 0) & (i < v)
+    rows = table.double()[i.clamp(0, v - 1)]
+    s = torch.zeros((nb, d), dtype=torch.float64, device=cuda_device).index_add_(0, b, rows)
+    a = torch.zeros_like(s).index_add_(0, b, rows.abs())
+    cnt = torch.bincount(b, minlength=nb)[:, None].double()
+    limit = cnt * 2.0**-23 * a
+    if dtype == torch.bfloat16:
+        limit = 2.0**-8 * s.abs() + (1 + 2.0**-8) * limit
+    bad = torch.zeros(nb, dtype=torch.bool, device=cuda_device)
+    bad[b[~ok]] = True
+    assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
+    assert bool(((got[~bad].double() - s[~bad]).abs() <= limit[~bad]).all())
+    assert not got[1::2].any()                      # odd bags have no rows
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_one_row_bags_copy_and_sizes(cuda_device):
+    """One-row bags are copies, bit for bit; N = 0 and num_bags = 0 are
+    answered without a launch; the wrapper refuses int64 ids."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    table = torch.randn((100_000, 64), device=cuda_device)
+    idx = torch.randint(0, 100_000, (50_000,), dtype=torch.int32, device=cuda_device)
+    bag = torch.arange(50_000, dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.embedding_bag(table, idx, bag, 50_000, use_kernels=True),
+                       table[idx.long()])
+    assert ops.launch_counts()["embedding_bag"] == 1
+    e = idx[:0]
+    assert not embedding_bag_cuda(table, e, e, 7).any()
+    assert embedding_bag_cuda(table, idx, bag, 0).shape == (0, 64)
+    assert ops.launch_counts()["embedding_bag"] == 1
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_cuda(table, idx.long(), bag, 50_000)
 
 
 def _attn_inputs(seed, b, hq, hkv, lq, lk, dh, dtype, device):
