@@ -38,31 +38,35 @@ Prints one JSON object per line, in phases:
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
    kernel against plain.
-10. ``kernel_check`` (``flash_attention``) — the attention kernel against
-   its plain version at the serving shapes (prefill q [4, 24, 8192, 128]
-   over k/v [4, 8, 8208, 128]; the second 4,096-token chunk at offset
-   4,096; decode at offsets 8,192 and 8,206) and at edge cases (float32
-   and bf16; Dh 8, 20, 64, 128, 256; MHA; Lq 1; q_offset + Lq = Lk;
-   non-causal; Lk not a multiple of the tile; a bf16 Dh 20 must raise).
+10. ``kernel_check`` (``flash_attention``) — the three attention kernels
+   against their plain version at the serving shapes (prefill q [4, 24,
+   8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
+   at offset 4,096 on the tensor-core kernel; decode at offsets 8,192 and
+   8,206 and with command-r's 64 / 8 heads on the split-K decode kernel;
+   a Dh 64 bf16 prefill) and at edge cases (float32 and bf16; Dh 8, 20, 64,
+   128, 256; MHA; Lq 1; q_offset + Lq = Lk; non-causal; Lk not a multiple
+   of the tile; a bf16 Dh 20 must raise), each with the route it took.
    Each output element is held to the plain version on the inputs in
    float32 (see ``attention_limits``): within 1e-5 * sum_j p_j |v_j| in
    float32, and within one bf16 rounding of that in bf16. With the
    kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   median ms beside the bound.
+   median ms beside the bound (and, under 1 ms, the kernel's and SDPA's
+   time over 20 calls in a row). ``flash_kernels``: each kernel's
+   registers, shared and spill bytes, and the decode grid.
 11. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
    (32 layers, d_model 3,072, 24/8 heads of 128, d_ff 8,192, vocab
    200,064, bf16, random weights from seed 0) through
    ``repro_torch.launch.serve.serve``: 4 prompts of 8,192 tokens, prefill
-   then 15 greedy decode steps, once with the kernels (32 launches of
-   the 64-row ``flash_attention`` kernel and 480 of the one-row
-   ``flash_decode`` kernel) and once plain, teacher-forced on the kernel
+   then 15 greedy decode steps, once with the kernels (32 prefill
+   launches, every one on the tensor-core kernel, and 480 of the split-K
+   decode kernel) and once plain, teacher-forced on the kernel
    run's tokens (0 launches); outputs finite. ``lm_chunked``:
-   ``prefill_chunked`` (chunk 4,096, 64 launches) on the same prompts;
-   its last logits and its cache within 1e-2 * max |unchunked| of the
-   unchunked prefill's, and the same first token. ``lm_profile``: one
-   more kernel prefill and one decode step under ``torch.profiler``.
-   ``lm_equal``: the gate, the same model in
-   float32 (2 prompts of 2,048 tokens, 8 tokens each), kernel against
+   ``prefill_chunked`` (chunk 4,096, 64 tensor-core launches) on the same
+   prompts; its last logits and its cache within 1e-2 * max |unchunked|
+   of the unchunked prefill's, and the same first token. ``lm_profile``:
+   one more kernel prefill and one decode step under ``torch.profiler``.
+   ``lm_equal``: the gate, the same model in float32 (2 prompts of 2,048
+   tokens, 8 tokens each; prefill on the CUDA-core kernel), kernel against
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
@@ -159,18 +163,23 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings."""
+def cuda_ms(fn, reps: int = 10, per: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings,
+    each around ``per`` calls in a row (divided by ``per``). With ``per =
+    1`` the host's work for the call shows in the time where the card
+    would idle waiting for it; with more, the calls queue up and only the
+    card's time shows."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return statistics.median(times)
 
 
@@ -657,7 +666,7 @@ def flash_attention_phase():
     shapes and at edge cases, each timed beside its plain version, SDPA
     and its bound."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, route
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -668,6 +677,10 @@ def flash_attention_phase():
         "chunk_2": (LM_BATCH, 24, 8, LM_CHUNK, mx, 128, LM_CHUNK, True, (bf16,)),
         "decode_first": (LM_BATCH, 24, 8, 1, mx, 128, LM_PROMPT, True, (bf16,)),
         "decode_last": (LM_BATCH, 24, 8, 1, mx, 128, mx - 2, True, (bf16,)),
+        # command-r-35b's grouping (64 query heads over 8 KV heads): each KV
+        # head's cache is read once for its 8 query rows
+        "decode_group8": (LM_BATCH, 64, 8, 1, mx, 128, LM_PROMPT, True, (bf16,)),
+        "prefill_dh64": (2, 32, 8, 4096, 4100, 64, 0, True, (bf16,)),
         "prefill_f32_gate": (LM_EQ_BATCH, 24, 8, LM_EQ_PROMPT, LM_EQ_PROMPT + LM_EQ_GEN, 128, 0,
                              True, (f32,)),
         "dh8": (2, 6, 2, 300, 333, 8, 0, True, (f32, bf16)),
@@ -702,8 +715,9 @@ def flash_attention_phase():
             tag = str(dtype).split(".")[-1]
             check(worst <= 1.0, f"flash_attention {name} {tag}: |kernel - plain in float32| "
                                 f"reaches {worst} of its limit")
-            rec = {"case": name, "dtype": tag, "b": b, "hq": hq, "hkv": hkv, "lq": lq, "lk": lk,
-                   "dh": dh, "q_offset": off, "causal": causal, "max_abs_err": err,
+            rec = {"case": name, "dtype": tag, "route": route(lq, dtype, dh), "b": b, "hq": hq,
+                   "hkv": hkv, "lq": lq, "lk": lk, "dh": dh, "q_offset": off, "causal": causal,
+                   "max_abs_err": err,
                    "max_abs_ref": float(want32.abs().max()),
                    "max_abs_err_f32_plain": float(dev.max()), "max_err_over_limit": worst}
             del want32, limit, dev
@@ -714,6 +728,11 @@ def flash_attention_phase():
             rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, q_offset=off), reps=3)
             rec["library_ms"] = cuda_ms(sdpa_call(q, k, v, off, causal))
+            if rec["ms"] < 1.0:
+                # device time without the host's share: 20 calls between two events
+                rec["ms_back_to_back"] = cuda_ms(lambda: flash_attention_cuda(
+                    q, k, v, causal=causal, q_offset=off), per=20)
+                rec["library_ms_back_to_back"] = cuda_ms(sdpa_call(q, k, v, off, causal), per=20)
             rec["admitted_keys"], rec["flops"], rec["bytes"] = admitted, flops, n_bytes
             rec["bound_ms"], rec["bound_by"] = bound_ms(
                 n_bytes, flops, PEAK_BF16_FLOPS if dtype == bf16 else PEAK_OPS_PER_S)
@@ -722,6 +741,32 @@ def flash_attention_phase():
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return out
+
+
+def flash_kernels_line():
+    """Registers, static shared, local (spill) and dynamic shared bytes of
+    each flash kernel at its main-path instantiation (``cudaFuncGetAttributes``),
+    and the decode grid the wrapper plans at phi4-mini's decode shape."""
+    import importlib
+
+    from repro_torch.kernels import build
+
+    # the module (the package's ``flash_attention`` is the dispatch function)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    attrs = {"tc_dh128": fa.kernel_attributes("tc", bf16, 128),
+             "tc_dh64": fa.kernel_attributes("tc", bf16, 64),
+             "decode_rows3": fa.kernel_attributes("decode", bf16, 128, 3),
+             "decode_rows8": fa.kernel_attributes("decode", bf16, 128, 8),
+             "simt_f32": fa.kernel_attributes("simt", f32, 128)}
+    rows, chunks, _ = fa.decode_rows(24, 8, 1)
+    slots = fa.decode_slots(torch.device("cuda", torch.cuda.current_device()), 1, 128, rows)
+    heads = LM_BATCH * 8 * chunks
+    splits, kps = fa.plan_splits(heads, LM_PROMPT + 1, slots,
+                                 build.library().flash_decode_max_splits())
+    return {"phase": "flash_kernels", "attributes": attrs,
+            "decode_grid": {"rows": rows, "resident_blocks": slots, "splits": splits,
+                            "keys_per_split": kps, "blocks": heads * splits}}
 
 
 def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=None):
@@ -751,6 +796,7 @@ def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=
            "generated_tokens_per_s": b * gen / wall, "wall_seconds": wall,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "flash_attention_launches": counts["flash_attention"],
+           "flash_attention_tc_launches": counts["flash_attention_tc"],
            "flash_decode_launches": counts["flash_decode"],
            "finite": bool(torch.isfinite(res.logits).all()),
            "ids_first_request": res.ids[0].tolist()}
@@ -771,8 +817,9 @@ def step_ratios(res_k, res_p):
 def lm_phase():
     """phi4-mini-3.8b serving at full width: kernels, plain, chunked,
     profiled, and the float32 gate; returns the kernel run's launches.
-    A prefill launches the 64-row kernel once a layer, a decode step the
-    one-row kernel once a layer."""
+    A prefill launches the tensor-core kernel once a layer (the float32
+    gate the CUDA-core kernel), a decode step the split-K decode kernel
+    once a layer."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import prompt_tokens
     from repro_torch.models import transformer as tf
@@ -800,7 +847,11 @@ def lm_phase():
     emit(rec)
     for name, n in predicted.items():
         check(counts[name] == n, f"{name} launched {counts[name]} times, predicted {n}")
-    others = {k: n for k, n in counts.items() if k not in predicted and n}
+    check(counts["flash_attention_tc"] == cfg.n_layers,
+          f"{counts['flash_attention_tc']} of the {cfg.n_layers} bf16 prefill launches took "
+          "the tensor-core kernel")
+    others = {k: n for k, n in counts.items()
+              if k not in predicted and k != "flash_attention_tc" and n}
     check(not others, f"other kernels launched on the LM path: {others}")
     rec, res_p, plain_counts = lm_run(cfg, params, prompt, LM_GEN, False, "plain",
                                       forced=res_k.ids)
@@ -825,12 +876,14 @@ def lm_phase():
     chunked_s = time.perf_counter() - t0
     chunk_counts = ops.launch_counts()
     n_chunk = chunk_counts["flash_attention"]
+    n_chunk_tc = chunk_counts["flash_attention_tc"]
     want = cfg.n_layers * (LM_PROMPT // LM_CHUNK)
-    check(n_chunk == want and chunk_counts["flash_decode"] == 0,
-          f"chunked prefill launched {chunk_counts}, predicted {want} flash_attention")
+    check(n_chunk == want and n_chunk_tc == want and chunk_counts["flash_decode"] == 0,
+          f"chunked prefill launched {chunk_counts} ({n_chunk_tc} on the tensor cores), "
+          f"predicted {want} flash_attention, all on the tensor cores")
     whole = res_k.logits[:, 0].float()
     rec = {"phase": "lm_chunked", "chunk": LM_CHUNK, "seconds": chunked_s,
-           "flash_attention_launches": n_chunk,
+           "flash_attention_launches": n_chunk, "flash_attention_tc_launches": n_chunk_tc,
            "finite": bool(torch.isfinite(logits_c).all()),
            "logits_max_abs_diff": float((logits_c[:, -1].float() - whole).abs().max()),
            "logits_max_abs_unchunked": float(whole.abs().max()),
@@ -871,7 +924,7 @@ def lm_phase():
     rec_k, res_k, c32 = lm_run(cfg32, params32, prompt32, LM_EQ_GEN, True, "kernels")
     rec_p, res_p, _ = lm_run(cfg32, params32, prompt32, LM_EQ_GEN, False, "plain",
                              forced=res_k.ids)
-    check(c32["flash_attention"] == cfg.n_layers
+    check(c32["flash_attention"] == cfg.n_layers and c32["flash_attention_tc"] == 0
           and c32["flash_decode"] == cfg.n_layers * (LM_EQ_GEN - 1),
           f"float32 run launched {c32}")
     ratios = step_ratios(res_k, res_p)
@@ -888,7 +941,7 @@ def lm_phase():
                                f"{max(ratios)} > 1e-3")
     del params32, res_k, res_p
     torch.cuda.empty_cache()
-    return counts
+    return counts, c32
 
 
 # ---------------------------------------------------------------------------
@@ -1259,11 +1312,16 @@ def main() -> None:
     checks["flash_attention"] = flash_attention_phase()
     emit({"phase": "kernel_check", "flash_attention": checks["flash_attention"]})
 
-    # 11. phi4-mini-3.8b serving; launches counted over the kernel serve
-    lm_counts = lm_phase()
-    for name in ("flash_attention", "flash_decode"):
-        launches[name] = lm_counts[name]
-    checks["flash_decode"] = checks["flash_attention"]
+    emit(flash_kernels_line())
+
+    # 11. phi4-mini-3.8b serving; launches counted over the kernel serve (the
+    #     float32 gate's for the CUDA-core kernel, which bf16 serving skips)
+    lm_counts, f32_counts = lm_phase()
+    launches["flash_attention"] = lm_counts["flash_attention_tc"]
+    launches["flash_decode"] = lm_counts["flash_decode"]
+    launches["flash_attention_simt"] = (f32_counts["flash_attention"]
+                                        - f32_counts["flash_attention_tc"])
+    checks["flash_decode"] = checks["flash_attention_simt"] = checks["flash_attention"]
 
     # 12. embedding_bag against its plain version at the DLRM shapes
     checks["embedding_bag"] = embedding_bag_phase()
@@ -1287,10 +1345,13 @@ def main() -> None:
                                  "src/repro/kernels/set_intersect.py:34", "ccjoin"),
                "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
                                "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice"),
-               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                    "src/repro/kernels/flash_attention.py:84", "prefill"),
-               "flash_decode": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+               "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_attention.py:84", "decode_first"),
+               "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                        "src/repro/kernels/flash_attention.py:84",
+                                        "prefill_f32_gate"),
                "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag.py:41", "serve_bulk")}
     kernels = []

@@ -38,9 +38,26 @@ _SIGNATURES = {
     "segment_sum_launch": (_P, _I, _P, _L, _L, _L, _P, _P),
     # table, is_bf16, rows, d, idx, bag, n, num_bags, out, stream
     "embedding_bag_launch": (_P, _I, _L, _L, _P, _P, _L, _L, _P, _P),
-    # q, k, v, out, is_bf16, one_row, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, out, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
+    # q, k, v, out, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
+    "flash_attention_tc_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _P),
+    # q, k, v, out, ws, tickets, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale,
+    # rows, splits, kps, stream
+    "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _I, _I, _P),
+    # (is_bf16,) dh, (rows,) out[4]
+    "flash_attention_attributes": (_I, _I, _P),
+    "flash_attention_tc_attributes": (_I, _P),
+    "flash_decode_attributes": (_I, _I, _I, _P),
+    # is_bf16, dh, rows, out
+    "flash_decode_occupancy": (_I, _I, _I, _P),
+    # kernel constants the wrappers plan with
+    "flash_attention_block_rows": (),
+    "flash_attention_tc_block_rows": (),
+    "flash_decode_max_splits": (),
 }
 
 

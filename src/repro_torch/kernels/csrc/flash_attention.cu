@@ -1,58 +1,42 @@
-// Flash attention for Hopper (sm_90a): causal or non-causal grouped-query
-// attention with a query offset, the attention of every transformer layer.
+// Flash attention on the CUDA cores (sm_90a): causal or non-causal
+// grouped-query attention with a query offset, for the calls the
+// tensor-core kernel (flash_attention_tc.cu) does not take: float32, and
+// bfloat16 with dh other than 64 or 128, at lq > 16 (prefill and chunked
+// prefill; lq <= 16 goes to flash_decode.cu).
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py
+// Replaces, for those calls, the TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_pallas): out[b, h, i] = softmax_j(q[b, h, i] .
 // k[b, h / group, j] / sqrt(dh)) v[b, h / group, j] over the keys
 // j < lk, and, when causal, j <= i + q_offset. q: [b, hq, lq, dh],
 // k, v: [b, hkv, lk, dh], all float32 or all bfloat16, contiguous;
 // out: [b, hq, lq, dh] in q's type. The softmax and both sums are float32;
-// a row that sees no key is written as 0. One kernel serves prefill
-// (lq = lk, offset 0), chunked prefill (lq < lk) and decode (lq = 1,
-// offset = position).
+// a row that sees no key is written as 0.
 //
 // The TPU kernel runs a (b * hq, query tile, key tile) grid whose last axis
 // is sequential, carrying the online-softmax state (m, l, acc) in scratch
 // memory from one key tile to the next. Here blocks run in parallel and in
-// no order, so one block owns one (b * hq, query tile) and walks the keys
-// in a loop, keeping (m, l, acc) in registers. Query head h reads key/value
-// head h / group, so grouped heads share nothing but L2. Keys past the
-// causal diagonal of the tile's last query row are never loaded; keys at
-// >= lk are masked by bounds, not by padded copies.
+// no order, so one block owns one (b * hq, 64-row query tile) and walks the
+// keys in a loop, keeping (m, l, acc) in registers. Keys past the causal
+// diagonal of the tile's last query row are never loaded; keys at >= lk
+// are masked by bounds, not by padded copies. Dh must be a whole number of
+// 16-byte chunks and K and V 16-byte aligned: every key/value load is a
+// 16-byte chunk.
 //
-// Two kernels; the caller picks one per call (one_row). Dh must be a whole
-// number of 16-byte chunks and K and V 16-byte aligned: every key/value
-// load is a 16-byte chunk.
+// 256 threads as 16 x 16 (ty, tx); thread (ty, tx) computes the scores of
+// rows ty * 4 + i and keys tx * 4 + jj of a 64-key tile with float32 FMAs
+// from a transposed query tile and a transposed key tile in shared memory
+// (float4 reads, no bank conflicts); a row's max and sum are reduced over
+// its 16 tx lanes with warp shuffles. The probabilities go to shared
+// memory (over the key tile, which is dead by then), and the thread adds
+// P V into columns c * 16 + tx of its rows. A key/value tile is loaded in
+// 16-byte chunks, all in flight at once, and converted to float32 as it is
+// stored.
 //
-// - flash_attention_kernel (prefill, chunked prefill): a 64-row query
-//   tile. 256 threads as 16 x 16 (ty, tx); thread (ty, tx) computes the
-//   scores of rows ty * 4 + i and keys tx * 4 + jj of a 64-key tile with
-//   float32 FMAs from a transposed query tile and a transposed key tile in
-//   shared memory (float4 reads, no bank conflicts); a row's max and sum
-//   are reduced over its 16 tx lanes with warp shuffles. The probabilities
-//   go to shared memory (over the key tile, which is dead by then), and
-//   the thread adds P V into columns c * 16 + tx of its rows. A key/value
-//   tile is loaded in 16-byte chunks, all in flight at once, and converted
-//   to float32 as it is stored.
-// - flash_decode_kernel (decode; the caller takes it for lq <= 16): a
-//   one-row query tile. Its 8 warps split the keys, 32 at a time, each
-//   lane scoring one key straight from global memory and the warp adding
-//   P V with a lane per column; each warp keeps its own (m, l, acc), and
-//   the 8 are merged through shared memory at the end. A 64-row tile would
-//   leave 63 of its rows idle here.
-//
-// Bound: prefill is bound by operations. One call of phi4-mini's prefill
-// (b 4, hq 24, lq 8,192, dh 128, causal) does 4 * b * hq * dh * 8,192 *
-// 8,193 / 2 = 1.65 TFLOP: 1.67 ms at the bf16 tensor-core peak of
-// 989 TFLOP/s, while this kernel runs on the float32 CUDA cores (67 TFLOP/s
-// peak), so it sits at least 15x above that bound by design; a tensor-core
-// (mma / wgmma) inner loop is later work. Decode (lq = 1) is bound by
-// bytes: a call reads the whole written cache (b * hkv * pos * dh * 2
-// values, 134 MB at position 8,192) for 4 * b * hq * dh * pos FLOP, and
-// with one block per (b * hq) each key/value head is read group (= 3 for
-// phi4-mini) times, from L2 at best; 96 blocks also leave part of the
-// card's 132 SMs idle. Splitting the keys of a decode call over blocks is
-// later work.
+// Bound: operations. The float32 gate's prefill (b 2, hq 24, lq 2,048,
+// dh 128, causal) does 4 * dh FLOP per admitted (query, key) pair on the
+// float32 CUDA cores, whose peak is 67 TFLOP/s: 0.77 ms. Measured by
+// chip_smoke.py on an H100 80GB HBM3 at 700 W: 2.56 ms, 20 TFLOP/s, 3.3x
+// that bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,13 +44,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16, or 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBQ = 64;        // query rows per tile of flash_attention_kernel
 constexpr int kQS = kBQ + 4;   // row stride of the transposed query tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kKS = kBK + 4;   // row stride of the transposed key tile
-constexpr int kMaxDh = 256;
 constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -93,17 +75,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) 
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kAll, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kAll, x, o);
-  return x;
 }
 
 // One key/value tile: each thread loads up to C 16-byte chunks of K and of
@@ -285,98 +256,6 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && NC <= 8 ? 2 : 1)
   }
 }
 
-// One query row per block; each lane holds columns
-// i * 32 + lane, i < NW, of its warp's output row.
-template <typename T, int NW>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int hq,
-                        int group, int lq, int lk, int dh, int causal,
-                        int q_offset, float scale) {
-  __shared__ float qs[kMaxDh];
-  __shared__ float ms[kWarps], ls[kWarps];
-  __shared__ float accs[kWarps][kMaxDh];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.x, row = blockIdx.y;
-  const int b = bh / hq, h = bh - b * hq;
-  const size_t kvh = static_cast<size_t>(b) * (hq / group) + h / group;
-  const T* kp = k + kvh * lk * dh;
-  const T* vp = v + kvh * lk * dh;
-  const size_t orow = (static_cast<size_t>(bh) * lq + row) * dh;
-  for (int d = threadIdx.x; d < dh; d += kThreads) qs[d] = to_f32(q[orow + d]);
-  __syncthreads();
-
-  const int kend = causal ? min(lk, q_offset + row + 1) : lk;
-  float m = -INFINITY, l = 0.f, acc[NW];
-#pragma unroll
-  for (int i = 0; i < NW; ++i) acc[i] = 0.f;
-
-  // The warps take turns over the keys, 32 at a time: lane j scores key
-  // base + j, then the warp adds the 32 keys' P V.
-  for (int base = warp * 32; base < kend; base += kThreads) {
-    const int j = base + lane;
-    float s = -INFINITY;
-    if (j < kend) {
-      const T* kr = kp + static_cast<size_t>(j) * dh;
-      float dot = 0.f;
-      constexpr int V = 16 / sizeof(T);
-#pragma unroll 4
-      for (int d0 = 0; d0 < dh; d0 += V) {
-        float f[V];
-        unpack(__ldg(reinterpret_cast<const uint4*>(kr + d0)), f, T());
-#pragma unroll
-        for (int t = 0; t < V; ++t) dot = fmaf(qs[d0 + t], f[t], dot);
-      }
-      s = dot * scale;
-    }
-    const float m_new = fmaxf(m, warp_max(s));
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float p = expf(s - m_use);
-    const float corr = expf(m - m_use);
-    l = l * corr + warp_sum(p);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < NW; ++i) acc[i] *= corr;
-    const int n = min(32, kend - base);
-#pragma unroll 4
-    for (int t = 0; t < n; ++t) {
-      const float pt = __shfl_sync(kAll, p, t);
-      const T* vr = vp + static_cast<size_t>(base + t) * dh;
-#pragma unroll
-      for (int i = 0; i < NW; ++i) {
-        const int col = i * 32 + lane;
-        if (col < dh) acc[i] = fmaf(pt, to_f32(vr[col]), acc[i]);
-      }
-    }
-  }
-
-  if (lane == 0) {
-    ms[warp] = m;
-    ls[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    const int col = i * 32 + lane;
-    if (col < dh) accs[warp][col] = acc[i];
-  }
-  __syncthreads();
-  float mx = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w]);
-  const float m_use = mx == -INFINITY ? 0.f : mx;
-  for (int d = threadIdx.x; d < dh; d += kThreads) {
-    float lsum = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(ms[w] - m_use);
-      lsum += ls[w] * f;
-      o += accs[w][d] * f;
-    }
-    store(out + orow + d, lsum > 0.f ? o / lsum : 0.f);
-  }
-}
-
 template <typename T, int NC>
 int launch_tile(const T* q, const T* k, const T* v, T* out, int b, int hq, int hkv, int lq,
                 int lk, int dh, int causal, int q_offset, float scale, cudaStream_t stream) {
@@ -391,30 +270,14 @@ int launch_tile(const T* q, const T* k, const T* v, T* out, int b, int hq, int h
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NW>
-int launch_decode(const T* q, const T* k, const T* v, T* out, int b, int hq, int hkv, int lq,
-                  int lk, int dh, int causal, int q_offset, float scale, cudaStream_t stream) {
-  const dim3 grid(b * hq, lq);
-  flash_decode_kernel<T, NW><<<grid, kThreads, 0, stream>>>(
-      q, k, v, out, hq, hq / hkv, lq, lk, dh, causal, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int one_row, int b,
-           int hq, int hkv, int lq, int lk, int dh, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
+           int lq, int lk, int dh, int causal, int q_offset, float scale, cudaStream_t stream) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
 #define FA_ARGS qq, kk, vv, oo, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
-  if (one_row) {
-    if (dh <= 32) return launch_decode<T, 1>(FA_ARGS);
-    if (dh <= 64) return launch_decode<T, 2>(FA_ARGS);
-    if (dh <= 128) return launch_decode<T, 4>(FA_ARGS);
-    return launch_decode<T, 8>(FA_ARGS);
-  }
   if (dh <= 16) return launch_tile<T, 1>(FA_ARGS);
   if (dh <= 32) return launch_tile<T, 2>(FA_ARGS);
   if (dh <= 64) return launch_tile<T, 4>(FA_ARGS);
@@ -426,22 +289,47 @@ int launch(const void* q, const void* k, const void* v, void* out, int one_row, 
 }  // namespace
 
 // q: [b, hq, lq, dh], k, v: [b, hkv, lk, dh], out: [b, hq, lq, dh], all
-// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1). one_row = 1
-// launches flash_decode_kernel, 0 flash_attention_kernel. The caller
+// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1). The caller
 // guarantees b, hq, hkv, lq, lk >= 1, hq % hkv == 0, 1 <= dh <= 256, dh a
 // whole number of 16-byte chunks, k and v 16-byte aligned, b * hq < 2**31,
-// a grid height (ceil(lq / 64), or lq when one_row) <= 65,535, and, when
-// causal, q_offset + lq <= lk. Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int is_bf16,
-                                      int one_row, int b, int hq, int hkv,
-                                      int lq, int lk, int dh, int causal,
-                                      int q_offset, float scale,
+// ceil(lq / 64) <= 65,535, and, when causal, q_offset + lq <= lk. Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
+                                      int is_bf16, int b, int hq, int hkv, int lq, int lk,
+                                      int dh, int causal, int q_offset, float scale,
                                       cudaStream_t stream) {
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, one_row, b, hq, hkv, lq, lk, dh,
-                                 causal, q_offset, scale, stream);
-  return launch<float>(q, k, v, out, one_row, b, hq, hkv, lq, lk, dh, causal,
-                       q_offset, scale, stream);
+    return launch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, lq, lk, dh, causal, q_offset, scale,
+                                 stream);
+  return launch<float>(q, k, v, out, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream);
 }
+
+// Registers a thread, static shared bytes, local (spill) bytes a thread and
+// dynamic shared bytes of the kernel a call with these arguments takes,
+// into out[0..3].
+extern "C" int flash_attention_attributes(int is_bf16, int dh, int* out) {
+  cudaFuncAttributes a;
+  const int nc = dh <= 16 ? 1 : dh <= 32 ? 2 : dh <= 64 ? 4 : dh <= 128 ? 8 : 16;
+  cudaError_t err;
+  if (is_bf16)
+    err = nc == 1    ? cudaFuncGetAttributes(&a, flash_attention_kernel<__nv_bfloat16, 1>)
+          : nc == 2  ? cudaFuncGetAttributes(&a, flash_attention_kernel<__nv_bfloat16, 2>)
+          : nc == 4  ? cudaFuncGetAttributes(&a, flash_attention_kernel<__nv_bfloat16, 4>)
+          : nc == 8  ? cudaFuncGetAttributes(&a, flash_attention_kernel<__nv_bfloat16, 8>)
+                     : cudaFuncGetAttributes(&a, flash_attention_kernel<__nv_bfloat16, 16>);
+  else
+    err = nc == 1    ? cudaFuncGetAttributes(&a, flash_attention_kernel<float, 1>)
+          : nc == 2  ? cudaFuncGetAttributes(&a, flash_attention_kernel<float, 2>)
+          : nc == 4  ? cudaFuncGetAttributes(&a, flash_attention_kernel<float, 4>)
+          : nc == 8  ? cudaFuncGetAttributes(&a, flash_attention_kernel<float, 8>)
+                     : cudaFuncGetAttributes(&a, flash_attention_kernel<float, 16>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = static_cast<int>(smem_floats(nc, dh) * sizeof(float));
+  return 0;
+}
+
+// Query rows a block owns (kBQ): the grid has ceil(lq / kBQ) rows of blocks.
+extern "C" int flash_attention_block_rows() { return kBQ; }

@@ -1,0 +1,547 @@
+// Flash attention on Hopper's tensor cores (sm_90a): bf16 prefill and
+// chunked prefill, Dh 64 or 128.
+//
+// Replaces, for those calls, the TPU kernel repro/kernels/flash_attention.py
+// (flash_attention_pallas): out[b, h, i] = softmax_j(q[b, h, i] .
+// k[b, h / group, j] / sqrt(dh)) v[b, h / group, j] over the keys j < lk
+// and, when causal, j <= i + q_offset; float32 softmax and sums, the output
+// rounded once to bf16. q: [b, hq, lq, dh], k, v: [b, hkv, lk, dh], bf16,
+// contiguous; a row that sees no key is written as 0.
+//
+// Design. A block owns one (b * hq, 192-row query tile). Tiles that start
+// latest in the sequence go first. The block walks the key tiles (64
+// keys) up to the causal diagonal of its last row; keys past it are never
+// loaded.
+// - Copies: one thread of a producer warpgroup loads the Q tile, then each
+//   K/V tile into a ring of four stages, by TMA (cp.async.bulk.tensor
+//   over a 3-D tensor map [b * heads, rows, dh], so a box past the last
+//   row is zero-filled and not read from the next head), reported to a
+//   "full" mbarrier per stage; it refills a stage once every consumer has arrived on its
+//   "empty" mbarrier. The producer warpgroup gives its registers to the
+//   consumers (setmaxnreg: 32 a thread against 160).
+// - Layout: TMA's 128-byte swizzle stores each tile as 64-column blocks of
+//   128-byte rows (16-byte chunk c of row r at chunk c ^ (r % 8)), the
+//   layout the wgmma descriptors below name: Q and K K-major, V ([keys,
+//   dh], dh contiguous) MN-major, the B operand of P V with the transpose
+//   bit.
+// - Three consumer warpgroups of 64 query rows run on their own, with no
+//   block barrier, so one's softmax overlaps the others' products.
+// - S = Q K^T: wgmma m64n64k16, A (Q) and B (K) from shared memory,
+//   float32 accumulators in registers; the first step only writes them,
+//   so they hold nothing live between tiles. The online softmax runs on
+//   them in float32: scores scaled by 1/sqrt(dh) * log2 e in the FMA that
+//   subtracts the maximum, 2^x on the special-function unit; l sums the
+//   float32 p; O is rescaled only when a row's maximum moved.
+// - O += P V: wgmma m64n{dh}k16 with A from registers. One bf16 rounding of
+//   P errs by up to 2^-9 of each p, and the checks hold every output to
+//   the float32 reference within 1e-5 of sum_j p_j |v_j| before its one
+//   bf16 rounding, and P once in bf16 misses that limit
+//   (tests/test_torch_flash_split.py shows it on a small case).
+//   So p is split: hi = bf16(p), lo = bf16(p - hi), and two products hi V
+//   + lo V go into the same float32 accumulator: hi + lo = p within 2^-16
+//   of p. That is 6 * dh FLOP per admitted (query, key) pair on the tensor
+//   cores, where the function needs 4 * dh: the price of the reference's
+//   precision.
+// - Only a tile that crosses a warpgroup's causal diagonal or lk is
+//   masked; a warpgroup skips the tiles wholly past its last row (and
+//   releases them once loaded).
+// Within a warpgroup the softmax waits for S and the next S for the
+// softmax: issuing S_t before P_{t-1} V_{t-1} (the softmax running under
+// that product) and 128-key tiles cost time in the two-warpgroup form of
+// this kernel.
+//
+// Bound: operations. phi4-mini's prefill (b 4, hq 24, lq 8,192, dh 128,
+// causal) is 4 * dh * 3.22e9 admitted pairs = 1.65 TFLOP: 1.67 ms at the
+// card's 989 TFLOP/s bf16 peak (2.48 TFLOP, 2.5 ms, with the split).
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 4.76 ms, 2.9x
+// that bound, 53 % of the peak on the work it issues (PERF.md).
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kConsumerWGs = 3;             // warpgroups of 64 query rows
+constexpr int kConsumers = 128 * kConsumerWGs;
+constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr int kBQ = 64 * kConsumerWGs;      // query rows per block
+constexpr int kBK = 64;                    // keys per tile
+constexpr int kStages = 4;                 // K/V tiles in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct Smem {
+  static constexpr int kQ = kBQ * DH * 2;  // bytes of the Q tile
+  static constexpr int kK = kBK * DH * 2;  // bytes of one K (or V) tile
+  static constexpr int kStage = 2 * kK;
+  // + the mbarriers (full and empty per stage, and the Q tile's), + 1024
+  // to align the base to the swizzle's 1024-byte period
+  static constexpr int kBytes = kQ + kStages * kStage + 8 * (2 * kStages + 1) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits for the phase of parity `parity` of the mbarrier to complete; traps
+// (a launch error, not a hang) if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 24)) __trap();
+  }
+}
+// TMA: the 64 x 64 box at (column c0, row c1, plane c2) of the tensor map
+// into shared memory at dst (128-byte swizzle), reported to the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving register reads or writes across a wgmma
+// start or wait (the instructions run asynchronously on these registers).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), 128-byte swizzle (layout type 1, bits 62-63).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] = A[64 x 16] B[16 x 64], the first step of a product: D is
+// only written, so its registers need not hold anything before.
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=&f"(d[0]), "=&f"(d[1]), "=&f"(d[2]), "=&f"(d[3]), "=&f"(d[4]), "=&f"(d[5]), "=&f"(d[6]), "=&f"(d[7]),
+        "=&f"(d[8]), "=&f"(d[9]), "=&f"(d[10]), "=&f"(d[11]), "=&f"(d[12]), "=&f"(d[13]), "=&f"(d[14]), "=&f"(d[15]),
+        "=&f"(d[16]), "=&f"(d[17]), "=&f"(d[18]), "=&f"(d[19]), "=&f"(d[20]), "=&f"(d[21]), "=&f"(d[22]), "=&f"(d[23]),
+        "=&f"(d[24]), "=&f"(d[25]), "=&f"(d[26]), "=&f"(d[27]), "=&f"(d[28]), "=&f"(d[29]), "=&f"(d[30]), "=&f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers, B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers, B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0: a p
+// under 2^-126 of its row's maximum is below float32's resolution of the
+// sums it joins.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The register fragments of one warpgroup (64 query rows). Thread (warp w,
+// lane = 4 g + t) holds rows 16 w + g and 16 w + g + 8; accumulator
+// element 4 j + 2 h + c is row 16 w + g + 8 h, column 8 j + 2 t + c.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              __nv_bfloat16* __restrict__ out, int hq, int group, int lq, int lk,
+                              int causal, int q_offset, float scale_log2) {
+  using S = Smem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, skv = base + S::kQ;
+  const uint32_t bars = skv + kStages * S::kStage;  // full[kStages], empty[kStages], q
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t qbar = bars + 16 * kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;  // b * hq + h
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int b = bh / hq, h = bh - b * hq;
+  const int kvh = b * (hq / group) + h / group;
+
+  // Keys the block's rows can see.
+  const int last = min(q0 + kBQ, lq) - 1;
+  const int kend = causal ? min(lk, q_offset + last + 1) : lk;
+  const int ntiles = (kend + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    // The producer warpgroup gives up registers for the consumers; one
+    // thread loads the Q tile, then each K/V tile into the stage its
+    // consumers released. Rows past lk (or lq) come in as zeros; keys in
+    // [kend, tile end) are real and masked.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    if (warp == kConsumers / 32 && lane == 0) {
+      mbar_expect(qbar, S::kQ);
+      for (int w = 0; w < kConsumerWGs; ++w)
+        for (int blk = 0; blk < DH / 64; ++blk)
+          tma_load(sq + blk * kBQ * 128 + w * 64 * 128, tq, blk * 64, q0 + w * 64, bh, qbar);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty(s), ((t / kStages) - 1) & 1);
+        const uint32_t ks = skv + s * S::kStage, vs = ks + S::kK;
+        mbar_expect(full(s), 2 * S::kK);
+        for (int blk = 0; blk < DH / 64; ++blk) {
+          tma_load(ks + blk * kBK * 128, tk, blk * 64, t * kBK, kvh, full(s));
+          tma_load(vs + blk * kBK * 128, tv, blk * 64, t * kBK, kvh, full(s));
+        }
+      }
+    }
+  } else {
+  // The consumers: warpgroups that run on their own, so that one's
+  // softmax overlaps the others' products.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int wwarp = warp & 3;
+  const int r0 = q0 + wg * 64;
+  const int last_w = min(r0 + 64, lq) - 1;
+  const int kend_w = last_w < r0 ? 0 : (causal ? min(lk, q_offset + last_w + 1) : lk);
+
+  float o[DH / 2], s[kBK / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  // query positions of this thread's two rows
+  const int qpos0 = q_offset + r0 + wwarp * 16 + g;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(full(stage), (it / kStages) & 1);
+    const int k0 = it * kBK;
+    if (k0 < kend_w) {  // warpgroup-uniform: some key of the tile is visible
+      const uint32_t ks = skv + stage * S::kStage, vs = ks + S::kK;
+
+      // S = Q K^T over dh in steps of 16 (32 bytes inside a 128-byte row);
+      // the first step only writes s, so s holds nothing live between tiles
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t col = (kk & 3) * 32;
+        const uint64_t da = desc(sq + (kk >> 2) * kBQ * 128 + wg * 64 * 128 + col, 16, 1024);
+        const uint64_t db = desc(ks + (kk >> 2) * kBK * 128 + col, 16, 1024);
+        if (kk == 0)
+          wgmma_ss_n64_first(s, da, db);
+        else
+          wgmma_ss_n64(s, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      // online softmax, float32: the max on the raw scores (the scale is
+      // positive), then p = 2^(s * scale log2 e - m) in one FMA; only a
+      // tile crossing the diagonal or lk is masked
+      const bool masked = k0 + kBK > lk || (causal && k0 + kBK - 1 > q_offset + r0);
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qpos = qpos0 + 8 * hh;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float x = s[4 * j + 2 * hh + c];
+            if (masked) {
+              const int key = k0 + 8 * j + 2 * t4 + c;
+              if (key >= lk || (causal && key > qpos)) x = -INFINITY;
+            }
+            s[4 * j + 2 * hh + c] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx * scale_log2);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        corr[hh] = ex2(m[hh] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = ex2(fmaf(s[4 * j + 2 * hh + c], scale_log2, -m_use));
+            s[4 * j + 2 * hh + c] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[hh] = l[hh] * corr[hh] + sum;
+        m[hh] = m_new;
+      }
+      // O to the new maxima; a factor of 1 (most tiles, once the maxima
+      // settle) is skipped by the whole warp
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+      }
+
+      // P as A fragments, split into bf16 hi + lo. Fragment register r of
+      // key step kk holds row g + 8 (r & 1), keys 16 kk + 8 (r >> 1) + 2 t
+      // and + 1: accumulator elements 4 (2 kk + (r >> 1)) + 2 (r & 1) + {0, 1}.
+      uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+          const float a = s[e], c = s[e + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+          ph[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[kk][r] = pack_bf16(a - __low2float(hi), c - __high2float(hi));
+        }
+
+      // O += P V: V is [keys, dh] (MN-major): 8-key groups 1024 bytes
+      // apart, 64-column blocks kBK * 128 bytes apart
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = desc(vs + kk * 16 * 128, kBK * 128, 1024);
+        if constexpr (DH == 128) {
+          wgmma_rs_n128(o, ph[kk], dv);
+          wgmma_rs_n128(o, pl[kk], dv);
+        } else {
+          wgmma_rs_n64(o, ph[kk], dv);
+          wgmma_rs_n64(o, pl[kk], dv);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+    }
+    mbar_arrive(empty(stage));  // this thread is done with the stage
+  }
+
+  __nv_bfloat16* op = out + static_cast<size_t>(bh) * lq * DH;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + wwarp * 16 + g + 8 * hh;
+    if (row >= lq) continue;
+    const float lsum = l[hh];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const float a = lsum > 0.f ? o[4 * j + 2 * hh] / lsum : 0.f;
+      const float c = lsum > 0.f ? o[4 * j + 2 * hh + 1] / lsum : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(row) * DH + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(a, c);
+    }
+  }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint, so the
+// build needs no link flag.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 [planes, rows, dh] tensor in 64 x 64
+// boxes with the 128-byte swizzle: a box past `rows` is zero-filled, not
+// read from the next plane.
+int tensor_map(CUtensorMap* map, const void* base, int dh, int rows, int planes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(rows) * dh * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
+           int lq, int lk, int causal, int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, DH, lq, b * hq);
+  if (err == 0) err = tensor_map(&tk, k, DH, lk, b * hkv);
+  if (err == 0) err = tensor_map(&tv, v, DH, lk, b * hkv);
+  if (err != 0) return err;
+  auto kernel = flash_attention_tc_kernel<DH>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Smem<DH>::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(b * hq, (lq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, Smem<DH>::kBytes, stream>>>(tq, tk, tv,
+                                                      static_cast<__nv_bfloat16*>(out), hq,
+                                                      hq / hkv, lq, lk, causal, q_offset,
+                                                      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q: [b, hq, lq, dh], k, v: [b, hkv, lk, dh], out: [b, hq, lq, dh], all
+// contiguous bfloat16, 16-byte aligned, dh 64 or 128. The caller guarantees
+// b, hq, hkv, lq, lk >= 1, hq % hkv == 0, b * hq < 2**31, ceil(lq / kBQ)
+// <= 65,535 (kBQ = 192, flash_attention_tc_block_rows) and, when causal,
+// q_offset + lq <= lk. Returns the cudaError_t of
+// the launch (0 on success; cudaErrorInvalidValue for another dh).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
+                                         int b, int hq, int hkv, int lq, int lk, int dh,
+                                         int causal, int q_offset, float scale,
+                                         cudaStream_t stream) {
+  if (dh == 128) return launch<128>(q, k, v, out, b, hq, hkv, lq, lk, causal, q_offset, scale,
+                                    stream);
+  if (dh == 64) return launch<64>(q, k, v, out, b, hq, hkv, lq, lk, causal, q_offset, scale,
+                                  stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread, static shared bytes, local (spill) bytes a thread and
+// dynamic shared bytes of the kernel for dh (64 or 128), into out[0..3].
+extern "C" int flash_attention_tc_attributes(int dh, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = dh == 64 ? cudaFuncGetAttributes(&a, flash_attention_tc_kernel<64>)
+                             : cudaFuncGetAttributes(&a, flash_attention_tc_kernel<128>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = dh == 64 ? Smem<64>::kBytes : Smem<128>::kBytes;
+  return 0;
+}
+
+// Query rows a block owns (kBQ): the grid has ceil(lq / kBQ) rows of blocks.
+extern "C" int flash_attention_tc_block_rows() { return kBQ; }

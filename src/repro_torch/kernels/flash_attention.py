@@ -1,33 +1,57 @@
-"""Flash attention — the CUDA kernel ``csrc/flash_attention.cu``.
+"""Flash attention — three CUDA kernels behind one wrapper.
 
 Replaces ``repro/kernels/flash_attention.py`` ``flash_attention_pallas``:
 grouped-query attention, causal or not, with a query offset (query ``i``
 sees keys ``j ≤ i + q_offset``), float32 softmax and sums, the output in
-q's type. One block per (b·hq, query tile) walks the keys with an online
-softmax in registers; keys past the causal diagonal are skipped and keys
-at ``≥ lk`` masked by bounds. The source holds two kernels: a 64-row tile
-(``flash_attention_kernel``, launches counted in
-``flash_attention_cuda.launches``) and, for ``Lq ≤ 16``, a one-row tile
-(``flash_decode_kernel``, counted in ``flash_attention_cuda.decode_launches``).
-Prefill is bound by operations, decode by bytes (the source says how far
-the kernel is from each). The plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+q's type. :func:`route` picks the kernel from Lq, the type and Dh alone:
+
+- ``"decode"`` — ``Lq ≤ 16`` (:data:`DECODE_ROWS`), float32 or bf16:
+  ``csrc/flash_decode.cu``. Bound by bytes. The grid is (b·hkv · row
+  chunks, splits): a block holds every query row of its KV head (up to 8)
+  and streams its split of the keys once, so each K/V byte crosses HBM
+  once per call; the last split to finish merges the splits' float32
+  ``(m, l, acc)`` (one launch). Its tickets and workspace are kept per
+  (device, stream), so calls on different streams never share them.
+  :func:`decode_rows` and :func:`plan_splits` size the grid to one wave of
+  the card's resident blocks. Counted in
+  ``flash_attention_cuda.decode_launches``.
+- ``"tc"`` — ``Lq > 16``, bf16, Dh 64 or 128: ``csrc/flash_attention_tc.cu``.
+  Bound by operations. ``S = Q·Kᵀ`` and ``O += P·V`` on the tensor cores
+  (``wgmma``) in three free-running consumer warpgroups, K/V tiles
+  loaded by TMA from a producer warpgroup into a four-stage ring (its
+  tensor maps made per call with ``cuTensorMapEncodeTiled``), the online
+  softmax in float32 registers. P is split into bf16 ``hi + lo`` and both products summed:
+  one bf16 rounding of P would break the float32 reference's limit (the
+  source says by how much), the split keeps it at 6·Dh tensor-core FLOP
+  per admitted pair instead of 4·Dh. Counted in ``launches`` and
+  ``tc_launches``.
+- ``"simt"`` — the other ``Lq > 16`` calls (float32; bf16 with another
+  Dh): ``csrc/flash_attention.cu``, a 64-row tile on the float32 CUDA
+  cores. Counted in ``launches``.
+
+The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Dict
 
 import torch
 
 from . import build
 
-__all__ = ["flash_attention_cuda", "check_contract"]
+__all__ = ["flash_attention_cuda", "check_contract", "route", "plan_splits", "decode_rows",
+           "decode_slots", "kernel_attributes"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
-DECODE_ROWS = 16  # Lq up to this takes the one-row kernel
+DECODE_ROWS = 16  # Lq up to this takes the decode kernel
+TC_HEAD_DIMS = (64, 128)  # bf16 Dh the tensor-core kernel is built for
+DECODE_BLOCK_ROWS = 8  # query rows a decode block holds at most
+DECODE_MIN_KEYS = 256  # keys a split takes at least
 
 
 def check_contract(lq: int, lk: int, *, causal: bool, q_offset: int) -> None:
@@ -42,16 +66,97 @@ def check_contract(lq: int, lk: int, *, causal: bool, q_offset: int) -> None:
         raise ValueError("queries would attend past the last real key")
 
 
+def route(lq: int, dtype: torch.dtype, dh: int) -> str:
+    """The kernel a call takes: ``"decode"`` for ``Lq ≤ 16``, else ``"tc"``
+    for bf16 with Dh 64 or 128, else ``"simt"``."""
+    if lq <= DECODE_ROWS:
+        return "decode"
+    return "tc" if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS else "simt"
+
+
+def plan_splits(heads: int, admitted: int, slots: int, max_splits: int) -> tuple[int, int]:
+    """``(splits, keys per split)`` for ``heads`` decode blocks a split
+    (b·hkv · row chunks) over ``admitted`` keys, on a card that holds
+    ``slots`` such blocks at once (its SM count times the blocks an SM
+    holds): as many splits as fill one wave of blocks without starting
+    another, none under :data:`DECODE_MIN_KEYS` keys (unless the call has
+    fewer), at most ``max_splits`` (the kernel's cap,
+    ``flash_decode_max_splits``). Split ``s`` takes keys ``[s·kps,
+    (s+1)·kps)`` of ``[0, admitted)``: every key once, no split empty."""
+    fill = slots // max(1, heads)
+    most = -(-admitted // DECODE_MIN_KEYS)
+    n = max(1, min(fill, most, max_splits))
+    kps = -(-admitted // n)
+    return -(-admitted // kps), kps
+
+
+def decode_rows(hq: int, hkv: int, lq: int) -> tuple[int, int, int]:
+    """``(rows a block, row chunks, rows the kernel is built for)``: the
+    ``group·Lq`` (head, query row) pairs of a KV head in as few blocks of at
+    most :data:`DECODE_BLOCK_ROWS` rows as hold them, balanced; the kernel
+    is built for 1, 2, 3, 4 or 8 rows."""
+    pairs = hq // hkv * lq
+    chunks = -(-pairs // DECODE_BLOCK_ROWS)
+    rows = -(-pairs // chunks)
+    return rows, chunks, rows if rows <= 4 else 8
+
+
+# State of the decode kernel kept across calls: the occupancy query's
+# answer per device and variant, and per (device, stream) the tickets the
+# kernel leaves zero for the next call and its float32 workspace. Each
+# call's partials are written and read inside its own launch, so calls in
+# one stream's order can share them; a call on another stream gets its own.
+_SLOTS: Dict[tuple, int] = {}
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+_WORKSPACE: Dict[tuple, torch.Tensor] = {}
+
+
+def decode_slots(device: torch.device, is_bf16: int, dh: int, rows: int) -> int:
+    """Decode blocks of this variant the card holds at once: its SM count
+    times the blocks one SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    key = (device.index, is_bf16, dh, rows)
+    if key not in _SLOTS:
+        n = ctypes.c_int()
+        build.check_launch("flash_decode occupancy",
+                           build.library().flash_decode_occupancy(is_bf16, dh, rows,
+                                                                  ctypes.byref(n)))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SLOTS[key] = sms * max(1, n.value)
+    return _SLOTS[key]
+
+
+def _tickets(key: tuple, device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's int32 tickets of ``key`` = (device, stream):
+    zero between calls (the kernel resets the ones it uses), allocated once
+    and grown."""
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def _workspace(key: tuple, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` float32 of the decode kernel's workspace of ``key`` =
+    (device, stream), allocated with ``torch.empty`` once and grown."""
+    w = _WORKSPACE.get(key)
+    if w is None or w.numel() < n:
+        w = torch.empty(max(n, 1 << 20), dtype=torch.float32, device=device)
+        _WORKSPACE[key] = w
+    return w
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention of ``q [B, Hq, Lq, Dh]`` over ``k, v [B, Hkv, Lk, Dh]`` on
-    the card; returns ``[B, Hq, Lq, Dh]`` in q's type.
+    the card; returns ``[B, Hq, Lq, Dh]`` in q's type, through the kernel
+    :func:`route` names.
 
     Raises on the TPU kernel's contracts (:func:`check_contract`), and on
     anything but contiguous CUDA tensors of one type (float32 or bfloat16)
     on one device with ``Hq % Hkv == 0``, ``Dh ≤ 256``, ``q_offset ≥ 0``,
     and Dh a whole number of 16-byte chunks (a multiple of 4 in float32, of
-    8 in bfloat16) with k and v 16-byte aligned. ``Lq = 0`` is answered
+    8 in bfloat16) with q, k and v 16-byte aligned. ``Lq = 0`` is answered
     without a launch.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -76,29 +181,73 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be a contiguous float32 or "
                              f"bfloat16 CUDA tensor of q's type and device, got {t.dtype} "
                              f"on {t.device} (contiguous: {t.is_contiguous()})")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: k and v must be 16-byte aligned")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if b == 0 or hq == 0 or lq == 0:
         return out
-    one_row = lq <= DECODE_ROWS
-    if (lq if one_row else math.ceil(lq / 64)) > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: Lq={lq} exceeds the grid's query tiles")
+    kind = route(lq, q.dtype, dh)
+    lib = build.library()
+    if kind != "decode":
+        tile = (lib.flash_attention_tc_block_rows() if kind == "tc"
+                else lib.flash_attention_block_rows())
+        if math.ceil(lq / tile) > _MAX_GRID_Y:
+            raise ValueError(f"flash_attention: Lq={lq} needs more than {_MAX_GRID_Y} "
+                             f"query tiles of {tile} rows")
     for name, x in (("b*hq", b * hq), ("lk", lk), ("q_offset", q_offset)):
         build.int32_arg("flash_attention", name, x)
-    lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     int(q.dtype == torch.bfloat16), int(one_row), b, hq, hkv,
-                                     lq, lk, dh, int(causal), q_offset, 1.0 / math.sqrt(dh),
-                                     stream)
-    build.check_launch("flash_attention", err)
-    if one_row:
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    scale = 1.0 / math.sqrt(dh)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if kind == "decode":
+        admitted = min(lk, q_offset + lq) if causal else lk
+        rows, chunks, rtile = decode_rows(hq, hkv, lq)
+        blocks = b * hkv * chunks
+        build.int32_arg("flash_decode", "b*hkv*chunks", blocks)
+        splits, kps = plan_splits(blocks, admitted, decode_slots(q.device, is_bf16, dh, rows),
+                                  lib.flash_decode_max_splits())
+        key = (q.device.index, stream)
+        ws = _workspace(key, q.device, blocks * splits * rtile * (dh + 2))
+        err = lib.flash_decode_launch(*ptrs, ws.data_ptr(),
+                                      _tickets(key, q.device, blocks).data_ptr(),
+                                      is_bf16, b, hq, hkv, lq, lk, dh, int(causal), q_offset,
+                                      scale, rows, splits, kps, stream)
+        build.check_launch("flash_decode", err)
         flash_attention_cuda.decode_launches += 1
+    elif kind == "tc":
+        err = lib.flash_attention_tc_launch(*ptrs, b, hq, hkv, lq, lk, dh, int(causal), q_offset,
+                                            scale, stream)
+        build.check_launch("flash_attention (tensor cores)", err)
+        flash_attention_cuda.launches += 1
+        flash_attention_cuda.tc_launches += 1
     else:
+        err = lib.flash_attention_launch(*ptrs, is_bf16, b, hq, hkv, lq, lk, dh, int(causal),
+                                         q_offset, scale, stream)
+        build.check_launch("flash_attention", err)
         flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tc_launches = 0
 flash_attention_cuda.decode_launches = 0
+
+
+def kernel_attributes(kind: str, dtype: torch.dtype, dh: int, rows: int = 1) -> Dict[str, int]:
+    """Registers a thread, static shared bytes, local (spill) bytes a
+    thread and dynamic shared bytes of the kernel that :func:`route`'s
+    ``kind`` launches for ``dtype`` and ``dh`` (``rows``: query rows a
+    decode block), from ``cudaFuncGetAttributes``."""
+    lib = build.library()
+    vals = (ctypes.c_int * 4)()
+    is_bf16 = int(dtype == torch.bfloat16)
+    if kind == "decode":
+        err = lib.flash_decode_attributes(is_bf16, dh, rows, vals)
+    elif kind == "tc":
+        err = lib.flash_attention_tc_attributes(dh, vals)
+    else:
+        err = lib.flash_attention_attributes(is_bf16, dh, vals)
+    build.check_launch(f"{kind} attributes", err)
+    return dict(zip(("registers", "static_smem_bytes", "local_bytes", "dynamic_smem_bytes"),
+                    vals))

@@ -23,12 +23,15 @@ from .set_intersect import set_intersect_cuda
 __all__ = ["set_intersect", "member_probe", "segment_sum", "embedding_bag", "flash_attention",
            "ACC_DTYPE", "launch_counts", "reset_launch_counts"]
 
-# kernel name: (wrapper, its attribute that counts the kernel's launches)
+# kernel name: (wrapper, its attribute that counts the kernel's launches).
+# "flash_attention" counts every Lq > 16 call; "flash_attention_tc" the
+# ones among them that took the tensor-core kernel.
 _COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
              "set_intersect": (set_intersect_cuda, "launches"),
              "segment_sum": (segment_sum_cuda, "launches"),
              "embedding_bag": (embedding_bag_cuda, "launches"),
              "flash_attention": (flash_attention_cuda, "launches"),
+             "flash_attention_tc": (flash_attention_cuda, "tc_launches"),
              "flash_decode": (flash_attention_cuda, "decode_launches")}
 
 
@@ -118,5 +121,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every count."""
     for fn, attr in _COUNTERS.values():
         setattr(fn, attr, 0)

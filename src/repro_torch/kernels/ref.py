@@ -12,7 +12,8 @@ import math
 import torch
 
 __all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "embedding_bag_ref",
-           "flash_attention_ref", "ACC_DTYPE"]
+           "flash_attention_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
+           "merge_split_k", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -175,3 +176,109 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = torch.softmax(logits, dim=-1).view(b, hkv, group * rows, lk)
         out[:, :, s:s + rows] = torch.matmul(probs, vf).view(b, hq, rows, dh).to(q.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the attention kernels' algebra (for the tests only): the
+# tensor-core kernel's split of P and the decode kernel's split-K merge.
+# Both take scores in the log2 domain, s · (1/√Dh · log2 e), as the
+# kernels do, and exp2.
+# ---------------------------------------------------------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def split_p(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernel's split of float32 probabilities into bf16
+    ``hi = bf16(p)`` and ``lo = bf16(p - hi)``: ``hi + lo`` is ``p`` within
+    2⁻¹⁶ · p, where ``hi`` alone errs by up to 2⁻⁹ · p."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
+
+
+def _grouped(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int):
+    """Float32 queries as ``[B, Hkv, group·Lq, Dh]`` (head-major, the
+    decode kernel's row order) scaled into the log2 domain, the keys'
+    transpose, and each row's end of the admitted keys."""
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = torch.tensor(1.0 / math.sqrt(dh) * _LOG2E, dtype=torch.float32)
+    qs = q.float().reshape(b, hkv, group * lq, dh)
+    rows = torch.arange(group * lq, device=q.device) % lq
+    kend = torch.clamp(rows + q_offset + 1, max=lk) if causal else torch.full_like(rows, lk)
+    return qs, k.float().transpose(-1, -2), scale, kend
+
+
+def flash_attention_hilo_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, q_offset: int = 0, tile: int = 64,
+                             split: bool = True) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain PyTorch: float32
+    scores over key tiles of ``tile``, an online softmax, P split by
+    :func:`split_p` and ``hi·V + lo·V`` summed in float32, ``l`` summed from
+    the float32 p, the output rounded once to q's type. ``split=False``
+    rounds P once to bf16 instead (what the kernel does not do)."""
+    b, hq, lq, dh = q.shape
+    lk = k.shape[2]
+    qs, kt, scale, kend = _grouped(q, k, causal, q_offset)
+    vf = v.float()
+    m = torch.full(qs.shape[:-1], -math.inf)
+    l = torch.zeros(qs.shape[:-1])
+    acc = torch.zeros(qs.shape)
+    for k0 in range(0, lk, tile):
+        s = torch.matmul(qs, kt[..., k0:k0 + tile]) * scale
+        keys = torch.arange(k0, min(k0 + tile, lk))
+        s = s.masked_fill(keys[None, :] >= kend[:, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr = torch.exp2(m - m_use)
+        p = torch.exp2(s - m_use[..., None])
+        l = l * corr + p.sum(-1)
+        vt = vf[:, :, k0:k0 + tile]
+        if split:
+            hi, lo = split_p(p)
+            pv = torch.matmul(hi.float(), vt) + torch.matmul(lo.float(), vt)
+        else:
+            pv = torch.matmul(p.to(torch.bfloat16).float(), vt)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    return out.reshape(b, hq, lq, dh).to(q.dtype)
+
+
+def split_k_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                     q_offset: int, splits: int, kps: int):
+    """The decode kernel's partial states: split ``s`` takes the keys
+    ``[s·kps, (s+1)·kps)`` of ``[0, admitted)`` (each row stopping at its
+    own causal end) and keeps ``(m, l, acc)`` in float32, ``m`` in the
+    log2 domain. A split that admits no key of a row has ``m = -inf``,
+    ``l = 0``, ``acc = 0``. Returns ``m, l [B, Hkv, group·Lq, S]`` and
+    ``acc [B, Hkv, group·Lq, S, Dh]``."""
+    lk = k.shape[2]
+    qs, kt, scale, kend = _grouped(q, k, causal, q_offset)
+    kmax = min(lk, q_offset + q.shape[2]) if causal else lk
+    s = torch.matmul(qs, kt) * scale
+    s = s.masked_fill(torch.arange(lk)[None, :] >= kend[:, None], -math.inf)
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        lo, hi = min(i * kps, kmax), min((i + 1) * kps, kmax)
+        si = s[..., lo:hi]
+        mi = si.amax(-1) if hi > lo else torch.full(s.shape[:-1], -math.inf)
+        p = torch.exp2(si - torch.where(mi == -math.inf, 0.0, mi)[..., None])
+        ms.append(mi)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, v.float()[:, :, lo:hi]))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def merge_split_k(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, shape,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The decode kernel's merge of :func:`split_k_partials`: weights
+    ``2^(m_s - max m)``, a split with ``m = -inf`` weighing 0, a row with
+    no key written as 0; reshaped to ``shape`` ``[B, Hq, Lq, Dh]``."""
+    top = m.amax(-1, keepdim=True)
+    w = torch.exp2(m - torch.where(top == -math.inf, 0.0, top))
+    lsum = (l * w).sum(-1)
+    out = (acc * w[..., None]).sum(-2)
+    out = torch.where(lsum[..., None] > 0, out / lsum[..., None], 0.0)
+    return out.reshape(shape).to(dtype)

@@ -4,7 +4,8 @@ of the largest, exact for integer sums; embedding_bag's float32 bag sums
 within n_b · 2⁻²³ · Σ|rows| of the float64 sum (one bfloat16 rounding more
 in bfloat16), one-row bags equal; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
-float32, and within one bfloat16 rounding of that in bfloat16). Imports no
+float32, and within one bfloat16 rounding of that in bfloat16, on each of
+its three kernels). Imports no
 JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -197,6 +198,16 @@ def _attn_inputs(seed, b, hq, hkv, lq, lk, dh, dtype, device):
     (2, 4, 2, 3, 77, 24, 74, True),        # Dh 24 with one-row tiles
     (1, 3, 3, 16, 640, 64, 0, False),      # Lq 16, non-causal
     (1, 3, 1, 17, 40, 128, 23, True),      # Lq 17: the smallest 64-row tile
+    # bf16 on the tensor cores: Dh 128 and 64, the last tile crossing lk
+    (1, 4, 2, 150, 333, 128, 183, True),
+    (1, 4, 4, 200, 333, 64, 133, True),
+    (2, 6, 2, 128, 400, 128, 256, True),   # a second chunk
+    # split-K decode: group 3 and 8, Lq 2..16 with a causal end per row
+    (2, 6, 2, 1, 2000, 128, 1500, True),
+    (1, 16, 2, 1, 3000, 128, 2999, True),
+    (1, 6, 2, 2, 900, 128, 898, True),
+    (1, 6, 2, 7, 900, 128, 893, True),
+    (1, 6, 2, 16, 900, 128, 884, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, lq, lk, dh, off, causal,
                                               dtype):
@@ -219,6 +230,52 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, lq, lk, d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_with_empty_splits(cuda_device, dtype, monkeypatch):
+    """40 splits of one key over the 24 admitted keys of a 4-row chunk at
+    offset 20: splits 24..39 admit no key of any row, split 21..23 none of
+    row 0; they merge with weight 0. Same limits as above; a second call
+    (tickets reset by the first) gives the same output."""
+    import importlib
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa, "plan_splits", lambda heads, admitted, slots, cap: (40, 1))
+    q, k, v = _attn_inputs(7, 2, 6, 2, 4, 900, 128, dtype, cuda_device)
+    got = fa.flash_attention_cuda(q, k, v, causal=True, q_offset=20)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=True, q_offset=20))
+    q, k, v = q.float(), k.float(), v.float()
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=20)
+    limit = 1e-5 * ref.flash_attention_ref(q, k, v.abs(), causal=True, q_offset=20)
+    if dtype == torch.bfloat16:
+        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    assert float(((got.float() - want).abs() / limit).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_on_two_streams(cuda_device):
+    """Decode calls of two problems at phi4-mini's decode shape, issued in
+    turns on two side streams so their launches overlap: each stream has
+    its own tickets and workspace, so every output equals the same call's
+    output alone on the default stream, bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    probs = [_attn_inputs(20 + i, 4, 24, 8, 1, 8193, 128, torch.bfloat16, cuda_device)
+             for i in range(2)]
+    alone = [flash_attention_cuda(*p, causal=True, q_offset=8192) for p in probs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in probs]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(16):
+        for i, (s, p) in enumerate(zip(streams, probs)):
+            with torch.cuda.stream(s):
+                outs[i].append(flash_attention_cuda(*p, causal=True, q_offset=8192))
+    torch.cuda.synchronize(cuda_device)
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i]), i
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
     from repro_torch.kernels import ops
 
@@ -231,6 +288,19 @@ def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
     ops.flash_attention(torch.cat([q, q[:, :, :1]], 2), k, v, q_offset=0, use_kernels=True)
     assert ops.launch_counts()["flash_decode"] == 3
     assert ops.launch_counts()["flash_attention"] == 1  # Lq 17: the 64-row kernel
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    assert flash_attention_cuda.tc_launches == 0          # bf16 Dh 32: CUDA cores
+    for dtype, dh, tc in ((torch.bfloat16, 128, 1), (torch.float32, 128, 0),
+                          (torch.bfloat16, 8, 0)):
+        a, b2, c = _attn_inputs(1, 1, 4, 2, 17, 40, dh, dtype, cuda_device)
+        before = flash_attention_cuda.tc_launches
+        ops.flash_attention(a, b2, c, q_offset=23, use_kernels=True)
+        assert flash_attention_cuda.tc_launches - before == tc, (dtype, dh)
+    assert ops.launch_counts()["flash_attention"] == 4
+    ops.reset_launch_counts()
+    assert flash_attention_cuda.tc_launches == 0
+    q, k, v = _attn_inputs(0, 1, 4, 2, 16, 200, 32, torch.bfloat16, cuda_device)
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q, k, v, causal=False, use_kernels=True)
     with pytest.raises(ValueError, match="past the last"):
@@ -242,5 +312,5 @@ def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
     shifted = torch.zeros(k.numel() + 1, dtype=k.dtype, device=cuda_device)[1:].view_as(k)
     with pytest.raises(ValueError, match="aligned"):   # contiguous, 2 bytes off
         ops.flash_attention(q, shifted, v, q_offset=184, use_kernels=True)
-    assert ops.launch_counts()["flash_decode"] == 3
-    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_decode"] == 0
+    assert ops.launch_counts()["flash_attention"] == 0
