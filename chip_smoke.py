@@ -19,25 +19,31 @@ Prints one JSON object per line, in phases:
 6. ``reference`` — the example graph of examples/distributed_listing.py,
    whose host-engine counts are known, checked on the card.
 7. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
-   plain version on its float64 accumulators: one gatedgcn edge slice
-   ([2**24, 70] bf16, ids over 2,449,029 nodes with 1 % set to n and
-   0.5 % to -1), the meshgraphnet and graphsage widths, a ones column
-   (exact), and edge cases; max |kernel - plain| <= 1e-5 * max(1, max
-   |plain|), with the kernel's, the plain version's and ``index_add_``'s
-   median ms beside the byte bound.
+   plain version on their float64 accumulators, each case through its
+   segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
+   2,449,029 nodes with 1 % set to n and 0.5 % to -1), the same rows with
+   ids sorted over one slice's 332,108 nodes as the forward feeds them,
+   and with half of them in one id (``heavy_segment``), the meshgraphnet
+   and graphsage widths, a ones column (exact), and edge cases; max
+   |kernel - plain| <= 1e-5 * max(1, max |plain|), with the kernel's, the
+   plan build's, the plain version's and ``index_add_``'s median ms beside
+   the byte bound (data and ids once, the touched float32 rows once);
+   under 1 ms also over 20 calls in a row, the card's time alone.
 8. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
    its full config (16 layers, d_hidden 70, bf16, d_in 100) on the
    ``ogb_products`` shape (2,449,029 nodes, 123,718,280 directed edges,
    ``build_graph_data`` seed 0), once with the kernels (every segment sum
    through the CUDA kernel: 16 layers x 2 sums x 8 edge slices launches)
-   and once plain; outputs finite. ``gnn_profile``: one more kernel
-   forward under ``torch.profiler``. ``gnn_equal``: max |kernel - plain|
-   <= 3e-2 * max |plain|, the share of equal outputs, and the largest
-   difference between the two kernel forwards.
+   and once plain; outputs finite. ``gnn_plan`` also times the forward's
+   first step alone: the edge list sorted by destination and its 8 plans
+   built (``gnn.sort_edges``), seconds and peak. ``gnn_profile``: one more
+   kernel forward under ``torch.profiler``. ``gnn_equal``: max |kernel -
+   plain| <= 3e-2 * max |plain|, the share of equal outputs, and the
+   largest difference between the two kernel forwards (0: no atomics).
 9. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
-   kernel against plain.
+   kernel against plain, after one warm-up forward.
 10. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
@@ -421,25 +427,44 @@ def segment_ids(e: int, n: int, gen, out_of_range: bool = True) -> torch.Tensor:
     return seg
 
 
+def heavy_ids(e: int, n: int, gen) -> torch.Tensor:
+    """Ids uniform over [0, n), unsorted, with half the rows set to n // 2."""
+    seg = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32, device="cuda")
+    seg[torch.rand(e, generator=gen, device="cuda") < 0.5] = n // 2
+    return seg
+
+
 def segment_sum_phase():
     """The segment-sum kernel against its plain version on their float64
     accumulators (``ref.ACC_DTYPE``), at the GNN path's shapes and at edge
-    cases. The bound and the ``index_add_`` yardstick are those of the
-    function itself, whose accumulator is float32: the kernel's float64
-    traffic shows as distance from the bound."""
+    cases, each through its segment plan, built first. The bound and the
+    ``index_add_`` yardstick are those of the function itself, whose
+    accumulator is float32: the kernel's float64 traffic shows as distance
+    from the bound."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_sum import segment_sum_cuda
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     big_n, big_e = 2_449_029, 1 << 24
     bf16, f32 = torch.bfloat16, torch.float32
+    # the nodes of one edge slice of the forward, whose edge list is sorted
+    # by destination: 2**24 of the 123,718,280 edges, about 50.5 a node
+    slice_nodes = round(big_n * big_e / (2 * get_arch(GNN_ARCH).shape(GNN_SHAPE).n_edges))
 
     def rows(e, d, dtype):
         return torch.randn((e, d), generator=gen, device="cuda").to(dtype)
 
+    slice_rows = rows(big_e, 70, bf16)
     cases = {
-        # one gatedgcn edge slice (msg / eta) at full width
-        "gatedgcn_slice": (rows(big_e, 70, bf16), segment_ids(big_e, big_n, gen), big_n),
+        # one gatedgcn edge slice (msg / eta) at full width, ids unsorted
+        "gatedgcn_slice": (slice_rows, segment_ids(big_e, big_n, gen), big_n),
+        # the same rows with ids sorted, as the forward feeds them
+        "gatedgcn_slice_sorted": (slice_rows, torch.sort(torch.randint(
+            0, slice_nodes, (big_e,), generator=gen, dtype=torch.int32, device="cuda")).values,
+            big_n),
+        # the same rows, half of them in one id
+        "heavy_segment": (slice_rows, heavy_ids(big_e, big_n, gen), big_n),
         # the _segment_mean ones column over the same ids: integer sums, exact
         "ones_column": (torch.ones((big_e, 1), dtype=bf16, device="cuda"),
                         segment_ids(big_e, big_n, gen), big_n),
@@ -456,11 +481,14 @@ def segment_sum_phase():
                                 torch.randint(-2, 9, (3001,), generator=gen, dtype=torch.int32,
                                               device="cuda"), 7),
     }
+    del slice_rows
     out = []
-    for name, (data, seg, n) in cases.items():
+    for name in list(cases):
+        data, seg, n = cases.pop(name)
         e, d = data.shape
         zeros = lambda: torch.zeros((n, d), dtype=ref.ACC_DTYPE, device="cuda")  # noqa: E731
-        got = segment_sum_cuda(data, seg, zeros())
+        plan = segment_plan(seg, n)
+        got = segment_sum_cuda(data, plan, zeros())
         want = ref.segment_sum_ref(data, seg, n, zeros())
         torch.cuda.synchronize()
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -471,25 +499,57 @@ def segment_sum_phase():
         if name == "all_out_of_range":
             check(not got.any(), "segment_sum: out-of-range ids were added")
         rec = {"case": name, "rows": e, "d": d, "n": n, "dtype": str(data.dtype).split(".")[-1],
-               "max_abs_err": err, "max_abs_ref": top, "limit": limit}
+               "max_abs_err": err, "max_abs_ref": top, "limit": limit,
+               "sorted": plan.order is None, "segments": plan.hi - plan.lo,
+               "heavy_segments": plan.heavy.shape[0], "heavy_parts": plan.n_parts}
         if e * d >= 1 << 20:
             keep = (seg >= 0) & (seg < n)
             src = torch.where(keep[:, None], data.float(), 0.0)
             idx = seg.clamp(0, n - 1)
             acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
-            rec["ms"] = cuda_ms(lambda: segment_sum_cuda(data, seg, got))
+            touched = int(torch.unique(seg[keep]).numel())
+            rec["ms"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got))
+            rec["plan_ms"] = cuda_ms(lambda: segment_plan(seg, n), reps=3)
             rec["plain_ms"] = cuda_ms(lambda: ref.segment_sum_ref(data, seg, n, want), reps=3)
             rec["library_ms"] = cuda_ms(lambda: acc.index_add_(0, idx, src))
-            # the function's bytes: data and ids read once, a float32 [n, d]
-            # accumulator written once; e * d float32 adds
-            n_bytes = e * d * data.element_size() + 4 * e + 4 * n * d
+            if rec["ms"] < 1:  # the card's time alone, the host's hidden
+                rec["ms_back_to_back"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got),
+                                                 per=20)
+                rec["library_ms_back_to_back"] = cuda_ms(lambda: acc.index_add_(0, idx, src),
+                                                         per=20)
+            # the function's bytes: data and ids read once, the float32 rows
+            # of the touched segments written once; e * d float32 adds
+            n_bytes = e * d * data.element_size() + 4 * e + 4 * touched * d
+            rec["touched_segments"] = touched
             rec["bytes"] = n_bytes
             rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, e * d)
             del keep, src, idx, acc
         out.append(rec)
-        del data, seg, got, want
+        del data, seg, got, want, plan
     torch.cuda.empty_cache()
     return out
+
+
+def sort_and_plan(g, slice_rows=None):
+    """The forward's first step alone: sort the edge list by destination
+    and build its segment plans (``gnn.sort_edges``); seconds on the host
+    clock around it, its peak GiB above what was resident, the plans."""
+    from repro_torch.models import gnn
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ed = gnn.sort_edges(g, slice_rows)
+    torch.cuda.synchronize()
+    rec = {"sort_plan_seconds": time.perf_counter() - t0,
+           "sort_plan_peak_extra_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "plans": len(ed.plans), "sorted_plans": sum(p.order is None for p in ed.plans),
+           "heavy_segments": sum(p.heavy.shape[0] for p in ed.plans)}
+    del ed
+    torch.cuda.empty_cache()
+    return rec
 
 
 def gnn_forward(params, g, cfg, use_kernels: bool, label: str):
@@ -558,12 +618,16 @@ def gnn_phase():
     torch.cuda.synchronize()
     slices = math.ceil(n_edges / gnn.EDGE_SLICE)
     predicted = cfg.n_layers * 2 * slices
+    setup_s = time.perf_counter() - t0
+    sort = sort_and_plan(g, gnn.EDGE_SLICE)
+    check(sort["plans"] == sort["sorted_plans"] == slices,
+          f"{sort['plans']} segment plans ({sort['sorted_plans']} sorted) for {slices} slices")
     emit({"phase": "gnn_plan", "arch": cfg.name, "shape": GNN_SHAPE, "nodes": n_nodes,
           "edges": n_edges, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden, "d_out": cfg.d_out,
           "layers": cfg.n_layers, "dtype": cfg.dtype, "edge_slice": gnn.EDGE_SLICE,
           "slices": slices, "predicted_segment_sum_launches": predicted,
-          "data_seconds": data_s, "setup_seconds": time.perf_counter() - t0,
-          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+          "data_seconds": data_s, "setup_seconds": setup_s,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30, **sort})
 
     rec, out_k, counts = gnn_forward(params, g, cfg, True, "kernels")
     emit(rec)
@@ -576,9 +640,11 @@ def gnn_phase():
     check(not any(plain_counts.values()), f"the plain forward launched kernels: {plain_counts}")
     equal = compare_outputs(cfg.name, out_k, out_p, 3e-2)
     del out_p
-    # a second kernel forward (profiled): the float64 sums make it repeat
+    # a second kernel forward (profiled): without atomics it repeats bit for bit
     out_r = gnn_profile(params, g, cfg)
     equal["kernel_repeat_max_abs_diff"] = float((out_r.float() - out_k.float()).abs().max())
+    check(equal["kernel_repeat_max_abs_diff"] == 0,
+          f"two kernel forwards differ by {equal['kernel_repeat_max_abs_diff']}")
     emit({"phase": "gnn_equal", **equal})
     del out_k, out_r, g, params
     torch.cuda.empty_cache()
@@ -601,6 +667,8 @@ def gnn_small_phase():
                                d_edge=cfg.d_edge_in, seed=0)
         g = graph_from_numpy(raw, "cuda")
         params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+        gnn.forward(params, g, cfg, use_kernels=False)  # warm-up: first-use costs
+        sort = sort_and_plan(g)
         rec_k, out_k, counts = gnn_forward(params, g, cfg, True, "kernels")
         rec_p, out_p, _ = gnn_forward(params, g, cfg, False, "plain")
         check(counts["segment_sum"] > 0, f"{arch}: segment_sum never launched")
@@ -608,6 +676,7 @@ def gnn_small_phase():
               "edges": 2 * shape.n_edges, "dtype": cfg.dtype,
               "segment_sum_launches": counts["segment_sum"],
               "kernel_seconds": rec_k["seconds"], "plain_seconds": rec_p["seconds"],
+              "sort_plan_seconds": sort["sort_plan_seconds"],
               **compare_outputs(arch, out_k, out_p, tol)})
 
 
@@ -1344,7 +1413,7 @@ def main() -> None:
                "set_intersect": ("src/repro_torch/kernels/csrc/set_intersect.cu",
                                  "src/repro/kernels/set_intersect.py:34", "ccjoin"),
                "segment_sum": ("src/repro_torch/kernels/csrc/segment_sum.cu",
-                               "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice"),
+                               "src/repro/kernels/segment_sum.py:53", "gatedgcn_slice_sorted"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                    "src/repro/kernels/flash_attention.py:84", "prefill"),
                "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",

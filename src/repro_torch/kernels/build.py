@@ -34,8 +34,10 @@ _SIGNATURES = {
     "member_probe_launch": (_P, _P, _P, _P, _L, _I, _P, _P),
     # a, b, g, ca, cb, pad, out, stream
     "set_intersect_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # data, is_bf16, seg, rows, d, n, acc, stream
-    "segment_sum_launch": (_P, _I, _P, _L, _L, _L, _P, _P),
+    # data, is_bf16, d, order, offsets, lo, hi, chunk, heavy, parts, n_heavy, n_parts,
+    # split, partial, acc, device, stream
+    "segment_sum_launch": (_P, _I, _L, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _P, _I,
+                           _P),
     # table, is_bf16, rows, d, idx, bag, n, num_bags, out, stream
     "embedding_bag_launch": (_P, _I, _L, _L, _P, _P, _L, _L, _P, _P),
     # q, k, v, out, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream

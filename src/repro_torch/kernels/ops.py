@@ -17,11 +17,12 @@ from .ref import ACC_DTYPE
 from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
 from .member_probe import member_probe_cuda
-from .segment_sum import segment_sum_cuda
+from .segment_sum import SegmentPlan, segment_plan, segment_sum_cuda
 from .set_intersect import set_intersect_cuda
 
-__all__ = ["set_intersect", "member_probe", "segment_sum", "embedding_bag", "flash_attention",
-           "ACC_DTYPE", "launch_counts", "reset_launch_counts"]
+__all__ = ["set_intersect", "member_probe", "segment_sum", "segment_plan", "SegmentPlan",
+           "embedding_bag", "flash_attention", "ACC_DTYPE", "launch_counts",
+           "reset_launch_counts"]
 
 # kernel name: (wrapper, its attribute that counts the kernel's launches).
 # "flash_attention" counts every Lq > 16 call; "flash_attention_tc" the
@@ -62,23 +63,32 @@ def member_probe(q_hi: torch.Tensor, q_lo: torch.Tensor, t_hi: torch.Tensor,
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int, *, use_kernels: bool,
-                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                acc: Optional[torch.Tensor] = None,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """``out[s, :] = Σ_{i : seg[i] = s} data[i, :]``; ids outside ``[0, n)``
     are dropped and need not be sorted.
 
     Sums in ``ACC_DTYPE`` (float64). Without ``acc`` it returns
     ``[n, D]`` in ``data.dtype``; with ``acc`` (``ACC_DTYPE`` ``[n, D]``)
     it adds into that buffer and returns it, so a caller can sum over
-    slices of the rows.
+    slices of the rows. ``plan``, the :func:`segment_plan` of ``seg``, lets
+    a caller that sums by the same ids again build it once; without one the
+    kernel path builds it for this call (building a plan is not a launch).
     """
     if acc is not None and (acc.dtype != ACC_DTYPE or tuple(acc.shape) != (n, data.shape[1])):
         raise ValueError(f"segment_sum: acc must be {ACC_DTYPE} [{n}, {data.shape[1]}], "
                          f"got {acc.dtype} {tuple(acc.shape)}")
+    if plan is not None:
+        plan.check(seg.shape[0], n, seg.device)
     if not _use_kernel(data, use_kernels, "segment_sum"):
-        return ref.segment_sum_ref(data, seg, n, acc)
+        if plan is None:
+            return ref.segment_sum_ref(data, seg, n, acc)
+        return ref.segment_sum_plan_ref(data, plan, n, acc)
+    if plan is None:
+        plan = segment_plan(seg, n)
     out = acc if acc is not None else torch.zeros((n, data.shape[1]), dtype=ACC_DTYPE,
                                                   device=data.device)
-    segment_sum_cuda(data.contiguous(), seg.contiguous(), out)
+    segment_sum_cuda(data.contiguous(), plan, out)
     return out if acc is not None else out.to(data.dtype)
 
 

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "embedding_bag_ref",
+__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "segment_sum_plan_ref",
+           "embedding_bag_ref",
            "flash_attention_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
            "merge_split_k", "ACC_DTYPE"]
 
@@ -29,17 +30,19 @@ _BAG_CELLS = 1 << 26
 # Score cells (b · hq · rows · lk) per query slice of the plain attention:
 # bounds its float32 scores and probabilities at 1 GiB each.
 _ATTN_CELLS = 1 << 28
-# The segment sum's accumulator type, kernel and plain version alike. The
-# float64 sum of m float32 (bfloat16) values is exact while their exponents
-# span fewer than 29 - log2(m) (45 - log2(m)) binades, so its rounding to the
-# output type almost never depends on the order of the adds: the kernel's
-# atomics and index_add_ give the same output, run after run. With float32
-# sums the order decides some roundings, and the 16-layer bf16 gatedgcn
-# grows those last-bit flips into large differences (PERF.md). Float32 is
-# the function's own accumulator type. Float64 stays until the segment-sum
-# kernel is redesigned for this card; the redesign chooses between a
-# deterministic float32 CSR sum and float64, with a check that both paths
-# share (ROADMAP Queue 2 item 3).
+# The segment sum's accumulator type, kernel and plain version alike:
+# float64, kept when the kernel became an atomic-free CSR sum. The float64
+# sum of m float32 (bfloat16) values is exact while their exponents span
+# fewer than 29 - log2(m) (45 - log2(m)) binades, so its rounding to the
+# output type almost never depends on the order of the adds. That is what
+# lets the plain version (index_add_, whose order no kernel reproduces) and
+# the kernel agree within the unchanged limits, and what lets the kernel
+# split a heavy segment across threads without changing the result. In
+# the CSR kernel the accumulator is written once per segment, so float64
+# no longer sets its time. With float32 sums the order decides some
+# roundings, and the 16-layer bf16 gatedgcn grows those last-bit flips into
+# large differences (PERF.md, PR 12): the kernel-against-plain check and
+# gnn_equal would have to be widened.
 ACC_DTYPE = torch.float64
 
 
@@ -118,6 +121,34 @@ def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor, n: int,
             keep = (ids >= 0) & (ids < n)
             rows = torch.where(keep[:, None], data[s:s + step].to(ACC_DTYPE), 0.0)
             out.index_add_(0, ids.clamp(0, n - 1), rows)
+    return out if acc is not None else out.to(data.dtype)
+
+
+def segment_sum_plan_ref(data: torch.Tensor, plan, n: int,
+                         acc: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`segment_sum_ref` driven by a segment plan
+    (``segment_sum.SegmentPlan``) instead of the ids.
+
+    Gathers ``data[plan.order]`` (or takes the rows as they are when the
+    plan has no order) over the sorted rows ``[offsets[lo], offsets[hi])``
+    and ``index_add_``s them by their sorted ids in :data:`ACC_DTYPE`,
+    ``_SEGMENT_CELLS`` cells at a time. The rows of other ids are never
+    read. ``acc`` as in :func:`segment_sum_ref`.
+    """
+    d = data.shape[1]
+    plan.check(data.shape[0], n, data.device)
+    out = acc if acc is not None else torch.zeros((n, d), dtype=ACC_DTYPE, device=data.device)
+    if plan.hi > plan.lo and d > 0:
+        lo, hi = plan.lo, plan.hi
+        bounds = plan.offsets[lo:hi + 1]
+        start, stop = (int(v) for v in bounds[[0, -1]].tolist())
+        ids = torch.repeat_interleave(torch.arange(lo, hi, device=data.device), bounds.diff(),
+                                      output_size=stop - start)
+        step = max(1, _SEGMENT_CELLS // d)
+        for s in range(start, stop, step):
+            e = min(s + step, stop)
+            rows = data[plan.order[s:e].long()] if plan.order is not None else data[s:e]
+            out.index_add_(0, ids[s - start:e - start], rows.to(ACC_DTYPE))
     return out if acc is not None else out.to(data.dtype)
 
 

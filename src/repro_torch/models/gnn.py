@@ -3,7 +3,10 @@
 Single-device port of ``repro/models/gnn.py``. Message passing is a row
 gather (``index_select``) plus :func:`repro_torch.kernels.ops.segment_sum`
 over a padded edge list: a padded edge's destination becomes the id
-``n``, which the segment sum drops. Parameters are a plain dict keyed by
+``n``, which the segment sum drops. Each forward first sorts its edge list
+by that id (:func:`sort_edges`) and builds the segment plans once, so every
+segment sum of the forward reads its rows in order; node outputs do not
+depend on the order of the edges. Parameters are a plain dict keyed by
 the JAX names (``"l3_A"``, ``"p0_edge_w1"``, …), so the JAX package's
 parameters carry across unchanged (``convert.gnn_params_from_numpy``).
 
@@ -17,14 +20,14 @@ directed edges, a 17.3 GB bf16 edge state) fits one 80 GB card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ..kernels import ops
 
-__all__ = ["EDGE_SLICE", "GraphData", "GNNConfig", "param_shapes", "init_params",
-           "forward", "sage_minibatch_forward"]
+__all__ = ["EDGE_SLICE", "GraphData", "GNNConfig", "SortedEdges", "sort_edges", "param_shapes",
+           "init_params", "forward", "sage_minibatch_forward"]
 
 # Edges per slice of the gatedgcn layer: its [slice, d_hidden] temporaries
 # (gathered rows, gate, message) stay near 2.35 GB each at d_hidden = 70.
@@ -91,18 +94,42 @@ def _mlp_apply(params, prefix: str, x: torch.Tensor, n: int, norm: bool = False)
     return x
 
 
-def _segment_mean(data, seg, n, use_kernels):
-    s = ops.segment_sum(data, seg, n, use_kernels=use_kernels)
+def _segment_mean(data, seg, n, use_kernels, plan):
+    s = ops.segment_sum(data, seg, n, use_kernels=use_kernels, plan=plan)
     ones = torch.ones((data.shape[0], 1), dtype=data.dtype, device=data.device)
-    cnt = ops.segment_sum(ones, seg, n, use_kernels=use_kernels)
+    cnt = ops.segment_sum(ones, seg, n, use_kernels=use_kernels, plan=plan)
     return s / cnt.clamp_min(1.0)
 
 
-def _edges(g: GraphData):
-    """Clipped gather indices and the segment ids (``n`` on padding)."""
-    n = g.n
-    return (g.src.clamp(0, n - 1), g.dst.clamp(0, n - 1),
-            torch.where(g.edge_mask, g.dst, n))
+@dataclasses.dataclass
+class SortedEdges:
+    """A graph's edges sorted by segment id (stable): clipped gather
+    indices, the ids (``n`` on padding, so padding sorts last), the edge
+    features when the model reads them, and one segment plan per slice of
+    ``slice_rows`` edges."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    seg: torch.Tensor
+    edge_attr: torch.Tensor | None
+    plans: List[ops.SegmentPlan]
+    slice_rows: int
+
+
+def sort_edges(g: GraphData, slice_rows: int | None = None,
+               with_attr: bool = False) -> SortedEdges:
+    """Sort ``g``'s edge list by destination once, and plan its segment
+    sums: one plan per ``slice_rows`` edges (all of them when None).
+    The sort's permutation is freed before this returns."""
+    n, n_edges = g.n, g.src.shape[0]
+    seg, order = torch.sort(torch.where(g.edge_mask, g.dst, n), stable=True)
+    src = g.src.index_select(0, order).clamp_(0, n - 1)
+    dst = g.dst.index_select(0, order).clamp_(0, n - 1)
+    attr = g.edge_attr.index_select(0, order) if with_attr else None
+    del order
+    step = slice_rows or max(n_edges, 1)
+    plans = [ops.segment_plan(seg[s:s + step], n) for s in range(0, max(n_edges, 1), step)]
+    return SortedEdges(src, dst, seg, attr, plans, step)
 
 
 # ---------------------------------------------------------------------------
@@ -122,17 +149,19 @@ def _gatedgcn_shapes(c: GNNConfig) -> Dict:
 
 def _gatedgcn_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
     n, dt = g.n, c.tdtype
-    h = g.x.to(dt) @ params["embed_w"] + params["embed_b"]
     n_edges = g.src.shape[0]
-    e = (g.edge_attr.to(dt) @ params["eembed_w"] + params["eembed_b"] if c.d_edge_in
+    ed = sort_edges(g, EDGE_SLICE, with_attr=bool(c.d_edge_in))
+    src, dst, seg_dst = ed.src, ed.dst, ed.seg
+    h = g.x.to(dt) @ params["embed_w"] + params["embed_b"]
+    e = (ed.edge_attr.to(dt) @ params["eembed_w"] + params["eembed_b"] if c.d_edge_in
          else torch.zeros((n_edges, c.d_hidden), dtype=h.dtype, device=h.device))
-    src, dst, seg_dst = _edges(g)
+    ed.edge_attr = None  # e holds their embedding
     for i in range(c.n_layers):
         A, B, C, U, V = (params[f"l{i}_{nm}"] for nm in ("A", "B", "C", "U", "V"))
         agg = torch.zeros((n, c.d_hidden), dtype=ops.ACC_DTYPE, device=h.device)
         den = torch.zeros_like(agg)
-        for s in range(0, n_edges, EDGE_SLICE):
-            sl = slice(s, s + EDGE_SLICE)
+        for s, plan in zip(range(0, n_edges, ed.slice_rows), ed.plans):
+            sl = slice(s, s + ed.slice_rows)
             hs = h.index_select(0, src[sl])
             e_new = h.index_select(0, dst[sl]) @ A
             e_new += hs @ B
@@ -141,9 +170,9 @@ def _gatedgcn_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
             msg = hs @ V
             del hs
             msg *= eta
-            ops.segment_sum(msg, seg_dst[sl], n, use_kernels=use_kernels, acc=agg)
+            ops.segment_sum(msg, seg_dst[sl], n, use_kernels=use_kernels, acc=agg, plan=plan)
             del msg
-            ops.segment_sum(eta, seg_dst[sl], n, use_kernels=use_kernels, acc=den)
+            ops.segment_sum(eta, seg_dst[sl], n, use_kernels=use_kernels, acc=den, plan=plan)
             del eta
             e[sl].add_(e_new.relu_())  # e + relu(e_new), in place
         h_new = h @ U + agg.to(dt) / (den.to(dt) + 1e-6)
@@ -173,9 +202,9 @@ def _sage_normalize(h):
 def _graphsage_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
     n = g.n
     h = g.x.to(c.tdtype)
-    src, _, seg_dst = _edges(g)
+    ed = sort_edges(g)
     for i in range(c.n_layers):
-        agg = _segment_mean(h.index_select(0, src), seg_dst, n, use_kernels)
+        agg = _segment_mean(h.index_select(0, ed.src), ed.seg, n, use_kernels, ed.plans[0])
         h = h @ params[f"l{i}_self"] + agg @ params[f"l{i}_neigh"] + params[f"l{i}_b"]
         if i < c.n_layers - 1:
             h = _sage_normalize(h)
@@ -222,15 +251,15 @@ def _mgn_shapes(c: GNNConfig) -> Dict:
 
 def _mgn_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
     n, dt = g.n, c.tdtype
+    ed = sort_edges(g, with_attr=bool(c.d_edge_in))
     h = _mlp_apply(params, "enc_n", g.x.to(dt), 2, norm=True)
-    ea = (g.edge_attr.to(dt) if c.d_edge_in
+    ea = (ed.edge_attr.to(dt) if c.d_edge_in
           else torch.ones((g.src.shape[0], 1), dtype=dt, device=h.device))
     e = _mlp_apply(params, "enc_e", ea, 2, norm=True)
-    src, dst, seg_dst = _edges(g)
     for i in range(c.n_layers):
-        edge_in = torch.cat([e, h.index_select(0, src), h.index_select(0, dst)], -1)
+        edge_in = torch.cat([e, h.index_select(0, ed.src), h.index_select(0, ed.dst)], -1)
         e = e + _mlp_apply(params, f"p{i}_edge", edge_in, 2, norm=True)
-        agg = ops.segment_sum(e, seg_dst, n, use_kernels=use_kernels)
+        agg = ops.segment_sum(e, ed.seg, n, use_kernels=use_kernels, plan=ed.plans[0])
         h = h + _mlp_apply(params, f"p{i}_node", torch.cat([h, agg], -1), 2, norm=True)
     return _mlp_apply(params, "dec", h, 2)
 

@@ -120,8 +120,8 @@ def test_segment_sum_dispatch_rules():
     with pytest.raises(ValueError, match="acc"):
         ops.segment_sum(data, ids, 3, use_kernels=False, acc=torch.zeros((3, 2), dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="data"):
-        from repro_torch.kernels.segment_sum import segment_sum_cuda
-        segment_sum_cuda(data, ids, torch.zeros((3, 2)))
+        from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+        segment_sum_cuda(data, segment_plan(ids, 3), torch.zeros((3, 2)))
 
 
 # ---------------------------------------------------------------------------

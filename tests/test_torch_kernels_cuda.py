@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on a GPU (exact
 equality for the integer kernels; segment_sum's float64 sums within 1e-5
-of the largest, exact for integer sums; embedding_bag's float32 bag sums
+of the largest, exact for integer sums, bitwise repeatable, and leaving
+the accumulator rows outside a plan's range untouched; embedding_bag's float32 bag sums
 within n_b · 2⁻²³ · Σ|rows| of the float64 sum (one bfloat16 rounding more
 in bfloat16), one-row bags equal; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
@@ -84,21 +85,27 @@ def _segment_inputs(seed, e, d, n, dtype, device):
 @pytest.mark.parametrize("e,d,n", [(100_000, 70, 3000), (50_000, 1, 700), (20_000, 128, 40),
                                    (3000, 1433, 500), (1, 3, 1)])
 def test_segment_sum_kernel_matches_plain(cuda_device, e, d, n, dtype):
-    """float64 sums in another order: within 1e-5 of the largest sum."""
-    from repro_torch.kernels.segment_sum import segment_sum_cuda
+    """float64 sums in another order: within 1e-5 of the largest sum, for
+    the ids as drawn (through the plan's order) and sorted (none)."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
 
     data, ids = _segment_inputs(e + d, e, d, n, dtype, cuda_device)
     zeros = lambda: torch.zeros((n, d), dtype=ref.ACC_DTYPE, device=cuda_device)  # noqa: E731
-    got = segment_sum_cuda(data, ids, zeros())
-    want = ref.segment_sum_ref(data, ids, n, zeros())
-    assert (got - want).abs().max() <= 1e-5 * max(1.0, float(want.abs().max()))
+    for seg in (ids, torch.sort(ids).values):
+        plan = segment_plan(seg, n)
+        assert (plan.order is None) == bool((seg[1:] >= seg[:-1]).all())
+        got = segment_sum_cuda(data, plan, zeros())
+        want = ref.segment_sum_ref(data, seg, n, zeros())
+        assert (got - want).abs().max() <= 1e-5 * max(1.0, float(want.abs().max()))
 
 
 @pytest.mark.cuda
 def test_segment_sum_kernel_counts_exactly_and_accumulates(cuda_device):
     """Integer sums of a ones column are exact; an accumulator passed in
-    across two calls equals one call over all rows."""
+    across two calls, each with its plan, equals one call over all rows;
+    a plan is built once and launched on twice; no valid id, no launch."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_sum import segment_plan
 
     _, ids = _segment_inputs(9, 200_000, 1, 5000, torch.float32, cuda_device)
     ones = torch.ones((200_000, 1), dtype=torch.bfloat16, device=cuda_device)
@@ -106,11 +113,106 @@ def test_segment_sum_kernel_counts_exactly_and_accumulates(cuda_device):
                        ops.segment_sum(ones, ids, 5000, use_kernels=False))
     data, ids = _segment_inputs(10, 80_000, 70, 900, torch.bfloat16, cuda_device)
     acc = torch.zeros((900, 70), dtype=ref.ACC_DTYPE, device=cuda_device)
+    ops.reset_launch_counts()
     for s in (slice(0, 30_000), slice(30_000, None)):
-        ops.segment_sum(data[s], ids[s], 900, use_kernels=True, acc=acc)
+        plan = segment_plan(ids[s], 900)
+        ops.segment_sum(data[s], ids[s], 900, use_kernels=True, acc=acc, plan=plan)
+    assert ops.launch_counts()["segment_sum"] == 2
     want = ref.segment_sum_ref(data, ids, 900, torch.zeros_like(acc))
     assert (acc - want).abs().max() <= 1e-5 * float(want.abs().max())
     assert not ops.segment_sum(data, torch.full_like(ids, -1), 900, use_kernels=True).any()
+    assert ops.launch_counts()["segment_sum"] == 2
+
+
+def _heavy_ids(seed, e, n, device, sort):
+    """Half the rows in one id, three more hubs of 5,000, the rest spread."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n, e)
+    ids[rng.random(e) < 0.5] = n // 2
+    ids[rng.choice(e, 15_000, replace=False)] = np.repeat([1, 7, n - 1], 5000)
+    if sort:
+        ids = np.sort(ids)
+    return torch.from_numpy(ids.astype(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 70), (torch.float32, 3)])
+def test_segment_sum_kernel_heavy_segment(cuda_device, dtype, d, sort):
+    """Half the rows in one id: the hub is summed in parts and combined,
+    within 1e-5 of the largest sum; and not serialised: five launches take
+    at most 3x (+ 0.05 ms) those on the same rows spread over all ids."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+
+    e, n = 1 << 21, 20_000
+    rng = np.random.default_rng(d)
+    data = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(cuda_device, dtype)
+    ids = _heavy_ids(d, e, n, cuda_device, sort)
+    plan = segment_plan(ids, n)
+    assert n // 2 in plan.heavy.tolist() and plan.n_parts > 1000
+    got = segment_sum_cuda(data, plan, torch.zeros((n, d), dtype=ref.ACC_DTYPE,
+                                                   device=cuda_device))
+    want = ref.segment_sum_ref(data, ids, n, torch.zeros_like(got))
+    assert (got - want).abs().max() <= 1e-5 * float(want.abs().max())
+
+    spread_ids = torch.randint(0, n, (e,), dtype=torch.int32, device=cuda_device)
+    spread = segment_plan(torch.sort(spread_ids).values if sort else spread_ids, n)
+
+    def ms(p):
+        acc = torch.zeros_like(got)
+        segment_sum_cuda(data, p, acc)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            segment_sum_cuda(data, p, acc)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    assert ms(plan) <= 3 * ms(spread) + 0.05
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_range_leaves_other_rows(cuda_device):
+    """A launch over a sorted slice writes only the rows [lo, hi) of acc:
+    every other row keeps its bits; the rows it does write equal acc plus
+    the slice's sums."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+
+    n, d = 50_000, 70
+    rng = np.random.default_rng(21)
+    ids = torch.from_numpy(np.sort(rng.integers(0, n, 400_000)).astype(np.int32))
+    data = torch.from_numpy(rng.normal(size=(400_000, d)).astype(np.float32))
+    sl = slice(150_000, 250_000)
+    data, ids = data[sl].to(cuda_device, torch.bfloat16), ids[sl].to(cuda_device)
+    plan = segment_plan(ids, n)
+    assert plan.order is None and 0 < plan.lo < plan.hi < n
+    acc = torch.randn((n, d), dtype=ref.ACC_DTYPE, device=cuda_device)
+    before = acc.clone()
+    segment_sum_cuda(data, plan, acc)
+    outside = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    outside[plan.lo:plan.hi] = False
+    assert torch.equal(acc[outside], before[outside])
+    want = ref.segment_sum_ref(data, ids, n, before.clone())
+    assert (acc - want).abs().max() <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heavy", [False, True])
+def test_segment_sum_kernel_repeats_bitwise(cuda_device, heavy):
+    """No atomics: two launches on the same plan give the same bits."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+
+    e, n, d = 1 << 20, 30_000, 70
+    data = torch.randn((e, d), device=cuda_device)
+    ids = (_heavy_ids(5, e, n, cuda_device, False) if heavy
+           else torch.randint(-5, n + 5, (e,), dtype=torch.int32, device=cuda_device))
+    plan = segment_plan(ids, n)
+    assert (plan.n_parts > 0) == heavy
+    one = segment_sum_cuda(data, plan, torch.zeros((n, d), dtype=ref.ACC_DTYPE,
+                                                   device=cuda_device))
+    two = segment_sum_cuda(data, plan, torch.zeros_like(one))
+    assert torch.equal(one, two)
 
 
 def _bag_inputs(seed, v, d, n, nb, dtype, device):
