@@ -1,17 +1,24 @@
 """Drive the PyTorch/CUDA port of DDSL end to end on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times SRC
 
 Prints one JSON object per line, in phases:
 
 1. ``build``   — compiles ``src/repro_torch/kernels/csrc/*.cu`` (sm_90a).
 2. ``kernel_check`` — each kernel against its plain PyTorch version at the
    main path's shapes and at edge cases (exact equality: the data are
-   integers), with median times over CUDA events.
+   integers), with median times over CUDA events. ``member_probe`` also
+   at tables on both sides of its shared-memory limit and of a fence
+   stride, with n % 4 != 0 and misaligned query views, each twice
+   (bitwise repeatable); its main-path shapes one call at a time and 20 in
+   a row.
 3. ``stage1`` / ``batch`` — the main path with the kernels: q1_square on
    the WT~ graph (rmat_graph(12, 10_000, seed=1)) over m = 8 partitions,
    stage 1 then three 64 + 64 edge batches; time, count, overflow and
-   peak device memory of each stage.
+   peak device memory of each stage. ``profile``: one more batch under
+   ``torch.profiler``, with the device seconds of ``member_probe`` and
+   ``set_intersect`` summed over their kernels (``named_kernels``).
 4. ``audit`` — stage 1 listed again from scratch on the final partitions;
    its count must equal the maintained count.
 5. ``plain``   — the same path with ``use_kernels=False`` on the card; the
@@ -84,9 +91,13 @@ Prints one JSON object per line, in phases:
    n_b * 2**-23 * sum |rows| of the float64 sum, kernel and plain alike;
    edge cases (bf16 within one bf16 rounding more, empty bags, bag ids
    num_bags and -1, a row index V (NaN in its bag only), N = 0 and
-   num_bags = 0 without a launch, D = 13). With the kernel's, the plain
-   version's and ``torch.nn.functional.embedding_bag``'s median ms beside
-   the byte bound.
+   num_bags = 0 without a launch, D = 13, ``mixed_windows``: bags of 0 to
+   100 rows sharing and crossing 32-row windows), each launched twice
+   (bitwise equal). With the kernel's, the plain version's and
+   ``torch.nn.functional.embedding_bag``'s median ms (one call at a time
+   and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
+   serve_bulk's lookups folded into the table's first GiB (a TLB limit
+   would show as a gap).
 13. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
@@ -104,10 +115,17 @@ Then a ``device`` line with the card's name and power limit (the
 summary, and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
+
+``--kernel-times SRC`` runs none of that: it times the ``member_probe``
+and ``embedding_bag`` kernels of the package under ``SRC`` at the main
+paths' shapes and profiles one DDSL batch, so that two checkouts (``src``
+and, say, a ``git archive`` of another commit unpacked under ``build/``)
+are compared in turns on one card in one call.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -216,6 +234,14 @@ def sorted_table(n_rows: int, n_pad: int, hi_max: int, gen) -> torch.Tensor:
     return torch.cat([t, torch.full((n_pad, 2), -1, dtype=torch.int32, device="cuda")])
 
 
+def sized_table(m: int, n_pad: int, gen) -> torch.Tensor:
+    """Exactly ``m`` rows: ``m - n_pad`` unique lex-sorted (hi, lo) pairs
+    with hi below 2**20, then the (-1, -1) pads."""
+    t = sorted_table(2 * (m - n_pad), 0, 1 << 20, gen)
+    keep = torch.randperm(t.shape[0], generator=gen, device="cuda")[:m - n_pad].sort().values
+    return torch.cat([t[keep], torch.full((n_pad, 2), -1, dtype=torch.int32, device="cuda")])
+
+
 def probe_queries(n: int, table: torch.Tensor, hi_max: int, gen) -> torch.Tensor:
     """Queries: half drawn from the table's rows, the rest random or pad."""
     q = torch.randint(-1, hi_max, (n, 2), generator=gen, dtype=torch.int32, device="cuda")
@@ -236,7 +262,7 @@ def padded_sets(g: int, c: int, v_max: int, gen) -> torch.Tensor:
 
 def kernel_phase(pipe_shapes):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.member_probe import member_probe_cuda
+    from repro_torch.kernels.member_probe import member_probe_cuda, probe_stride
     from repro_torch.kernels.set_intersect import set_intersect_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -247,45 +273,70 @@ def kernel_phase(pipe_shapes):
     cedge = ush["cedge_cap"]
     drop = sorted_table(cedge, 64, 4096, gen)
     dele = sorted_table(64, 0, 4096, gen)
+    # (queries, table, offset of the query lanes into their buffers)
     cases = {
         # patch_partition: candidate rows × (candidate ∪ deleted) edges
-        "patch_rows": (ush["cand_cap"] * caps["deg_cap"], drop),
+        "patch_rows": (ush["cand_cap"] * caps["deg_cap"], drop, 0),
         # patch_partition: stored edge list × the same drop table
-        "patch_edges": (caps["e_cap"], drop),
+        "patch_edges": (caps["e_cap"], drop, 0),
         # filter_deleted_dev: store set values × the delete table
-        "filter_sets": (store["group_cap"] * store["set_cap"], dele),
+        "filter_sets": (store["group_cap"] * store["set_cap"], dele, 0),
         # edge cases: one-row table, all-pad table
-        "tiny": (1000, sorted_table(1, 0, 4096, gen)),
-        "all_pad": (1000, torch.full((5, 2), -1, dtype=torch.int32, device="cuda")),
+        "tiny": (1000, sorted_table(1, 0, 4096, gen), 0),
+        "all_pad": (1000, torch.full((5, 2), -1, dtype=torch.int32, device="cuda"), 0),
+        # tables on both sides of the kernel's shared-memory table (8,192
+        # rows) and at a fence stride's edges (ceil(m / s) = 8,192 fences
+        # at s = 4, one row more takes s = 8); n % 4 != 0; query lanes that
+        # are offset views (not 16-byte aligned), as engine.edge_probe's
+        # reshapes can pass
+        "smem_8191": (100_003, sized_table(8191, 0, gen), 0),
+        "smem_8192": (100_002, sized_table(8192, 2, gen), 1),
+        "smem_8193": (100_001, sized_table(8193, 0, gen), 3),
+        "fences_32768": (100_000, sized_table(32_768, 0, gen), 2),
+        "fences_32769": (99_999, sized_table(32_769, 1, gen), 0),
+        "patch_rows_views": (ush["cand_cap"] * caps["deg_cap"] - 3, drop, 1),
     }
     mp = []
-    for name, (n, tbl) in cases.items():
-        q = probe_queries(n, tbl, 4096, gen)
-        args = (q[:, 0].contiguous(), q[:, 1].contiguous(),
-                tbl[:, 0].contiguous(), tbl[:, 1].contiguous())
+    for name, (n, tbl, offset) in cases.items():
+        q = probe_queries(n, tbl, 1 << 20 if name.startswith(("smem", "fences")) else 4096, gen)
+        qh, ql = (torch.full((n + offset,), -3, dtype=torch.int32, device="cuda")
+                  for _ in range(2))
+        qh[offset:], ql[offset:] = q[:, 0], q[:, 1]
+        args = (qh[offset:], ql[offset:], tbl[:, 0].contiguous(), tbl[:, 1].contiguous())
         got = member_probe_cuda(*args)
         want = ref.member_probe_ref(*args)
         torch.cuda.synchronize()
         err = int((got != want).sum())
         check(err == 0, f"member_probe {name}: {err} mismatches")
-        rec = {"case": name, "n": n, "m": int(tbl.shape[0]), "equal": True,
-               "max_abs_err": max_abs_err(got, want)}
-        if n >= 1 << 20:
-            m_rows = tbl.shape[0]
+        check(torch.equal(got, member_probe_cuda(*args)), f"member_probe {name}: not repeatable")
+        m_rows = tbl.shape[0]
+        rec = {"case": name, "n": n, "m": m_rows, "stride": probe_stride(m_rows, n),
+               "offset": offset, "equal": True, "max_abs_err": max_abs_err(got, want)}
+        if name in ("patch_rows", "patch_edges", "filter_sets", "tiny", "all_pad"):
+            # one call at a time, and the card's time alone (20 in a row)
             rec["ms"] = cuda_ms(lambda: member_probe_cuda(*args))
+            rec["ms_back_to_back"] = cuda_ms(lambda: member_probe_cuda(*args), per=20)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                9.0 * n + 8.0 * m_rows, n * math.ceil(math.log2(m_rows + 1)))
+        if "ms" in rec and n >= 1 << 20:
             rec["plain_ms"] = cuda_ms(lambda: ref.member_probe_ref(*args), reps=3)
             qk = args[0].to(torch.int64) * (1 << 32) + args[1].to(torch.int64)
             tk = args[2].to(torch.int64) * (1 << 32) + args[3].to(torch.int64)
             rec["library_ms"] = cuda_ms(lambda: torch.isin(qk, tk), reps=3)
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                9.0 * n + 8.0 * m_rows, n * math.ceil(math.log2(m_rows + 1)))
+            if name != "filter_sets":
+                rec["library_ms_back_to_back"] = cuda_ms(lambda: torch.isin(qk, tk), per=20)
+            del qk, tk
         mp.append(rec)
+        del q, qh, ql, args, got, want
     # empty query / empty table: answered without a launch
     e = torch.empty(0, dtype=torch.int32, device="cuda")
     one = torch.zeros(3, dtype=torch.int32, device="cuda")
+    before = member_probe_cuda.launches
     check(member_probe_cuda(e, e, one, one).numel() == 0, "member_probe N=0")
     check(not member_probe_cuda(one, one, e, e).any(), "member_probe M=0")
+    check(member_probe_cuda.launches == before, "member_probe launched for an empty input")
     results["member_probe"] = mp
+    torch.cuda.empty_cache()
 
     # --- set_intersect ---------------------------------------------------
     G, S = caps["group_cap"], caps["set_cap"]
@@ -367,10 +418,11 @@ def drive(config, use_kernels: bool, label: str):
     return recs, snaps, pipe
 
 
-def profiled(fn):
+def profiled(fn, kernels=()):
     """``fn()`` under ``torch.profiler``: its result, and wall time, summed
-    device time of its kernels, idle share and the kernels that took most
-    of it."""
+    device time of its kernels, idle share, the kernels that took most of
+    it and, for each name in ``kernels``, the device seconds and launches
+    of every kernel whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,7 +449,10 @@ def profiled(fn):
     kern = [(e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
     span = (max(a + d for a, d in kern) - min(a for a, _ in kern)) / 1e9 if kern else 0.0
+    named = {k: {"s": sum(t for key, t, _ in dev if k in key),
+                 "calls": sum(c for key, _, c in dev if k in key)} for k in kernels}
     return result, {"wall_s": wall, "device_s": busy, "idle_share": max(0.0, 1 - busy / wall),
+                    "named_kernels": named,
                     "device_events": len(kern), "device_span_s": span,
                     "span_idle_share": max(0.0, 1 - sum(d for _, d in kern) / 1e9 / span)
                     if span else None,
@@ -408,7 +463,7 @@ def profiled(fn):
 def profile_batch(pipe):
     """One more batch under ``torch.profiler``."""
     upd = pipe.next_update()
-    d, prof = profiled(lambda: {k: int(v) for k, v in pipe.apply(upd).items()})
+    d, prof = profiled(lambda: {k: int(v) for k, v in pipe.apply(upd).items()}, DDSL_KERNELS)
     emit({"phase": "profile", "count": d["count"], "overflow": d["overflow"], **prof})
     return d
 
@@ -1085,11 +1140,26 @@ def embedding_bag_phase():
     idx[[11, 4321]] = 5000
     cases["row_index_v"] = (t, idx, bag, 3000)
     cases["d13"] = (small(5000, 13), *unsorted(30_000, 4000, 5000), 4000)
-    exact = ("serve_bulk", "serve_p99")
+    # bags of 0, 1, 2, 31, 32, 33 and 100 rows: one-row and multi-row bags
+    # in one 32-row window, bags crossing windows, empty bags at their edges
+    sizes = torch.tensor([0, 0, 1, 1, 1, 1, 2, 31, 32, 33, 100], device="cuda")
+    sizes = sizes[torch.randint(0, sizes.shape[0], (3000,), generator=gen, device="cuda")]
+    bag = torch.repeat_interleave(torch.arange(3000, device="cuda"), sizes).to(torch.int32)
+    cases["mixed_windows"] = (t, torch.randint(0, 5000, bag.shape, generator=gen,
+                                               dtype=torch.int32, device="cuda"), bag, 3000)
+    # serve_bulk's lookups folded into the table's first GiB (4,194,304
+    # rows): against serve_bulk, a TLB limit on the 6.2 GiB of random rows
+    # shows as a gap, a latency limit as none
+    rows_1g = (1 << 30) // (d * big.element_size())
+    cases["serve_bulk_1gib"] = (big, cases["serve_bulk"][1] % rows_1g, *cases["serve_bulk"][2:])
+    exact = ("serve_bulk", "serve_p99", "serve_bulk_1gib")
     out = []
     for name, (table, idx, bag, nb) in cases.items():
         idx, bag = ops.sort_by_bag(idx, bag)
         got = embedding_bag_cuda(table, idx, bag, nb)
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        check(torch.equal(got.view(bits), embedding_bag_cuda(table, idx, bag, nb).view(bits)),
+              f"embedding_bag {name}: two launches differ")
         want = ref.embedding_bag_ref(table, idx, bag, nb)
         s, limit, cnt, nan = bag_limits(table, idx, bag, nb)
         torch.cuda.synchronize()
@@ -1116,15 +1186,21 @@ def embedding_bag_phase():
                "max_abs_ref": float(want[fin].float().abs().max()),
                "max_err_over_limit": worst, "nan_bags": int(nan.sum()),
                "empty_bags": int((cnt == 0).sum())}
+        if name == "serve_bulk_1gib":
+            rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
         if name in ("serve_bulk", "serve_p99", "multi_hot"):
             n = idx.shape[0]
             rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
+            # the card's time alone: 20 calls in a row
+            rec["ms_back_to_back"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb),
+                                             per=20)
             rec["plain_ms"] = cuda_ms(lambda: ref.embedding_bag_ref(table, idx, bag, nb), reps=3)
             i64 = idx.long()
             offsets = torch.searchsorted(bag, torch.arange(nb, device="cuda", dtype=torch.int32))
             lib = lambda: F.embedding_bag(i64, table, offsets, mode="sum")  # noqa: E731
             rec["library_equal"] = torch.equal(lib(), want) if name in exact else None
             rec["library_ms"] = cuda_ms(lib)
+            rec["library_ms_back_to_back"] = cuda_ms(lib, per=20)
             rec["sort_ms"] = cuda_ms(lambda: ops.sort_by_bag(idx, bag))  # ops.embedding_bag's
             # rows read once, bags written once, ids read once; n * d adds
             n_bytes = (n + nb) * d * table.element_size() + 8 * n
@@ -1277,6 +1353,105 @@ def dlrm_phase():
     return counts
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    check(smi.returncode == 0 and smi.stdout.strip() != "",
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, kernel: str) -> float:
+    """Device milliseconds a call of ``fn`` spends in the kernels whose
+    names contain ``kernel`` (all of its kernels for ""), from the
+    profiler over 20 calls."""
+    fn()
+    _, prof = profiled(lambda: [fn() for _ in range(20)], (kernel,))
+    return prof["named_kernels"][kernel]["s"] * 1e3 / 20
+
+
+def kernel_times(src: str) -> None:
+    """``--kernel-times SRC``: the member_probe and embedding_bag kernels of
+    the package under ``SRC`` (this checkout's ``src``, or another's, so
+    that two trees are compared on one card in one call) timed at the main
+    paths' shapes, one call at a time and 20 in a row, beside
+    ``F.embedding_bag``; then stage 1 and one profiled DDSL batch, with the
+    device seconds of each DDSL kernel. Checks nothing but equality."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.member_probe import member_probe_cuda
+    from repro_torch.run import WT_Q1, Pipeline, stages
+
+    import repro_torch
+
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    build.library()
+    emit({"phase": "kernel_times", "src": tree, "build_s": build.build_seconds(),
+          "device": nvidia_smi()})
+    pipe = Pipeline(dataclasses.replace(WT_Q1), "cuda")
+    caps, ush, store = pipe.caps, pipe.ushapes, pipe.store_caps
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    drop = sorted_table(ush.cedge_cap, 64, 4096, gen)
+    recs = []   # (record, call, library call)
+    for name, (n, tbl) in {"patch_rows": (ush.cand_cap * caps.deg_cap, drop),
+                           "patch_edges": (caps.e_cap, drop),
+                           "filter_sets": (store.group_cap * store.set_cap,
+                                           sorted_table(64, 0, 4096, gen)),
+                           "tiny": (1000, sorted_table(1, 0, 4096, gen)),
+                           "all_pad": (1000, torch.full((5, 2), -1, dtype=torch.int32,
+                                                        device="cuda"))}.items():
+        q = probe_queries(n, tbl, 4096, gen)
+        args = (q[:, 0].contiguous(), q[:, 1].contiguous(), tbl[:, 0].contiguous(),
+                tbl[:, 1].contiguous())
+        del q
+        check(torch.equal(member_probe_cuda(*args), ref.member_probe_ref(*args)),
+              f"member_probe {name}")
+        call = functools.partial(member_probe_cuda, *args)
+        recs.append(({"phase": "kernel_times", "kernel": "member_probe", "case": name, "n": n,
+                      "m": tbl.shape[0], "ms": cuda_ms(call),
+                      "ms_back_to_back": cuda_ms(call, per=20)}, call, None))
+    cfg = get_arch(DLRM_ARCH).config
+    n_f, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    big = torch.randn((n_f * v, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    one = (1,) * n_f
+    bulk = dlrm_lookups(262_144, one, v, gen)
+    for name, (idx, bag, nb) in {
+            "serve_bulk": bulk, "serve_p99": dlrm_lookups(512, one, v, gen),
+            "multi_hot": dlrm_lookups(4096, MULTI_HOT_SIZES, v, gen),
+            "serve_bulk_1gib": (bulk[0] % ((1 << 30) // (4 * d)), *bulk[1:])}.items():
+        idx, bag = ops.sort_by_bag(idx, bag)
+        i64 = idx.long()
+        offsets = torch.searchsorted(bag, torch.arange(nb, device="cuda", dtype=torch.int32))
+        lib = functools.partial(F.embedding_bag, i64, big, offsets, mode="sum")
+        call = functools.partial(embedding_bag_cuda, big, idx, bag, nb)
+        check(bool(((call() - lib()).abs() <= 1e-5).all()), f"embedding_bag {name}")
+        recs.append(({"phase": "kernel_times", "kernel": "embedding_bag", "case": name,
+                      "n": idx.shape[0], "num_bags": nb, "ms": cuda_ms(call),
+                      "ms_back_to_back": cuda_ms(call, per=20), "library_ms": cuda_ms(lib),
+                      "library_ms_back_to_back": cuda_ms(lib, per=20)}, call, lib))
+    # device times last: the profiler leaves the host slower for the rest of
+    # the process
+    for rec, call, lib in recs:
+        rec["device_ms"] = device_ms(call, rec["kernel"])
+        if lib is not None:
+            rec["library_device_ms"] = device_ms(lib, "")
+        emit(rec)
+    del recs, call, lib
+    del big, bulk
+    torch.cuda.empty_cache()
+    for rec in stages(pipe, 1):
+        emit({"phase": "kernel_times", **rec})
+    profile_batch(pipe)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1400,11 +1575,7 @@ def main() -> None:
     launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
 
     # summary lines
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    check(smi.returncode == 0 and smi.stdout.strip() != "",
-          f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    line = nvidia_smi()
     name, _, power = line.rpartition(",")
     emit({"phase": "device", "nvidia_smi": line, "name": name.strip(),
           "power_limit": power.strip()})
@@ -1437,4 +1608,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+        kernel_times(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--kernel-times SRC]")
+    else:
+        main()

@@ -30,16 +30,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q_hi, q_lo, t_hi, t_lo, n, m, out, stream
-    "member_probe_launch": (_P, _P, _P, _P, _L, _I, _P, _P),
+    # q_hi, q_lo, t_hi, t_lo, n, m, s, scratch, out, device, stream
+    "member_probe_launch": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
     # a, b, g, ca, cb, pad, out, stream
     "set_intersect_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     # data, is_bf16, d, order, offsets, lo, hi, chunk, heavy, parts, n_heavy, n_parts,
     # split, partial, acc, device, stream
     "segment_sum_launch": (_P, _I, _L, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _P, _I,
                            _P),
-    # table, is_bf16, rows, d, idx, bag, n, num_bags, out, stream
-    "embedding_bag_launch": (_P, _I, _L, _L, _P, _P, _L, _L, _P, _P),
+    # table, is_bf16, rows, d, idx, bag, n, num_bags, out, device, stream
+    "embedding_bag_launch": (_P, _I, _L, _L, _P, _P, _L, _L, _P, _I, _P),
     # q, k, v, out, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
@@ -76,7 +76,11 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         path = load(name="repro_torch_kernels", sources=list(SOURCES),
                     build_directory=BUILD_DIR, extra_cuda_cflags=list(CUDA_FLAGS),
                     is_python_module=False, verbose=verbose)
-        lib = ctypes.CDLL(path)
+        # Called with the GIL held (PyDLL, not CDLL): a launcher only queues
+        # work, and releasing and retaking the GIL around it costs host time
+        # of its own, several times more once torch.profiler has run in the
+        # process.
+        lib = ctypes.PyDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref", "segment_sum_ref", "segment_sum_plan_ref",
+__all__ = ["set_intersect_ref", "member_probe_ref", "probe_key", "member_probe_two_level_ref",
+           "segment_sum_ref", "segment_sum_plan_ref",
            "embedding_bag_ref",
            "flash_attention_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
            "merge_split_k", "ACC_DTYPE"]
@@ -99,6 +100,53 @@ def member_probe_ref(q_hi: torch.Tensor, q_lo: torch.Tensor,
         found = (th[pos] == qh) & (tl[pos] == ql)
         flat[s:s + _PROBE_SLICE] = found & ~((qh == -1) & (ql == -1))
     return out
+
+
+def probe_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit key of int32 lanes: ``hi * 2**32 + (lo ^
+    0x80000000)`` as unsigned, so that int64 order is signed lexicographic
+    order on ``(hi, lo)``."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
+def member_probe_two_level_ref(q_hi: torch.Tensor, q_lo: torch.Tensor, t_hi: torch.Tensor,
+                               t_lo: torch.Tensor, stride: int) -> torch.Tensor:
+    """:func:`member_probe_ref` computed as ``csrc/member_probe.cu`` does it,
+    step for step; for tests only.
+
+    The table becomes 64-bit keys (:func:`probe_key`; pads INT64_MAX).
+    ``stride = 1``: the fixed-trip search for the last key ``<= q`` over
+    all keys, found where it equals ``q``. ``stride = s > 1``: the keys
+    padded to whole windows of ``s`` with the key of ``(-1, -1)``, every
+    ``s``-th key a fence; the same search over the fences picks a window,
+    found where one of its ``s`` keys equals ``q``. A ``(-1, -1)`` query
+    is false.
+    """
+    m = t_hi.shape[0]
+    q = probe_key(q_hi, q_lo)
+    if m == 0:
+        return torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    pad_t = (t_hi == -1) & (t_lo == -1)
+    keys = torch.where(pad_t, torch.iinfo(torch.int64).max, probe_key(t_hi, t_lo))
+    if stride > 1:
+        nf = -(-m // stride)
+        none = probe_key(torch.tensor(-1), torch.tensor(-1))
+        keys = torch.cat([keys, none.expand(nf * stride - m)])
+        search = keys[::stride]
+    else:
+        search = keys
+    base = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    size = search.shape[0]
+    while size > 1:   # the last search key <= q: ceil(log2 len) steps
+        half = size >> 1
+        base = torch.where(search[base + half] <= q, base + half, base)
+        size -= half
+    if stride > 1:
+        window = keys.view(-1, stride)[base]
+        hit = (window == q[:, None]).any(1)
+    else:
+        hit = search[base] == q
+    return hit & ~((q_hi == -1) & (q_lo == -1))
 
 
 def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor, n: int,

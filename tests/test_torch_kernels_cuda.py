@@ -3,7 +3,8 @@ equality for the integer kernels; segment_sum's float64 sums within 1e-5
 of the largest, exact for integer sums, bitwise repeatable, and leaving
 the accumulator rows outside a plan's range untouched; embedding_bag's float32 bag sums
 within n_b · 2⁻²³ · Σ|rows| of the float64 sum (one bfloat16 rounding more
-in bfloat16), one-row bags equal; flash_attention element by
+in bfloat16), one-row bags equal; member_probe and embedding_bag on offset
+(misaligned) views and bitwise repeatable; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
 float32, and within one bfloat16 rounding of that in bfloat16, on each of
 its three kernels). Imports no
@@ -55,11 +56,55 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _sized_table(seed, m, n_pad):
+    """Exactly m rows: m - n_pad unique lex-sorted (hi, lo) pairs, then pads."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 1 << 20, 2 * m)
+    codes = np.unique(hi * (1 << 32) + hi + 1 + rng.integers(0, 4096, 2 * m))
+    codes = np.sort(rng.choice(codes, m - n_pad, replace=False))
+    t = np.concatenate([np.stack([codes >> 32, codes & 0xFFFFFFFF], 1), np.full((n_pad, 2), -1)])
+    return t.astype(np.int32)
+
+
+def _view(t, offset):
+    """t as a contiguous view ``offset`` elements into a larger buffer:
+    misaligned for the kernel's 16-byte loads unless offset % 4 == 0."""
+    buf = torch.full((t.shape[0] + offset,), -5, dtype=t.dtype, device=t.device)
+    buf[offset:] = t
+    return buf[offset:]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,n,n_rows,n_pad", [(0, 100_000, 9000, 64), (1, 5000, 100, 0)])
-def test_member_probe_kernel_matches_plain(cuda_device, seed, n, n_rows, n_pad):
-    args = [t.to(cuda_device) for t in _probe_inputs(seed, n, n_rows, n_pad)]
-    assert torch.equal(member_probe_cuda(*args), ref.member_probe_ref(*args))
+@pytest.mark.parametrize("seed,n,n_rows,n_pad,m,offset", [
+    (0, 100_000, 9000, 64, None, 0), (1, 5000, 100, 0, None, 0),
+    # the shared-memory table's limit, n % 4 != 0, misaligned queries
+    (2, 100_003, 0, 0, 8191, 0), (3, 100_001, 0, 5, 8192, 1), (4, 99_999, 0, 0, 8193, 3),
+    # strides 4 (4,097 and 8,192 fences) and 8; the DDSL drop table (stride 16)
+    (5, 50_002, 0, 0, 16_385, 2), (6, 50_001, 0, 3, 32_768, 0), (7, 50_000, 0, 0, 32_769, 1),
+    (8, 1_000_003, 0, 64, 116_669, 1), (9, 1_000_000, 0, 64, 116_669, 0),
+    # fewer queries than rows: one search in global memory
+    (10, 8195, 0, 64, 116_669, 1), (11, 100_000, 0, 0, 116_669, 0)])
+def test_member_probe_kernel_matches_plain(cuda_device, seed, n, n_rows, n_pad, m, offset):
+    """Equal to the plain version, on queries drawn from the table, random
+    and pad; queries that are offset views of a buffer; two launches give
+    the same bits."""
+    from repro_torch.kernels.member_probe import probe_stride
+
+    if m is None:
+        args = [t.to(cuda_device) for t in _probe_inputs(seed, n, n_rows, n_pad)]
+    else:
+        t = torch.from_numpy(_sized_table(seed, m, n_pad)).to(cuda_device)
+        rng = np.random.default_rng(seed)
+        q = torch.from_numpy(rng.integers(-1, 1 << 20, (n, 2)).astype(np.int32)).to(cuda_device)
+        q[: n // 2] = t[torch.from_numpy(rng.integers(0, m, n // 2)).to(cuda_device)]
+        q[::5] = -1
+        assert probe_stride(m, n) == (1 if n < m else {8191: 1, 8192: 1, 8193: 2, 16_385: 4,
+                                                       32_768: 4, 32_769: 8, 116_669: 16}[m])
+        args = [_view(q[:, 0].contiguous(), offset), _view(q[:, 1].contiguous(), offset),
+                t[:, 0].contiguous(), t[:, 1].contiguous()]
+    got = member_probe_cuda(*args)
+    assert torch.equal(got, ref.member_probe_ref(*args))
+    assert torch.equal(got, member_probe_cuda(*args))
 
 
 @pytest.mark.cuda
@@ -228,19 +273,47 @@ def _bag_inputs(seed, v, d, n, nb, dtype, device):
     return table, *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (idx, bag))
 
 
+def _mixed_bags(seed, v, d, nb, dtype, device):
+    """Sorted bags of 0, 1, 2, 31, 32, 33 or 100 rows, so that one-row and
+    100-row bags share a 32-row window, bags cross windows and empty bags
+    sit at window edges."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(device, dtype)
+    sizes = rng.choice([0, 0, 1, 1, 1, 1, 2, 31, 32, 33, 100], nb)
+    bag = np.repeat(np.arange(nb), sizes)
+    idx = rng.integers(0, v, bag.shape[0])
+    return table, *(torch.from_numpy(a.astype(np.int32)).to(device) for a in (idx, bag))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [4, 8, 13, 64])
-def test_embedding_bag_kernel_matches_plain(cuda_device, d, dtype):
+@pytest.mark.parametrize("d,layout", [(4, "uniform"), (8, "uniform"), (13, "uniform"),
+                                      (64, "uniform"), (64, "mixed"), (64, "views"),
+                                      (13, "mixed"), (160, "mixed")])
+def test_embedding_bag_kernel_matches_plain(cuda_device, d, layout, dtype):
     """Against the float64 sums: within n_b · 2⁻²³ · Σ|rows| in float32,
     one bfloat16 rounding (2⁻⁸ of the sum) more in bfloat16; NaN exactly in
-    the bags of the out-of-range rows; empty bags zero."""
+    the bags of the out-of-range rows; empty bags zero; one-row bags equal
+    to the plain version; two launches bitwise equal. ``uniform``: unsorted
+    ids with empty bags and out-of-range ids; ``mixed``: one-row and
+    100-row bags in one window, bags crossing windows, empty bags at their
+    edges; ``views``: sorted ids passed as misaligned offset views."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
     v, n, nb = 5000, 40_000, 3001
-    table, idx, bag = _bag_inputs(d, v, d, n, nb, dtype, cuda_device)
-    got = ops.embedding_bag(table, idx, bag, nb, use_kernels=True).float()
-    want = ops.embedding_bag(table, idx, bag, nb, use_kernels=False).float()
+    if layout == "mixed":
+        table, idx, bag = _mixed_bags(d, v, d, nb, dtype, cuda_device)
+    else:
+        table, idx, bag = _bag_inputs(d, v, d, n, nb, dtype, cuda_device)
+    idx, bag = ops.sort_by_bag(idx, bag)
+    if layout == "views":
+        idx, bag = _view(idx, 1), _view(bag, 3)
+    got = embedding_bag_cuda(table, idx, bag, nb)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32   # NaN bags compare too
+    assert torch.equal(got.view(bits), embedding_bag_cuda(table, idx, bag, nb).view(bits))
+    want = ops.embedding_bag(table, idx, bag, nb, use_kernels=False)
+    got, want = got.float(), want.float()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     keep = (bag >= 0) & (bag < nb)
     b, i = bag[keep].long(), idx[keep].long()
@@ -256,7 +329,9 @@ def test_embedding_bag_kernel_matches_plain(cuda_device, d, dtype):
     bad[b[~ok]] = True
     assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
     assert bool(((got[~bad].double() - s[~bad]).abs() <= limit[~bad]).all())
-    assert not got[1::2].any()                      # odd bags have no rows
+    assert not got[cnt[:, 0] == 0].any()            # empty bags are zero
+    one = (cnt[:, 0] == 1) & ~bad
+    assert torch.equal(got[one], want[one])
 
 
 @pytest.mark.cuda
