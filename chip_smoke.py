@@ -12,13 +12,23 @@ Prints one JSON object per line, in phases:
    at tables on both sides of its shared-memory limit and of a fence
    stride, with n % 4 != 0 and misaligned query views, each twice
    (bitwise repeatable); its main-path shapes one call at a time and 20 in
-   a row.
+   a row, beside ``torch.isin`` on packed keys. ``set_intersect`` on each
+   of its paths (a warp a row; a block a row with ``b`` in shared memory,
+   ``wide``; past the block's limit in global memory, ``past_shared``) and
+   on rows in and out of the layout it searches: widths not a multiple of
+   4 and misaligned views, a pad amid the values, pad = 7, INT32_MIN /
+   INT32_MAX values, all-pad rows, mixed rows in one launch; each launched
+   twice (bitwise equal); ``ccjoin`` and ``zcommon`` one call at a time
+   and 20 in a row, beside ``torch.isin`` on row-packed keys computing the
+   same function.
 3. ``stage1`` / ``batch`` — the main path with the kernels: q1_square on
    the WT~ graph (rmat_graph(12, 10_000, seed=1)) over m = 8 partitions,
    stage 1 then three 64 + 64 edge batches; time, count, overflow and
    peak device memory of each stage. ``profile``: one more batch under
    ``torch.profiler``, with the device seconds of ``member_probe`` and
-   ``set_intersect`` summed over their kernels (``named_kernels``).
+   ``set_intersect`` summed over their kernels (``named_kernels``) and the
+   mean fill of ``set_intersect``'s rows (``set_intersect_fill``); then
+   ``ccjoin_fill``, the CC-join's shape at that fill, timed.
 4. ``audit`` — stage 1 listed again from scratch on the final partitions;
    its count must equal the maintained count.
 5. ``plain``   — the same path with ``use_kernels=False`` on the card; the
@@ -97,7 +107,7 @@ Prints one JSON object per line, in phases:
    ``torch.nn.functional.embedding_bag``'s median ms (one call at a time
    and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
    serve_bulk's lookups folded into the table's first GiB (a TLB limit
-   would show as a gap).
+   would show as a gap), with the library call beside it too.
 13. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
@@ -116,11 +126,11 @@ summary, and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
 
-``--kernel-times SRC`` runs none of that: it times the ``member_probe``
-and ``embedding_bag`` kernels of the package under ``SRC`` at the main
-paths' shapes and profiles one DDSL batch, so that two checkouts (``src``
-and, say, a ``git archive`` of another commit unpacked under ``build/``)
-are compared in turns on one card in one call.
+``--kernel-times SRC`` runs none of that: it times the ``member_probe``,
+``set_intersect`` and ``embedding_bag`` kernels of the package under
+``SRC`` at the main paths' shapes and profiles one DDSL batch, so that two
+checkouts (``src`` and, say, a ``git archive`` of another commit unpacked
+under ``build/``) are compared in turns on one card in one call.
 """
 
 from __future__ import annotations
@@ -251,13 +261,88 @@ def probe_queries(n: int, table: torch.Tensor, hi_max: int, gen) -> torch.Tensor
     return q
 
 
-def padded_sets(g: int, c: int, v_max: int, gen) -> torch.Tensor:
-    """Rows ascending with a PAD tail (the CompTensors set layout)."""
+def padded_sets(g: int, c: int, v_max: int, gen, pad: int = -1, fill=None,
+                empty: float = 0.0) -> torch.Tensor:
+    """Rows ascending with a pad tail (the CompTensors set layout): a row's
+    length uniform in [0, c]; or a share ``empty`` of rows all pad and the
+    rest uniform over an interval of lengths from 1 around ``fill / (1 -
+    empty)``, for a mean length of about ``fill``."""
     vals = torch.sort(torch.randint(0, v_max, (g, c), generator=gen, dtype=torch.int32,
                                     device="cuda"), dim=1).values
-    lens = torch.randint(0, c + 1, (g, 1), generator=gen, device="cuda")
-    vals[torch.arange(c, device="cuda")[None, :] >= lens] = -1
+    lo, hi = 0, c
+    if fill is not None:
+        t = round(2 * fill / (1.0 - empty)) if empty < 1.0 else 0
+        lo = max(min(1, t), t - c)
+        hi = min(c, t - lo)
+    lens = torch.randint(lo, hi + 1, (g, 1), generator=gen, device="cuda")
+    lens[torch.rand((g, 1), generator=gen, device="cuda") < empty] = 0
+    vals[torch.arange(c, device="cuda")[None, :] >= lens] = pad
     return vals
+
+
+def set_rows(g: int, c: int, v_max: int, gen, kinds, pad: int = -1) -> torch.Tensor:
+    """``padded_sets`` rows, row ``i`` then turned into ``kinds[i %
+    len(kinds)]``: ``layout`` (kept), ``unsorted`` (values in any order,
+    a fifth of them pad), ``mid_pad`` (full and ascending but for one pad
+    amid the values), ``after_tail`` (a value after the pad tail),
+    ``extremes`` (INT32_MIN first and INT32_MAX last), ``all_pad``."""
+    vals = padded_sets(g, c, v_max, gen, pad)
+    kind = torch.arange(g, device="cuda") % len(kinds)
+    pos = torch.arange(c, device="cuda")[None, :]
+    full = torch.sort(torch.randint(0, v_max, (g, c), generator=gen, dtype=torch.int32,
+                                    device="cuda"), dim=1).values
+    for k, name in enumerate(kinds):
+        rows = kind == k
+        if name == "unsorted":
+            r = torch.randint(0, v_max, (g, c), generator=gen, dtype=torch.int32, device="cuda")
+            r[torch.rand((g, c), generator=gen, device="cuda") < 0.2] = pad
+        elif name == "mid_pad":
+            hole = torch.randint(0, max(1, c - 1), (g, 1), generator=gen, device="cuda")
+            r = torch.where(pos == hole, pad, full)
+        elif name == "after_tail":
+            r = torch.where(pos >= c // 2, pad, full)
+            r[:, -1] = 0
+        elif name == "extremes":
+            r = full.clone()
+            r[:, 0], r[:, -1] = -2**31, 2**31 - 1
+        elif name == "all_pad":
+            r = torch.full_like(full, pad)
+        else:
+            continue
+        vals[rows] = r[rows]
+    return vals
+
+
+def drawn_from(a: torch.Tensor, b: torch.Tensor, share: float, gen) -> torch.Tensor:
+    """``a`` with about ``share`` of its values replaced by values of its
+    own row of ``b`` (so that many are found)."""
+    g, ca = a.shape
+    idx = torch.randint(0, b.shape[1], (g, ca), generator=gen, device="cuda")
+    take = torch.rand((g, ca), generator=gen, device="cuda") < share
+    return torch.where(take, b.gather(1, idx), a)
+
+
+def set_library(a: torch.Tensor, b: torch.Tensor, pad: int):
+    """One ``torch.isin`` over row-packed int64 keys (row * 2**32 + value)
+    computing the kernel's function: ``b``'s pads become a key that no
+    ``a`` value can take, and ``a``'s pads are masked out."""
+    g = a.shape[0]
+    rows = torch.arange(g, device="cuda", dtype=torch.int64)[:, None] * (1 << 32)
+    ak = (rows + a.to(torch.int64)).reshape(-1)
+    bk = torch.where(b == pad, -(1 << 62), rows + b.to(torch.int64)).reshape(-1)
+    live = a != pad
+    return lambda: torch.isin(ak, bk).view(a.shape) & live
+
+
+def probe_library(q_hi, q_lo, t_hi, t_lo):
+    """One ``torch.isin`` over packed int64 keys (hi * 2**32 + lo)
+    computing the probe's function: the table's (-1, -1) pads are left out
+    of its keys and (-1, -1) queries masked out."""
+    qk = q_hi.to(torch.int64) * (1 << 32) + q_lo.to(torch.int64)
+    keep = (t_hi != -1) | (t_lo != -1)
+    tk = (t_hi.to(torch.int64) * (1 << 32) + t_lo.to(torch.int64))[keep]
+    live = (q_hi != -1) | (q_lo != -1)
+    return lambda: torch.isin(qk, tk) & live
 
 
 def kernel_phase(pipe_shapes):
@@ -318,14 +403,14 @@ def kernel_phase(pipe_shapes):
             rec["ms_back_to_back"] = cuda_ms(lambda: member_probe_cuda(*args), per=20)
             rec["bound_ms"], rec["bound_by"] = bound_ms(
                 9.0 * n + 8.0 * m_rows, n * math.ceil(math.log2(m_rows + 1)))
-        if "ms" in rec and n >= 1 << 20:
+        if "ms" in rec:
             rec["plain_ms"] = cuda_ms(lambda: ref.member_probe_ref(*args), reps=3)
-            qk = args[0].to(torch.int64) * (1 << 32) + args[1].to(torch.int64)
-            tk = args[2].to(torch.int64) * (1 << 32) + args[3].to(torch.int64)
-            rec["library_ms"] = cuda_ms(lambda: torch.isin(qk, tk), reps=3)
+            lib = probe_library(*args)
+            rec["library_equal"] = torch.equal(lib(), want)
+            rec["library_ms"] = cuda_ms(lib, reps=3)
             if name != "filter_sets":
-                rec["library_ms_back_to_back"] = cuda_ms(lambda: torch.isin(qk, tk), per=20)
-            del qk, tk
+                rec["library_ms_back_to_back"] = cuda_ms(lib, per=20)
+            del lib
         mp.append(rec)
         del q, qh, ql, args, got, want
     # empty query / empty table: answered without a launch
@@ -339,36 +424,88 @@ def kernel_phase(pipe_shapes):
     torch.cuda.empty_cache()
 
     # --- set_intersect ---------------------------------------------------
-    G, S = caps["group_cap"], caps["set_cap"]
-    si = []
-    for name, (g, ca, cb) in {"ccjoin": (G, S, S), "zcommon": (cedge, caps["deg_cap"],
-                                                                caps["deg_cap"]),
-                              "wide": (3, 5000, 9000), "narrow": (7, 1, 3)}.items():
-        a = padded_sets(g, ca, 4096, gen)
-        b = padded_sets(g, cb, 4096, gen)
-        if name == "narrow":   # duplicates and unsorted rows
-            a = torch.randint(-1, 3, (g, ca), generator=gen, dtype=torch.int32, device="cuda")
-            b = torch.randint(-1, 3, (g, cb), generator=gen, dtype=torch.int32, device="cuda")
-        got = set_intersect_cuda(a, b, -1)
-        want = ref.set_intersect_ref(a, b, -1)
-        torch.cuda.synchronize()
-        err = int((got != want).sum())
-        check(err == 0, f"set_intersect {name}: {err} mismatches")
-        rec = {"case": name, "g": g, "ca": ca, "cb": cb, "equal": True,
-               "max_abs_err": max_abs_err(got, want)}
-        if g * ca >= 1 << 20:
-            rec["ms"] = cuda_ms(lambda: set_intersect_cuda(a, b, -1))
-            rec["plain_ms"] = cuda_ms(lambda: ref.set_intersect_ref(a, b, -1), reps=3)
-            rows = torch.arange(g, device="cuda", dtype=torch.int64)[:, None] * (1 << 32)
-            ak, bk = (rows + a.to(torch.int64)).reshape(-1), (rows + b.to(torch.int64)).reshape(-1)
-            rec["library_ms"] = cuda_ms(lambda: torch.isin(ak, bk), reps=3)
-            rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * g * (ca + cb) + g * ca,
-                                                        g * (ca + cb))
-        si.append(rec)
+    G, S, D = caps["group_cap"], caps["set_cap"], caps["deg_cap"]
+    results["set_intersect"] = [set_intersect_case(name, *args, gen=gen) for name, args in {
+        # the main path's two calls: the CC-join and the common-neighbour test
+        "ccjoin": (G, S, S, ("padded",)),
+        "zcommon": (cedge, D, D, ("padded",)),
+        # b wider than a warp's shared memory (a block a row), and past the
+        # block's shared-memory limit (searched in global memory); rows in and
+        # out of layout
+        "wide": (3, 5000, 9000, ("unsorted", "layout", "mid_pad")),
+        "past_shared": (3, 5000, 60_000, ("layout", "unsorted", "after_tail")),
+        # duplicates and unsorted rows, widths 1 and 3
+        "narrow": (7, 1, 3, ("narrow",)),
+        # widths not a multiple of 4; views 1 and 3 values into a buffer
+        "odd_widths": (1000, 511, 509, ("layout",)),
+        "misaligned": (1000, 512, 512, ("layout",), -1, (1, 3)),
+        # a pad amid the values or a value after the tail; pad = 7 amid the
+        # values; INT32_MIN / INT32_MAX values
+        "mid_pad": (2000, 300, 300, ("mid_pad", "after_tail", "layout")),
+        "pad_7": (2000, 64, 64, ("layout", "mid_pad", "unsorted"), 7),
+        "extremes": (2000, 64, 64, ("extremes", "layout")),
+        # rows in and out of layout and all-pad rows in one launch
+        "mixed": (4000, 512, 512, ("layout", "unsorted", "layout", "all_pad", "mid_pad")),
+    }.items()]
     empty = torch.empty((0, 4), dtype=torch.int32, device="cuda")
     check(set_intersect_cuda(empty, empty, -1).shape == (0, 4), "set_intersect G=0")
-    results["set_intersect"] = si
     return results
+
+
+def set_intersect_case(name, g, ca, cb, kinds, pad=-1, offsets=(0, 0), fill=None, gen=None):
+    """One set_intersect case: the kernel twice (bitwise equal) against its
+    plain version, on ``b`` rows of ``kinds`` and ``a`` rows in layout with
+    a third of their values drawn from their ``b`` row (``padded``: both
+    ``padded_sets`` drawn apart; ``fill``: the mean lengths of ``a`` and
+    ``b`` and the share of all-pad ``a`` rows, where given;
+    ``narrow``: values in [-1, 3)); at 2**20 values of ``a`` or more, timed
+    one call at a time and 20 in a row, beside the plain version, the
+    library call and the byte bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.set_intersect import set_intersect_cuda, set_intersect_route
+
+    if kinds == ("narrow",):
+        a, b = (torch.randint(-1, 3, (g, c), generator=gen, dtype=torch.int32, device="cuda")
+                for c in (ca, cb))
+    elif kinds == ("padded",):
+        fa, fb, empty = fill or (None, None, 0.0)
+        a = padded_sets(g, ca, 4096, gen, pad, fa, empty)
+        b = padded_sets(g, cb, 4096, gen, pad, fb)
+    else:
+        v_max = 4096 if max(ca, cb) <= 512 else 4 * cb
+        b = set_rows(g, cb, v_max, gen, kinds, pad)
+        a = drawn_from(set_rows(g, ca, v_max, gen, ("layout",), pad), b, 1 / 3, gen)
+    if offsets != (0, 0):   # contiguous views that are not 16-byte aligned
+        views = []
+        for t, off in zip((a, b), offsets):
+            buf = torch.full((t.numel() + off,), pad, dtype=torch.int32, device="cuda")
+            buf[off:] = t.reshape(-1)
+            views.append(buf[off:].view(t.shape))
+        a, b = views
+    got = set_intersect_cuda(a, b, pad)
+    again = set_intersect_cuda(a, b, pad)
+    want = ref.set_intersect_ref(a, b, pad)
+    torch.cuda.synchronize()
+    err = int((got != want).sum())
+    check(err == 0, f"set_intersect {name}: {err} mismatches")
+    check(torch.equal(got, again), f"set_intersect {name}: two launches differ")
+    rec = {"case": name, "g": g, "ca": ca, "cb": cb, "pad": pad, "offsets": list(offsets),
+           "route": set_intersect_route(cb, a.device), "equal": True, "repeat_equal": True,
+           "max_abs_err": max_abs_err(got, want), "hits": int(want.sum()),
+           "mean_nonpad_a": float((a != pad).sum()) / g,
+           "mean_nonpad_b": float((b != pad).sum()) / g}
+    if g * ca >= 1 << 20:
+        rec["ms"] = cuda_ms(lambda: set_intersect_cuda(a, b, pad))
+        rec["ms_back_to_back"] = cuda_ms(lambda: set_intersect_cuda(a, b, pad), per=20)
+        rec["plain_ms"] = cuda_ms(lambda: ref.set_intersect_ref(a, b, pad), reps=3)
+        lib = set_library(a, b, pad)
+        rec["library_equal"] = torch.equal(lib(), want)
+        check(rec["library_equal"], f"set_intersect {name}: the library call differs")
+        rec["library_ms"] = cuda_ms(lib, reps=3)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * g * (ca + cb) + g * ca, g * (ca + cb))
+    del a, b, got, again, want
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -461,11 +598,37 @@ def profiled(fn, kernels=()):
 
 
 def profile_batch(pipe):
-    """One more batch under ``torch.profiler``."""
+    """One more batch under ``torch.profiler``. ``set_intersect_fill``: the
+    mean non-pad values a row of ``a`` and ``b`` over the batch's
+    ``set_intersect`` calls, counted on the card by a wrapper around
+    ``ops.set_intersect`` set for this batch only (its reductions are in
+    the profile), and the share of rows whose ``a`` is all pad. Returns the
+    batch's record and the fill."""
+    from repro_torch.kernels import ops
+
+    inner, calls = ops.set_intersect, []
+
+    def counted(a, b, *, pad, use_kernels):
+        live = a != pad
+        calls.append((tuple(a.shape), b.shape[1], live.sum(), (b != pad).sum(),
+                      (~live.any(1)).sum()))
+        return inner(a, b, pad=pad, use_kernels=use_kernels)
+
     upd = pipe.next_update()
-    d, prof = profiled(lambda: {k: int(v) for k, v in pipe.apply(upd).items()}, DDSL_KERNELS)
-    emit({"phase": "profile", "count": d["count"], "overflow": d["overflow"], **prof})
-    return d
+    ops.set_intersect = counted
+    try:
+        d, prof = profiled(lambda: {k: int(v) for k, v in pipe.apply(upd).items()}, DDSL_KERNELS)
+    finally:
+        ops.set_intersect = inner
+    rows = max(1, sum(shape[0] for shape, *_ in calls))
+    fill = {"calls": len(calls), "rows": rows,
+            "mean_nonpad_a": sum(int(c[2]) for c in calls) / rows,
+            "mean_nonpad_b": sum(int(c[3]) for c in calls) / rows,
+            "empty_a_share": sum(int(c[4]) for c in calls) / rows,
+            "shapes": sorted({(shape[0], shape[1], cb) for shape, cb, *_ in calls})}
+    emit({"phase": "profile", "count": d["count"], "overflow": d["overflow"],
+          "set_intersect_fill": fill, **prof})
+    return d, fill
 
 
 # ---------------------------------------------------------------------------
@@ -1188,6 +1351,12 @@ def embedding_bag_phase():
                "empty_bags": int((cnt == 0).sum())}
         if name == "serve_bulk_1gib":
             rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
+            offsets = torch.searchsorted(bag, torch.arange(nb, device="cuda", dtype=torch.int32))
+            lib = functools.partial(F.embedding_bag, idx.long(), table, offsets, mode="sum")
+            rec["library_equal"] = torch.equal(lib(), want)
+            rec["library_ms"] = cuda_ms(lib)
+            rec["library_ms_back_to_back"] = cuda_ms(lib, per=20)
+            del offsets, lib
         if name in ("serve_bulk", "serve_p99", "multi_hot"):
             n = idx.shape[0]
             rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
@@ -1372,12 +1541,14 @@ def device_ms(fn, kernel: str) -> float:
 
 
 def kernel_times(src: str) -> None:
-    """``--kernel-times SRC``: the member_probe and embedding_bag kernels of
-    the package under ``SRC`` (this checkout's ``src``, or another's, so
-    that two trees are compared on one card in one call) timed at the main
-    paths' shapes, one call at a time and 20 in a row, beside
-    ``F.embedding_bag``; then stage 1 and one profiled DDSL batch, with the
-    device seconds of each DDSL kernel. Checks nothing but equality."""
+    """``--kernel-times SRC``: the member_probe, set_intersect and
+    embedding_bag kernels of the package under ``SRC`` (this checkout's
+    ``src``, or another's, so that two trees are compared on one card in one
+    call) timed at the main paths' shapes, one call at a time, 20 in a row
+    and on the device (the profiler over 20 calls), beside
+    ``F.embedding_bag``; then stage 1, one profiled DDSL batch, with the
+    device seconds of each DDSL kernel, and set_intersect at the CC-join's
+    shape and the batch's fill. Checks nothing but equality."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -1387,6 +1558,7 @@ def kernel_times(src: str) -> None:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
     from repro_torch.kernels.member_probe import member_probe_cuda
+    from repro_torch.kernels.set_intersect import set_intersect_cuda
     from repro_torch.run import WT_Q1, Pipeline, stages
 
     import repro_torch
@@ -1417,6 +1589,16 @@ def kernel_times(src: str) -> None:
         recs.append(({"phase": "kernel_times", "kernel": "member_probe", "case": name, "n": n,
                       "m": tbl.shape[0], "ms": cuda_ms(call),
                       "ms_back_to_back": cuda_ms(call, per=20)}, call, None))
+    for name, (g, c) in {"ccjoin": (caps.group_cap, caps.set_cap),
+                         "zcommon": (ush.cedge_cap, caps.deg_cap)}.items():
+        a, b = padded_sets(g, c, 4096, gen), padded_sets(g, c, 4096, gen)
+        check(torch.equal(set_intersect_cuda(a, b, -1), ref.set_intersect_ref(a, b, -1)),
+              f"set_intersect {name}")
+        call = functools.partial(set_intersect_cuda, a, b, -1)
+        recs.append(({"phase": "kernel_times", "kernel": "set_intersect", "case": name, "g": g,
+                      "ca": c, "cb": c, "ms": cuda_ms(call),
+                      "ms_back_to_back": cuda_ms(call, per=20)}, call, None))
+    del a, b
     cfg = get_arch(DLRM_ARCH).config
     n_f, v, d = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1449,7 +1631,19 @@ def kernel_times(src: str) -> None:
     torch.cuda.empty_cache()
     for rec in stages(pipe, 1):
         emit({"phase": "kernel_times", **rec})
-    profile_batch(pipe)
+    _, fill = profile_batch(pipe)
+    # the CC-join's shape at the profiled batch's fill (after the profiler:
+    # one call at a time reads slower, 20 in a row does not)
+    g, c = caps.group_cap, caps.set_cap
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = padded_sets(g, c, 4096, gen, -1, fill["mean_nonpad_a"], fill["empty_a_share"])
+    b = padded_sets(g, c, 4096, gen, -1, fill["mean_nonpad_b"])
+    check(torch.equal(set_intersect_cuda(a, b, -1), ref.set_intersect_ref(a, b, -1)),
+          "set_intersect ccjoin_fill")
+    call = functools.partial(set_intersect_cuda, a, b, -1)
+    emit({"phase": "kernel_times", "kernel": "set_intersect", "case": "ccjoin_fill", "g": g,
+          "ca": c, "cb": c, "fill": fill,
+          "ms": cuda_ms(call), "ms_back_to_back": cuda_ms(call, per=20)})
 
 
 def main() -> None:
@@ -1497,8 +1691,15 @@ def main() -> None:
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
 
     # where a batch's device time goes: one more batch under the profiler
-    final = profile_batch(pipe)
+    final, fill = profile_batch(pipe)
     check(final["overflow"] == 0, f"overflow in the profiled batch {final}")
+    # the CC-join's shape at the batch's mean fill of a and b
+    shapes = pipe.caps
+    checks["set_intersect"].append(set_intersect_case(
+        "ccjoin_fill", shapes.group_cap, shapes.set_cap, shapes.set_cap, ("padded",),
+        fill=(fill["mean_nonpad_a"], fill["mean_nonpad_b"], fill["empty_a_share"]),
+        gen=torch.Generator(device="cuda").manual_seed(1)))
+    emit({"phase": "kernel_check", "set_intersect": checks["set_intersect"][-1:]})
     final_snap = store_snapshot(pipe.store)
 
     # 4. audit: list from scratch on the final partitions (the maintained

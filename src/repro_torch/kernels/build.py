@@ -32,8 +32,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # q_hi, q_lo, t_hi, t_lo, n, m, s, scratch, out, device, stream
     "member_probe_launch": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
-    # a, b, g, ca, cb, pad, out, stream
-    "set_intersect_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # a, b, g, ca, cb, pad, out, device, stream
+    "set_intersect_launch": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
+    # device, out[2]
+    "set_intersect_limits": (_I, _P),
     # data, is_bf16, d, order, offsets, lo, hi, chunk, heavy, parts, n_heavy, n_parts,
     # split, partial, acc, device, stream
     "segment_sum_launch": (_P, _I, _L, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _P, _I,

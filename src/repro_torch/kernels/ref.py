@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["set_intersect_ref", "member_probe_ref", "probe_key", "member_probe_two_level_ref",
+__all__ = ["set_intersect_ref", "set_intersect_layout_ref", "set_intersect_search_ref",
+           "member_probe_ref", "probe_key", "member_probe_two_level_ref",
            "segment_sum_ref", "segment_sum_plan_ref",
            "embedding_bag_ref",
            "flash_attention_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
@@ -63,6 +64,110 @@ def set_intersect_ref(a: torch.Tensor, b: torch.Tensor, pad: int) -> torch.Tenso
         aa, bb = a[s:s + step], b[s:s + step]
         hit = (aa[:, :, None] == bb[:, None, :]) & (bb[:, None, :] != pad)
         out[s:s + step] = hit.any(dim=-1) & (aa != pad)
+    return out
+
+
+# csrc/set_intersect.cu: the warp path's widest b row (kWarpInts), a
+# lane's values per load, a warp's values per load (kChunk).
+_SI_WARP_INTS = 2048
+_SI_CHUNK = 128
+
+
+def set_intersect_layout_ref(b: torch.Tensor, pad: int,
+                             warp: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``csrc/set_intersect.cu``'s check of ``b``'s rows, as it makes it;
+    for tests only. Returns ``(nb, nonpad, layout)`` per row: the first
+    pad's position (``CB`` where none), the count of non-pad values, and
+    whether the non-pad values form a non-decreasing prefix with only pads
+    after it (pads compared by equality, never by order).
+
+    ``warp``: the warp path's check, chunk by chunk of 128 values loaded 4
+    a lane (the row's tail loads as pad): the pairs inside a lane, across
+    lanes and, through a carry, across chunks; ``nb`` from the first lane
+    whose values hold a pad. Else the wide path's: every pair ``(p, p + 1)``
+    with ``p`` non-pad, and the least pad position.
+    """
+    g, cb = b.shape
+    is_pad = b == pad
+    nonpad = (~is_pad).sum(1)
+    if not warp:
+        pos = torch.arange(cb, device=b.device).expand(g, cb)
+        nb = torch.where(is_pad, pos, cb).amin(1)
+        desc = (~is_pad[:, :-1] & ~is_pad[:, 1:] & (b[:, :-1] > b[:, 1:])).any(1)
+        return nb, nonpad, ~desc & (nonpad == nb)
+    width = -(-cb // _SI_CHUNK) * _SI_CHUNK
+    x = torch.full((g, width), pad, dtype=b.dtype, device=b.device)
+    x[:, :cb] = b
+    lanes = x.view(g, -1, 32, 4)
+    nb = torch.full((g,), -1, dtype=torch.int64, device=b.device)
+    desc = torch.zeros(g, dtype=torch.bool, device=b.device)
+    carry = torch.full((g,), pad, dtype=b.dtype, device=b.device)
+    rows = torch.arange(g, device=b.device)
+    four = torch.arange(4, device=b.device)
+    for c in range(lanes.shape[1]):
+        v = lanes[:, c]
+        live = v != pad
+        desc |= (live[..., :-1] & live[..., 1:] & (v[..., :-1] > v[..., 1:])).flatten(1).any(1)
+        last, nxt = v[:, :-1, 3], v[:, 1:, 0]
+        desc |= ((last != pad) & (nxt != pad) & (last > nxt)).any(1)
+        desc |= (carry != pad) & live[:, 0, 0] & (carry > v[:, 0, 0])
+        carry = v[:, 31, 3]
+        first = torch.where(live, 4, four).amin(-1)          # [g, 32]: 4 where no pad
+        holds = first < 4
+        lane = holds.to(torch.int8).argmax(1)                  # the ballot's first lane
+        found = holds.any(1) & (nb < 0)
+        nb = torch.where(found, c * _SI_CHUNK + 4 * lane + first[rows, lane], nb)
+    nb = torch.where((nb < 0) | (nb > cb), cb, nb)
+    return nb, nonpad, ~desc & (nonpad == nb)
+
+
+def set_intersect_search_ref(a: torch.Tensor, b: torch.Tensor, pad: int,
+                             warp_ints: int = _SI_WARP_INTS,
+                             staged_ints: int = 58_100) -> torch.Tensor:
+    """:func:`set_intersect_ref` computed as ``csrc/set_intersect.cu`` does
+    it, step by step; for tests only.
+
+    A row whose ``a`` is all pad is false and its ``b`` unread. Otherwise
+    ``b``'s row is checked (:func:`set_intersect_layout_ref`, the warp
+    path's check up to ``warp_ints`` values, else the wide path's). In
+    layout, each ``a`` value takes the fixed-trip search for the last of
+    ``b[:nb]`` at most itself, found where they are equal. Out of layout,
+    the row's non-pad values are compacted in order and scanned (the warp
+    path and, up to ``staged_ints`` values, the wide path in shared
+    memory), or, in global memory, all of ``b`` is scanned in place. A pad
+    ``a`` value is false. ``staged_ints``: the wide path's shared-memory
+    limit in values, 58,100 on an H100 (``set_intersect_route`` asks the
+    card).
+    """
+    g, ca = a.shape
+    cb = b.shape[1]
+    out = torch.zeros((g, ca), dtype=torch.bool, device=a.device)
+    if g == 0 or ca == 0 or cb == 0:
+        return out
+    rows = (a != pad).any(1).nonzero().squeeze(1)
+    if rows.numel() == 0:
+        return out
+    x, bb = a[rows], b[rows]
+    nb, nonpad, layout = set_intersect_layout_ref(bb, pad, cb <= warp_ints)
+    staged = cb <= staged_ints
+    keys = bb
+    if staged:   # compacted: the non-pad values first, in order
+        order = torch.sort((bb == pad).to(torch.int8), dim=1, stable=True).indices
+        keys = torch.where(layout[:, None], bb, bb.gather(1, order))
+    n = torch.where(layout, nb, nonpad if staged else torch.full_like(nb, cb))
+    # in layout: last i in [0, n) with keys[i] <= x, ceil(log2 n) steps a row
+    base = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    length = n[:, None].expand(x.shape)
+    while bool((length > 1).any()):
+        half = length // 2
+        step = (length > 1) & (keys.gather(1, base + half) <= x)
+        base = torch.where(step, base + half, base)
+        length = torch.where(length > 1, length - half, length)
+    found = (n[:, None] > 0) & (keys.gather(1, base) == x)
+    # out of layout: a scan of keys[0:n)
+    live = torch.arange(cb, device=x.device)[None, :] < n[:, None]
+    scanned = ((keys[:, None, :] == x[:, :, None]) & live[:, None, :]).any(-1)
+    out[rows] = torch.where(layout[:, None], found, scanned) & (x != pad)
     return out
 
 

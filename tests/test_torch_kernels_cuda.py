@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on a GPU (exact
-equality for the integer kernels; segment_sum's float64 sums within 1e-5
+equality for the integer kernels, set_intersect on each of its paths and
+on rows in and out of the layout it searches; segment_sum's float64 sums within 1e-5
 of the largest, exact for integer sums, bitwise repeatable, and leaving
 the accumulator rows outside a plan's range untouched; embedding_bag's float32 bag sums
 within n_b · 2⁻²³ · Σ|rows| of the float64 sum (one bfloat16 rounding more
@@ -113,6 +114,78 @@ def test_member_probe_kernel_matches_plain(cuda_device, seed, n, n_rows, n_pad, 
 def test_set_intersect_kernel_matches_plain(cuda_device, seed, g, ca, cb, sorted_rows):
     a, b = (t.to(cuda_device) for t in _set_inputs(seed, g, ca, cb, sorted_rows))
     assert torch.equal(set_intersect_cuda(a, b, -1), ref.set_intersect_ref(a, b, -1))
+
+
+def _set_rows(rng, g, c, pad, v_max, kinds):
+    """Rows in the CompTensors layout (ascending, then a pad tail of random
+    length), then each row turned into ``kinds[row % len(kinds)]``."""
+    vals = np.sort(rng.integers(0, v_max, (g, c)), axis=1)
+    vals[np.arange(c)[None, :] >= rng.integers(0, c + 1, (g, 1))] = pad
+    for i in range(g):
+        kind = kinds[i % len(kinds)]
+        if kind == "unsorted":
+            vals[i] = rng.integers(0, v_max, c)
+            vals[i, rng.random(c) < 0.2] = pad
+        elif kind == "mid_pad" and c > 2:
+            vals[i, :] = np.sort(rng.integers(0, v_max, c))
+            vals[i, rng.integers(0, c - 1)] = pad
+        elif kind == "after_tail" and c > 2:
+            vals[i, c // 2:] = pad
+            vals[i, -1] = 0
+        elif kind == "extremes":
+            vals[i, :] = np.sort(rng.integers(0, v_max, c))
+            vals[i, 0], vals[i, -1] = -2**31, 2**31 - 1
+        elif kind == "all_pad":
+            vals[i, :] = pad
+    return vals.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,g,ca,cb,pad,kinds,offset,route", [
+    # widths not a multiple of 4, and views 1 and 3 values into a buffer
+    ("odd_widths", 1000, 511, 509, -1, ("layout",), 0, "warp"),
+    ("narrow", 70, 1, 3, -1, ("layout", "unsorted"), 0, "warp"),
+    ("misaligned", 1000, 512, 512, -1, ("layout",), 1, "warp"),
+    # a pad in the middle, a value after the tail, pad = 7 amid the values
+    ("mid_pad", 2000, 300, 300, -1, ("mid_pad", "after_tail", "layout"), 0, "warp"),
+    ("pad_7", 2000, 64, 64, 7, ("layout", "mid_pad", "unsorted"), 0, "warp"),
+    ("extremes", 2000, 64, 64, -1, ("extremes", "layout"), 0, "warp"),
+    # rows in and out of layout, and all-pad rows, in one launch
+    ("mixed", 4000, 512, 512, -1, ("layout", "unsorted", "layout", "all_pad", "mid_pad"), 0,
+     "warp"),
+    # wide rows: a block a row in shared memory, and past its limit in
+    # global memory
+    ("wide", 6, 5000, 9000, -1, ("layout", "unsorted", "mid_pad"), 0, "shared"),
+    ("past_shared", 3, 5000, 60_000, -1, ("layout", "unsorted", "after_tail"), 0, "global")])
+def test_set_intersect_kernel_paths(cuda_device, case, g, ca, cb, pad, kinds, offset, route):
+    """Every path and layout of ``b``, each equal to the plain version and
+    bitwise repeatable; ``a``'s values partly drawn from its ``b`` row."""
+    from repro_torch.kernels.set_intersect import set_intersect_route
+
+    rng = np.random.default_rng(ca + cb)
+    b = _set_rows(rng, g, cb, pad, 4 * max(ca, cb), kinds)
+    a = _set_rows(rng, g, ca, pad, 4 * max(ca, cb), ("layout",))
+    take = rng.random((g, ca)) < 0.3
+    a[take] = b[np.arange(g)[:, None], rng.integers(0, cb, (g, ca))][take]
+    a, b = (_view(torch.from_numpy(t).reshape(-1).to(cuda_device), offset).view(t.shape)
+            for t in (a, b))
+    assert set_intersect_route(cb, cuda_device) == route
+    got = set_intersect_cuda(a, b, pad)
+    assert torch.equal(got, ref.set_intersect_ref(a, b, pad))
+    assert torch.equal(got, set_intersect_cuda(a, b, pad))
+    assert got.any()
+
+
+@pytest.mark.cuda
+def test_set_intersect_kernel_empty_inputs(cuda_device):
+    """No launch for G = 0, CA = 0 or CB = 0; CB = 0 is all false."""
+    before = set_intersect_cuda.launches
+    for g, ca, cb in ((0, 4, 4), (3, 0, 5), (3, 4, 0)):
+        a = torch.zeros((g, ca), dtype=torch.int32, device=cuda_device)
+        b = torch.zeros((g, cb), dtype=torch.int32, device=cuda_device)
+        out = set_intersect_cuda(a, b, -1)
+        assert out.shape == (g, ca) and not out.any()
+    assert set_intersect_cuda.launches == before
 
 
 def _segment_inputs(seed, e, d, n, dtype, device):

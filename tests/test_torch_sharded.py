@@ -64,7 +64,7 @@ def _plan(g, pname):
         minimum_unit_decomposition(pat, cover), stats
 
 
-@pytest.mark.parametrize("pname", ["q1_square", "q2_triangle"])
+@pytest.mark.parametrize("pname", ["q1_square", "q2_triangle", "q5_house"])
 def test_m1_steps_byte_equal_to_jax(pname):
     g = random_graph(36, 90, seed=7)
     pat, ord_, cover, prog, units, stats = _plan(g, pname)
