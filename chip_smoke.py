@@ -21,21 +21,35 @@ Prints one JSON object per line, in phases:
    twice (bitwise equal); ``ccjoin`` and ``zcommon`` one call at a time
    and 20 in a row, beside ``torch.isin`` on row-packed keys computing the
    same function.
-3. ``stage1`` / ``batch`` — the main path with the kernels: q1_square on
-   the WT~ graph (rmat_graph(12, 10_000, seed=1)) over m = 8 partitions,
-   stage 1 then three 64 + 64 edge batches; time, count, overflow and
-   peak device memory of each stage. ``profile``: one more batch under
+3. ``stage1`` / ``batch`` — the main path with the kernels, as the
+   streaming service's sharded backend runs it: q1_square on the WT~ graph
+   (rmat_graph(12, 10_000, seed=1)) over m = 8 partitions, stage 1 (with
+   the cold fill of the unit-table carry) then three 64 + 64 edge batches,
+   each a storage update and one carried maintain megastep; time, count
+   (each equal to ``WT_COUNTS``), ``unit_refreshes``, overflow and peak
+   device memory of each stage. ``profile``: one more batch under
    ``torch.profiler``, with the device seconds of ``member_probe`` and
    ``set_intersect`` summed over their kernels (``named_kernels``) and the
    mean fill of ``set_intersect``'s rows (``set_intersect_fill``); then
    ``ccjoin_fill``, the CC-join's shape at that fill, timed.
+   ``small_batches``: three batches of 1 + 1 edges on the same pipeline,
+   with the partitions each refreshed out of 8 and their seconds.
+   ``storage_full``: the next 64 + 64 batch through the full-gather
+   storage update and through the delta update from one state; partitions
+   and ``part_dirty`` must be equal; each mode's seconds and peak.
 4. ``audit`` — stage 1 listed again from scratch on the final partitions;
-   its count must equal the maintained count.
-5. ``plain``   — the same path with ``use_kernels=False`` on the card; the
-   counts and the MatchStore tensors must equal the kernel run's.
-6. ``reference`` — the example graph of examples/distributed_listing.py,
+   its count and store must equal the maintained ones.
+5. ``plain``   — the same path with ``use_kernels=False`` on the card,
+   replaying the profiled batch and the small batches; the counts and the
+   MatchStore tensors must equal the kernel run's.
+6. ``multi`` — q1_square and q2_triangle maintained by one megastep on
+   WT~ (``run.WT_MULTI``), stage 1 and three batches with the kernels; the
+   q1_square store must equal the single-pattern run's at every stage, and
+   ``multi_audit`` lists each pattern from scratch on the final partitions
+   (count and store equal to the maintained ones).
+7. ``reference`` — the example graph of examples/distributed_listing.py,
    whose host-engine counts are known, checked on the card.
-7. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
+8. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
    plain version on their float64 accumulators, each case through its
    segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
    2,449,029 nodes with 1 % set to n and 0.5 % to -1), the same rows with
@@ -46,7 +60,7 @@ Prints one JSON object per line, in phases:
    plan build's, the plain version's and ``index_add_``'s median ms beside
    the byte bound (data and ids once, the touched float32 rows once);
    under 1 ms also over 20 calls in a row, the card's time alone.
-8. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
+9. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
    its full config (16 layers, d_hidden 70, bf16, d_in 100) on the
    ``ogb_products`` shape (2,449,029 nodes, 123,718,280 directed edges,
    ``build_graph_data`` seed 0), once with the kernels (every segment sum
@@ -57,11 +71,11 @@ Prints one JSON object per line, in phases:
    kernel forward under ``torch.profiler``. ``gnn_equal``: max |kernel -
    plain| <= 3e-2 * max |plain|, the share of equal outputs, and the
    largest difference between the two kernel forwards (0: no atomics).
-9. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
+10. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
    kernel against plain, after one warm-up forward.
-10. ``kernel_check`` (``flash_attention``) — the three attention kernels
+11. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
    at offset 4,096 on the tensor-core kernel; decode at offsets 8,192 and
@@ -76,7 +90,7 @@ Prints one JSON object per line, in phases:
    median ms beside the bound (and, under 1 ms, the kernel's and SDPA's
    time over 20 calls in a row). ``flash_kernels``: each kernel's
    registers, shared and spill bytes, and the decode grid.
-11. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
+12. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
    (32 layers, d_model 3,072, 24/8 heads of 128, d_ff 8,192, vocab
    200,064, bf16, random weights from seed 0) through
    ``repro_torch.launch.serve.serve``: 4 prompts of 8,192 tokens, prefill
@@ -93,7 +107,7 @@ Prints one JSON object per line, in phases:
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
-12. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
+13. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
    its plain version on a ``[26,000,000, 64]`` float32 table (the 26
    stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
    ``serve_p99`` (13,312) must be equal; ``multi_hot`` (batch 4,096 with
@@ -108,7 +122,7 @@ Prints one JSON object per line, in phases:
    and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
    serve_bulk's lookups folded into the table's first GiB (a TLB limit
    would show as a gap), with the library call beside it too.
-13. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
+14. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
    ``repro_torch.launch.serve.serve_recsys``: 8 ``serve_p99`` requests
@@ -152,6 +166,13 @@ import torch  # noqa: E402
 # Host-engine counts (repro.core.DDSL, the NumPy reference) of the two
 # configurations, from the JAX package's engine on the same seeds.
 WT_INITIAL_COUNT = 395_050
+# The WT~ q1_square counts after stage 1, each of the N_BATCHES batches and
+# the profiled batch, as the per-pattern, carry-free maintain step printed
+# them on an H100 (python -m repro_torch.run --batches 4 before the
+# megastep): the carried megastep must give the same.
+WT_COUNTS = (WT_INITIAL_COUNT, 385_521, 373_667, 365_873, 347_791)
+# Small batches after the main ones: 1 deletion + 1 insertion each.
+N_SMALL, SMALL_SEED = 3, 500
 EXAMPLE_COUNTS = {"q1_square": (1282, 1238, 1128, 1086), "q2_triangle": (188, 182, 172, 168)}
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the float32 rate outside the
@@ -553,6 +574,107 @@ def drive(config, use_kernels: bool, label: str):
         recs.append(d)
         snaps.append(store_snapshot(pipe.store))
     return recs, snaps, pipe
+
+
+def timed_stage(fn):
+    """``fn()`` timed on the host clock ending in a synchronize, with the
+    peak device memory it reached: ``(result, seconds, peak_gib)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def small_batches(pipe, label: str):
+    """N_SMALL batches of 1 + 1 edges on the pipeline's current state, each
+    with the partitions whose unit tables it listed again out of ``m``;
+    returns their records and store snapshots."""
+    from repro_torch.data.graphs import sample_update
+
+    recs, snaps = [], []
+    for i in range(N_SMALL):
+        upd = sample_update(pipe.graph, 1, 1, seed=SMALL_SEED + i)
+        d, seconds, peak = timed_stage(lambda: {k: int(v) for k, v in pipe.apply(upd).items()})
+        rec = {"phase": "small_batches", "run": label, "batch": i, **d,
+               "partitions": pipe.config.m, "seconds": seconds, "peak_gib": peak}
+        check(rec["overflow"] == 0, f"overflow in {rec}")
+        emit(rec)
+        recs.append(rec)
+        snaps.append(store_snapshot(pipe.store))
+    return recs, snaps
+
+
+def storage_full_phase(pipe) -> None:
+    """The pipeline's next 64 + 64 batch through the delta storage update
+    and through the full-gather rebuild, from the same partitions (the
+    pipeline itself is left as it is): equal partitions and ``part_dirty``,
+    each mode's seconds, peak, resident GiB before it and
+    ``set_intersect`` launches."""
+    from repro_torch import sharded
+    from repro_torch.kernels.set_intersect import set_intersect_cuda
+
+    upd = pipe.next_update()
+    add = torch.from_numpy(upd.add.astype("int32").reshape(-1, 2)).cuda()
+    dele = torch.from_numpy(upd.delete.astype("int32").reshape(-1, 2)).cuda()
+    out, rec = {}, {"phase": "storage_full", "n_add": add.shape[0], "n_del": dele.shape[0]}
+    for mode in ("delta", "full"):
+        step = sharded.make_storage_update_step(pipe.mesh, pipe.caps, pipe.ushapes, mode=mode)
+        resident = torch.cuda.memory_allocated() / 2**30
+        before = set_intersect_cuda.launches
+        out[mode], seconds, peak = timed_stage(lambda: step(pipe.pt, add, dele))
+        rec[mode] = {"seconds": seconds, "peak_gib": peak, "resident_gib": resident,
+                     "set_intersect_launches": set_intersect_cuda.launches - before,
+                     "overflow": int(out[mode][1]["overflow"]),
+                     "stored_edges": int(out[mode][1]["stored_edges"]),
+                     "dirty": int(out[mode][1]["part_dirty"].sum())}
+    (pd, dd), (pf, df) = out["delta"], out["full"]
+    rec["equal"] = all(torch.equal(getattr(pd, f), getattr(pf, f))
+                       for f in ("vertices", "center", "deg", "adj", "edge_hi", "edge_lo"))
+    rec["part_dirty_equal"] = torch.equal(dd["part_dirty"], df["part_dirty"])
+    emit(rec)
+    check(rec["equal"] and rec["part_dirty_equal"], "storage_full: full and delta partitions differ")
+    check(rec["full"]["overflow"] == rec["delta"]["overflow"] == 0, "storage_full: overflow")
+    check(rec["full"]["stored_edges"] == rec["delta"]["stored_edges"], "storage_full: edges")
+    del out, pd, pf
+    torch.cuda.empty_cache()
+
+
+def multi_phase(single_snaps) -> None:
+    """q1_square and q2_triangle in one megastep on WT~ (stage 1 and
+    N_BATCHES batches with the kernels): the q1_square counts and store
+    snapshots must equal the single-pattern run's at every stage; then
+    each pattern is listed from scratch on the final partitions and must
+    equal its maintained count and store."""
+    from repro_torch.run import WT_MULTI, Pipeline, stages
+
+    pipe, setup_s, _ = timed_stage(lambda: Pipeline(WT_MULTI, "cuda"))
+    emit({"phase": "plan", "run": "multi", "setup_seconds": setup_s, **pipe.describe()})
+    for i, d in enumerate(stages(pipe, N_BATCHES)):
+        emit({**d, "stage": d["phase"], "phase": "multi"})
+        check(d["overflow"] == 0, f"multi: overflow in {d}")
+        q1 = d["patterns"]["q1_square"]
+        check(q1["count"] == WT_COUNTS[i], f"multi: q1_square count {q1['count']} at stage {i}")
+        check(snapshots_equal(store_snapshot(pipe.stores["q1_square"]), single_snaps[i]),
+              f"multi: q1_square store differs from the single-pattern run at stage {i}")
+    final = {name: (pd["count"], store_snapshot(pipe.stores[name]))
+             for name, pd in d["patterns"].items()}
+    pipe.stores = pipe.carries = None
+    torch.cuda.empty_cache()
+    for name, (count, snap) in final.items():
+        (astore, adiag), seconds, peak = timed_stage(lambda: pipe.list_pattern(name))
+        audit = {k: int(v) for k, v in adiag.items()}
+        emit({"phase": "multi_audit", "pattern": name, **audit, "maintained": count,
+              "seconds": seconds, "peak_gib": peak})
+        check(audit["overflow"] == 0 and audit["count"] == count,
+              f"multi_audit {name}: count differs from the maintained count")
+        check(snapshots_equal(store_snapshot(astore), snap),
+              f"multi_audit {name}: store differs from the maintained store")
+        del astore
+        torch.cuda.empty_cache()
+    del pipe
+    torch.cuda.empty_cache()
 
 
 def profiled(fn, kernels=()):
@@ -1685,6 +1807,8 @@ def main() -> None:
     launches = ops.launch_counts()
     check(recs_k[0]["count"] == WT_INITIAL_COUNT,
           f"initial count {recs_k[0]['count']} != host {WT_INITIAL_COUNT}")
+    check(tuple(r["count"] for r in recs_k) == WT_COUNTS[:len(recs_k)],
+          f"counts {[r['count'] for r in recs_k]} != {list(WT_COUNTS[:len(recs_k)])}")
     for r in recs_k:
         check(r["overflow"] == 0, f"overflow in {r}")
     for name in DDSL_KERNELS:
@@ -1693,6 +1817,8 @@ def main() -> None:
     # where a batch's device time goes: one more batch under the profiler
     final, fill = profile_batch(pipe)
     check(final["overflow"] == 0, f"overflow in the profiled batch {final}")
+    check(final["count"] == WT_COUNTS[len(recs_k)],
+          f"profiled batch count {final['count']} != {WT_COUNTS[len(recs_k)]}")
     # the CC-join's shape at the batch's mean fill of a and b
     shapes = pipe.caps
     checks["set_intersect"].append(set_intersect_case(
@@ -1700,20 +1826,24 @@ def main() -> None:
         fill=(fill["mean_nonpad_a"], fill["mean_nonpad_b"], fill["empty_a_share"]),
         gen=torch.Generator(device="cuda").manual_seed(1)))
     emit({"phase": "kernel_check", "set_intersect": checks["set_intersect"][-1:]})
-    final_snap = store_snapshot(pipe.store)
+    profiled_snap = store_snapshot(pipe.store)
+
+    # small batches on the same pipeline, where the carry skips listing
+    small_k, small_snaps = small_batches(pipe, "kernels")
+    final = small_k[-1]
+    final_snap = small_snaps[-1]
+
+    # the full-gather storage update against the delta one, from this state
+    storage_full_phase(pipe)
 
     # 4. audit: list from scratch on the final partitions (the maintained
     #    store is on the host as its snapshot; free it on the card first)
-    pipe.store = None
+    pipe.stores = pipe.carries = None
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    astore, adiag = pipe.list_pattern()
+    (astore, adiag), seconds, peak = timed_stage(pipe.list_pattern)
     audit = {k: int(v) for k, v in adiag.items()}
-    torch.cuda.synchronize()
-    emit({"phase": "audit", **audit, "maintained": final["count"],
-          "seconds": time.perf_counter() - t0,
-          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "audit", **audit, "maintained": final["count"], "seconds": seconds,
+          "peak_gib": peak})
     check(audit["overflow"] == 0 and audit["count"] == final["count"],
           "audit count differs from the maintained count")
     check(snapshots_equal(store_snapshot(astore), final_snap),
@@ -1721,17 +1851,32 @@ def main() -> None:
     del pipe, astore
     torch.cuda.empty_cache()
 
-    # 5. the plain path on the card must give the same counts and stores
+    # 5. the plain path on the card must give the same counts and stores,
+    #    over the same batches (the profiled one and the small ones too)
     recs_p, snaps_p, pipe = drive(WT_Q1, False, "plain")
     for i, (a, b) in enumerate(zip(recs_k, recs_p)):
         check(a["count"] == b["count"] and a["overflow"] == b["overflow"],
               f"step {i}: kernel {a} vs plain {b}")
         check(snapshots_equal(snaps_k[i], snaps_p[i]), f"step {i}: MatchStore tensors differ")
-    emit({"phase": "plain_equal", "steps": len(recs_k)})
+    d = pipe.apply(pipe.next_update())
+    check(int(d["count"]) == WT_COUNTS[len(recs_p)] and int(d["overflow"]) == 0,
+          f"plain profiled batch {d}")
+    check(snapshots_equal(store_snapshot(pipe.store), profiled_snap),
+          "profiled batch: MatchStore tensors differ")
+    small_p, small_snaps_p = small_batches(pipe, "plain")
+    for i, (a, b) in enumerate(zip(small_k, small_p)):
+        check(a["count"] == b["count"] and a["unit_refreshes"] == b["unit_refreshes"],
+              f"small batch {i}: kernel {a} vs plain {b}")
+        check(snapshots_equal(small_snaps[i], small_snaps_p[i]),
+              f"small batch {i}: MatchStore tensors differ")
+    emit({"phase": "plain_equal", "steps": len(recs_k) + 1 + len(small_k)})
     del pipe
     torch.cuda.empty_cache()
 
-    # 6. small reference: host-engine counts of the example graph
+    # 6. two patterns in one megastep
+    multi_phase(snaps_k)
+
+    # 7. small reference: host-engine counts of the example graph
     for pname, want in EXAMPLE_COUNTS.items():
         pipe = Pipeline(dataclasses.replace(EXAMPLE_Q1, pattern=pname), "cuda")
         got = []
@@ -1743,23 +1888,23 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
 
-    # 7. segment_sum against its plain version at the GNN path's shapes
+    # 8. segment_sum against its plain version at the GNN path's shapes
     checks["segment_sum"] = segment_sum_phase()
     emit({"phase": "kernel_check", "segment_sum": checks["segment_sum"]})
 
-    # 8. GNN full-graph inference; launches counted over the kernel forward
+    # 9. GNN full-graph inference; launches counted over the kernel forward
     launches["segment_sum"] = gnn_phase()["segment_sum"]
 
-    # 9. the two other architectures at full width on the small graph
+    # 10. the two other architectures at full width on the small graph
     gnn_small_phase()
 
-    # 10. flash_attention against its plain version at the serving shapes
+    # 11. flash_attention against its plain version at the serving shapes
     checks["flash_attention"] = flash_attention_phase()
     emit({"phase": "kernel_check", "flash_attention": checks["flash_attention"]})
 
     emit(flash_kernels_line())
 
-    # 11. phi4-mini-3.8b serving; launches counted over the kernel serve (the
+    # 12. phi4-mini-3.8b serving; launches counted over the kernel serve (the
     #     float32 gate's for the CUDA-core kernel, which bf16 serving skips)
     lm_counts, f32_counts = lm_phase()
     launches["flash_attention"] = lm_counts["flash_attention_tc"]
@@ -1768,11 +1913,11 @@ def main() -> None:
                                         - f32_counts["flash_attention_tc"])
     checks["flash_decode"] = checks["flash_attention_simt"] = checks["flash_attention"]
 
-    # 12. embedding_bag against its plain version at the DLRM shapes
+    # 13. embedding_bag against its plain version at the DLRM shapes
     checks["embedding_bag"] = embedding_bag_phase()
     emit({"phase": "kernel_check", "embedding_bag": checks["embedding_bag"]})
 
-    # 13. dlrm-rm2 serving; launches counted over the kernel serve
+    # 14. dlrm-rm2 serving; launches counted over the kernel serve
     launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
 
     # summary lines

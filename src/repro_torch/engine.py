@@ -103,11 +103,17 @@ class CompTensors:
 
 def map_tensors(fn, x):
     """Apply ``fn`` to every tensor of a PaddedPartition / CompTensors-like
-    dataclass (``sets`` dicts included) and rebuild it."""
+    dataclass (``sets`` dicts and nested dataclasses included) and rebuild
+    it."""
     out = {}
     for f in dataclasses.fields(x):
         v = getattr(x, f.name)
-        out[f.name] = {k: fn(a) for k, a in v.items()} if isinstance(v, dict) else fn(v)
+        if isinstance(v, dict):
+            out[f.name] = {k: fn(a) for k, a in v.items()}
+        elif dataclasses.is_dataclass(v):
+            out[f.name] = map_tensors(fn, v)
+        else:
+            out[f.name] = fn(v)
     return type(x)(**out)
 
 

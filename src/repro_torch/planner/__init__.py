@@ -2,7 +2,7 @@
 
 from .compiler import choose_cover, r_lower
 from .lowering import TreeNode, TreeProgram, build_tree_program
-from .sizing import StoreCaps, match_caps
+from .sizing import StoreCaps, match_caps, quantize_store_caps, unit_table_caps
 
 __all__ = ["choose_cover", "r_lower", "TreeNode", "TreeProgram", "build_tree_program",
-           "StoreCaps", "match_caps"]
+           "StoreCaps", "match_caps", "quantize_store_caps", "unit_table_caps"]

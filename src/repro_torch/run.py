@@ -1,17 +1,21 @@
-"""The port's main path: list a pattern once, then maintain it under batches.
+"""The port's main path: list patterns once, then maintain them under batches.
 
-:class:`Pipeline` builds the graph, the NP storage, the plan and the caps,
-puts the stacked partitions on the device, runs stage 1
-(:func:`~repro_torch.sharded.make_list_step` +
-:func:`~repro_torch.sharded.make_init_store_step`) and then answers each
-update batch with stage 2 (:func:`~repro_torch.sharded.make_storage_update_step`
-+ :func:`~repro_torch.sharded.make_maintain_step`). Its answer to a batch
-is the exact maintained match count.
+:class:`Pipeline` builds the graph, the NP storage, each pattern's plan and
+caps, puts the stacked partitions on the device, runs stage 1 for every
+pattern (:func:`~repro_torch.sharded.make_list_step` +
+:func:`~repro_torch.sharded.make_init_store_step`, then the cold fill of
+its unit-table carry, :func:`~repro_torch.sharded.make_unit_refresh_step`)
+and answers each update batch as the streaming service's sharded backend
+does: one storage update (:func:`~repro_torch.sharded.make_storage_update_step`)
+and one carried maintain step for every pattern
+(:func:`~repro_torch.sharded.make_maintain_mega_step`). Its answer to a
+batch is each pattern's exact maintained match count.
 
 :func:`stages` is the driver: it runs stage 1 and then the batches, and
 yields each stage's diag with its time and peak device memory.
 
     PYTHONPATH=src python -m repro_torch.run            # WT~ / q1_square, one H100
+    PYTHONPATH=src python -m repro_torch.run --config wt_multi
     PYTHONPATH=src python -m repro_torch.run --device cpu --config example
 """
 
@@ -21,7 +25,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -30,24 +34,26 @@ from .core.cost import CostModel
 from .core.estimator import GraphStats
 from .core.graph import GraphUpdate
 from .core.join_tree import minimum_unit_decomposition, optimal_join_tree
-from .core.pattern import PATTERN_LIBRARY, symmetry_break
+from .core.pattern import PATTERN_LIBRARY, Pattern, R1Unit, symmetry_break
 from .core.storage import build_np_storage
 from .data.graphs import rmat_graph, sample_update
 from .engine import EngineCaps
 from .mesh import LocalMesh
 from .planner.compiler import choose_cover
-from .planner.lowering import build_tree_program
-from .planner.sizing import match_caps
+from .planner.lowering import TreeProgram, build_tree_program
+from .planner.sizing import match_caps, unit_table_caps
 from . import sharded
 
-__all__ = ["RunConfig", "WT_Q1", "EXAMPLE_Q1", "Pipeline", "stages"]
+__all__ = ["RunConfig", "WT_Q1", "WT_MULTI", "EXAMPLE_Q1", "PatternPlan", "Pipeline",
+           "stages"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """One deployment: an R-MAT graph, a pattern, ``m`` partitions, the
-    engine caps and the batch shape. The store caps and the candidate caps
-    of the update come from the §IV-D estimators."""
+    """One deployment: an R-MAT graph, a pattern (and ``more_patterns``
+    maintained beside it), ``m`` partitions, the engine caps and the batch
+    shape. The store and carry caps and the candidate caps of the update
+    come from the §IV-D estimators."""
 
     n_log2: int
     n_edges: int
@@ -64,6 +70,7 @@ class RunConfig:
     n_add: int = 64
     n_del: int = 64
     update_seed: int = 100
+    more_patterns: Tuple[str, ...] = ()
 
 
 # The "WT~" stand-in of the paper's WikiTalk graph (benchmarks/common.py,
@@ -75,12 +82,19 @@ WT_Q1 = RunConfig(n_log2=12, n_edges=10_000, graph_seed=1, pattern="q1_square", 
                   v_cap=2048, deg_cap=512, e_cap=8192, match_cap=524_288,
                   group_cap=131_072, set_cap=512, pair_cap=512)
 
+# A streaming service maintaining two patterns in one fused step a batch, as
+# examples/dynamic_subgraph_service.py --backend sharded --patterns
+# q2_triangle,q1_square does: WT~ and the caps of WT_Q1. q5_house does not
+# fit one card at this size (its estimated store is 2,071,424 x 4,480 x 2
+# compressed vertices).
+WT_MULTI = dataclasses.replace(WT_Q1, more_patterns=("q2_triangle",))
+
 # The graph and caps of examples/distributed_listing.py.
 EXAMPLE_Q1 = RunConfig(n_log2=7, n_edges=320, graph_seed=0, pattern="q1_square", m=8,
                        v_cap=128, deg_cap=64, e_cap=1024, match_cap=8192,
                        group_cap=4096, set_cap=64, pair_cap=256, n_add=4, n_del=4)
 
-CONFIGS = {"wt": WT_Q1, "example": EXAMPLE_Q1}
+CONFIGS = {"wt": WT_Q1, "wt_multi": WT_MULTI, "example": EXAMPLE_Q1}
 
 
 def _require_device(device) -> torch.device:
@@ -90,64 +104,136 @@ def _require_device(device) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass
+class PatternPlan:
+    """One pattern of a pipeline: its plan, caps and stage-1 steps."""
+
+    name: str
+    pattern: Pattern
+    ord: Tuple[Tuple[int, int], ...]
+    cover: Tuple[int, ...]
+    prog: TreeProgram
+    units: Tuple[R1Unit, ...]
+    store_caps: sharded.StoreCaps
+    unit_caps: sharded.StoreCaps
+    list_step: Callable
+    init_step: Callable
+    refresh_step: Callable
+
+    def spec(self) -> sharded.MaintainSpec:
+        return sharded.MaintainSpec(name=self.name, prog=self.prog, units=self.units,
+                                    store=self.store_caps, unit_caps=self.unit_caps)
+
+    def gib(self, caps: EngineCaps, m: int) -> Dict[str, float]:
+        """Device GiB of this pattern's store and carry, from their caps."""
+        def table(groups, skel, n_sets, width):
+            return groups * (4 * skel + 1 + 4 * n_sets * width)
+
+        root = self.prog.nodes[self.prog.root]
+        n_comp = len(set(self.pattern.vertices) - set(self.cover))
+        store = table(self.store_caps.group_cap, len(root.skel_cols), n_comp,
+                      self.store_caps.set_cap)
+        carry = 0
+        plans, _ = sharded.unit_plan_registry(self.prog, self.units)
+        for up in plans.values():
+            skel = sum(1 for c in up.cols if c in self.cover)
+            carry += caps.match_cap * (4 * len(up.cols) + 1) + table(
+                self.unit_caps.group_cap, skel, len(up.cols) - skel, self.unit_caps.set_cap)
+        return {"unit_plans": len(plans), "store_gib": m * store / 2**30,
+                "carry_gib": m * carry / 2**30}
+
+
 class Pipeline:
-    """Stage 1 and stage 2 of one pattern over one graph, on one device."""
+    """Stage 1 and stage 2 of the configuration's patterns over one graph,
+    on one device."""
 
     def __init__(self, config: RunConfig, device="cuda", use_kernels: bool = True):
         self.config = config
         self.device = _require_device(device)
         self.graph = rmat_graph(config.n_log2, config.n_edges, seed=config.graph_seed)
-        self.pattern = PATTERN_LIBRARY[config.pattern]
-        self.ord = symmetry_break(self.pattern)
         stats = GraphStats.of(self.graph)
-        self.cover = choose_cover(self.pattern, self.ord, stats)
-        tree = optimal_join_tree(self.pattern, self.cover,
-                                 CostModel(self.cover, self.ord, stats))
-        self.prog = build_tree_program(tree, self.cover, self.ord)
-        self.units = minimum_unit_decomposition(self.pattern, self.cover)
         c = config
         self.caps = EngineCaps(v_cap=c.v_cap, deg_cap=c.deg_cap, e_cap=c.e_cap,
                                match_cap=c.match_cap, group_cap=c.group_cap,
                                set_cap=c.set_cap, pair_cap=c.pair_cap,
                                use_kernels=use_kernels)
-        self.store_caps = match_caps(self.pattern, self.cover, self.ord, stats, self.caps)
+        self.mesh = LocalMesh(c.m)
+        self.plans = {name: self._plan(name, stats)
+                      for name in (c.pattern, *c.more_patterns)}
+        main = self.plans[c.pattern]
+        # the first pattern's plan, as single-pattern callers read it
+        self.pattern, self.ord, self.cover = main.pattern, main.ord, main.cover
+        self.prog, self.store_caps = main.prog, main.store_caps
         self.ushapes = sharded.UpdateShapes.from_estimator(c.n_add, c.n_del, stats,
                                                            self.caps, c.m)
-        self.mesh = LocalMesh(c.m)
-        self.list_step = sharded.make_list_step(self.prog, self.mesh, self.caps)
-        self.init_step = sharded.make_init_store_step(self.prog, self.mesh, self.caps,
-                                                      self.store_caps)
         self.storage_step = sharded.make_storage_update_step(self.mesh, self.caps,
                                                              self.ushapes)
-        self.maintain_step = sharded.make_maintain_step(self.prog, self.units, self.mesh,
-                                                        self.caps, self.store_caps)
+        self.maintain_step = sharded.make_maintain_mega_step(
+            [p.spec() for p in self.plans.values()], self.mesh, self.caps)
         self.pt = sharded.stack_partitions(build_np_storage(self.graph, c.m), self.caps,
                                            self.device)
-        self.store = None
+        self.stores = None
+        self.carries = None
         self.batches = 0
 
+    def _plan(self, name: str, stats) -> PatternPlan:
+        pattern = PATTERN_LIBRARY[name]
+        ord_ = symmetry_break(pattern)
+        cover = choose_cover(pattern, ord_, stats)
+        tree = optimal_join_tree(pattern, cover, CostModel(cover, ord_, stats))
+        prog = build_tree_program(tree, cover, ord_)
+        units = tuple(minimum_unit_decomposition(pattern, cover))
+        store_caps = match_caps(pattern, cover, ord_, stats, self.caps)
+        unit_caps = unit_table_caps(units, cover, ord_, stats, self.caps)
+        return PatternPlan(
+            name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
+            store_caps=store_caps, unit_caps=unit_caps,
+            list_step=sharded.make_list_step(prog, self.mesh, self.caps),
+            init_step=sharded.make_init_store_step(prog, self.mesh, self.caps, store_caps),
+            refresh_step=sharded.make_unit_refresh_step(prog, units, self.mesh, self.caps,
+                                                        unit_caps))
+
+    @property
+    def store(self):
+        """The first pattern's match store."""
+        return None if self.stores is None else self.stores[self.config.pattern]
+
     def describe(self) -> Dict:
-        """The plan and every cap, as plain values."""
+        """The plan and every cap, as plain values; per pattern its cover,
+        caps and the GiB of its store and carry."""
         return {"graph": {"n": self.graph.n, "edges": self.graph.num_edges},
                 "pattern": self.config.pattern, "cover": list(self.cover), "m": self.config.m,
                 "caps": {k: v for k, v in dataclasses.asdict(self.caps).items()
                          if k != "use_kernels"},
                 "store_caps": dataclasses.asdict(self.store_caps),
-                "update_shapes": dataclasses.asdict(self.ushapes)}
+                "update_shapes": dataclasses.asdict(self.ushapes),
+                "patterns": {name: {"cover": list(p.cover),
+                                    "store_caps": dataclasses.asdict(p.store_caps),
+                                    "unit_caps": dataclasses.asdict(p.unit_caps),
+                                    **p.gib(self.caps, self.config.m)}
+                             for name, p in self.plans.items()}}
 
-    def list_pattern(self):
-        """Stage 1 over the current partitions: ``(store, diag)``."""
-        root, ldiag = self.list_step(self.pt)
-        store, idiag = self.init_step(root)
+    def list_pattern(self, name: str = None):
+        """Stage 1 of one pattern (the first by default) over the current
+        partitions: ``(store, diag)``."""
+        p = self.plans[name or self.config.pattern]
+        root, ldiag = p.list_step(self.pt)
+        store, idiag = p.init_step(root)
         diag = {"count": idiag["count"], "groups": ldiag["matches_lower_bound"],
                 "store_groups": idiag["store_groups"],
                 "overflow": ldiag["overflow"] + idiag["overflow"]}
         return store, diag
 
     def initial(self) -> Dict:
-        """Stage 1: list the pattern and seed the match store."""
-        self.store, diag = self.list_pattern()
-        return diag
+        """Stage 1: list every pattern, seed its match store and fill its
+        unit-table carry (whose overflow joins the pattern's)."""
+        self.stores, self.carries, per = {}, {}, {}
+        for name, p in self.plans.items():
+            self.stores[name], diag = self.list_pattern(name)
+            self.carries[name], rdiag = p.refresh_step(self.pt)
+            diag["overflow"] = diag["overflow"] + rdiag["overflow"]
+            per[name] = diag
+        return self._record(per, {})
 
     def next_update(self) -> GraphUpdate:
         """The next batch: ``n_del`` deletions + ``n_add`` insertions drawn
@@ -156,20 +242,40 @@ class Pipeline:
         return sample_update(self.graph, c.n_del, c.n_add, seed=c.update_seed + self.batches)
 
     def apply(self, update: GraphUpdate) -> Dict:
-        """Stage 2 for one batch; returns its diag (``count`` = |M(p, d')|)."""
-        if self.store is None:
+        """Stage 2 for one batch: the storage update, then the carried
+        megastep over every pattern. Returns its diag (``count`` = |M(p,
+        d')|, per pattern when there are several)."""
+        if self.stores is None or self.carries is None:
             raise RuntimeError("call initial() before apply()")
         add = torch.from_numpy(np.asarray(update.add, np.int32).reshape(-1, 2)).to(self.device)
         dele = torch.from_numpy(np.asarray(update.delete, np.int32).reshape(-1, 2)).to(self.device)
         self.pt, sdiag = self.storage_step(self.pt, add, dele)
-        self.store, patch, mdiag = self.maintain_step(self.pt, self.store, add, dele)
+        self.stores, _, self.carries, mdiag = self.maintain_step(
+            self.pt, self.stores, self.carries, sdiag["part_dirty"], add, dele)
         self.graph = self.graph.apply_update(update)
         self.batches += 1
-        return {"count": mdiag["count"], "cand_vertices": sdiag["cand_vertices"],
-                "cand_edges": sdiag["cand_edges"], "patch_groups": mdiag["patch_groups"],
-                "removed_groups": mdiag["removed_groups"],
-                "overflow": sdiag["overflow"] + mdiag["overflow"],
-                "storage_overflow": sdiag["overflow"], "maintain_overflow": mdiag["overflow"]}
+        per = {name: {k: d[k] for k in ("count", "patch_groups", "removed_groups",
+                                        "overflow", "unit_refreshes")}
+               for name, d in mdiag.items()}
+        maintain_ovf = sum(d["overflow"] for d in per.values())
+        return self._record(per, {
+            "cand_vertices": sdiag["cand_vertices"], "cand_edges": sdiag["cand_edges"],
+            "overflow": sdiag["overflow"] + maintain_ovf,
+            "storage_overflow": sdiag["overflow"], "maintain_overflow": maintain_ovf})
+
+    def _record(self, per: Dict[str, Dict], common: Dict) -> Dict:
+        """One pattern's keys at the top level; several patterns' under
+        ``patterns``, with the overflow summed."""
+        if len(per) == 1:
+            (diag,) = per.values()
+            return {**diag, **common}
+        rec = {"overflow": sum(d["overflow"] for d in per.values()), **common}
+        rec["patterns"] = per
+        return rec
+
+
+def _ints(diag: Dict) -> Dict:
+    return {k: _ints(v) if isinstance(v, dict) else int(v) for k, v in diag.items()}
 
 
 def stages(pipe: Pipeline, batches: int) -> Iterator[Dict]:
@@ -185,7 +291,7 @@ def stages(pipe: Pipeline, batches: int) -> Iterator[Dict]:
             torch.cuda.reset_peak_memory_stats(pipe.device)
         t0 = time.perf_counter()
         diag = pipe.initial() if update is None else pipe.apply(update)
-        rec = {k: int(v) for k, v in diag.items()}
+        rec = _ints(diag)
         if cuda:
             torch.cuda.synchronize(pipe.device)
         rec.update(phase="stage1" if update is None else "batch",

@@ -1,21 +1,30 @@
 """Whole join-tree programs over ``m`` NP partitions on one card.
 
-Port of the main path of ``repro/dist/sharded.py``. The partitions are a
-leading ``[m]`` axis of every input and output (partition ``j`` holds the
-centers ``h(v) = v mod m``); each step loops over them and meets the other
-partitions only through :class:`~repro_torch.mesh.LocalMesh` collectives,
-where the JAX step calls ``lax.all_gather`` / ``lax.psum``. Work that the
-JAX step repeats on every device on replicated values (the candidate sets
-of the storage update, the ownership hash of gathered groups) runs once.
+Port of ``repro/dist/sharded.py`` but its WCOJ steps and ``stack_matches``.
+The partitions are a leading ``[m]`` axis of every input and output
+(partition ``j`` holds the centers ``h(v) = v mod m``); each step loops
+over them and meets the other partitions only through
+:class:`~repro_torch.mesh.LocalMesh` collectives, where the JAX step calls
+``lax.all_gather`` / ``lax.psum``. Work that the JAX step repeats on every
+device on replicated values (the candidate sets of the storage update, the
+common-neighbour test of the full rebuild, the ownership hash of gathered
+groups) runs once.
 
 - :func:`make_list_step` — stage 1: unit listing per partition, then each
   CC-join redistributes groups by join-key ownership and joins locally.
 - :func:`make_init_store_step` — the initial listing regrouped into the
   sharded :class:`MatchStore` and counted.
-- :func:`make_storage_update_step` (``mode="delta"``) — the
-  candidate-restricted Alg. 4 update of the stored partitions.
+- :func:`make_unit_refresh_step` — the cold fill of a pattern's
+  unit-table carry (:class:`UnitCarry`).
+- :func:`make_storage_update_step` — Alg. 4: the candidate-restricted
+  update (``mode="delta"``) or the full-gather rebuild that it is held
+  against (``mode="full"``).
+- :func:`make_patch_step` / :func:`make_update_step` — the Nav-join patch
+  over the updated partitions, alone or fused behind the storage update.
 - :func:`make_maintain_step` — Nav-join patch ∘ Lemma 6.1 delete filter ∘
-  merge ∘ count over the updated partitions.
+  merge ∘ count over the updated partitions, with or without the carry.
+- :func:`make_maintain_mega_step` — the same for every registered pattern
+  in one call (:class:`MaintainSpec`), the streaming service's batch step.
 
 Every step reports overflow through explicit counters in its ``diag``
 dict (0-d tensors, summed over partitions like the JAX ``psum``).
@@ -34,14 +43,17 @@ from .core.navjoin import left_deep_order
 from .core.pattern import Pattern, R1Unit
 from .core.plan import JoinPlan, UnitPlan, build_unit_plan
 from .core.storage import NPStorage
-from .engine import PAD, CompTensors, EngineCaps, PaddedPartition, _I32, _isum
+from .engine import (PAD, CompTensors, EngineCaps, PaddedPartition, _BIG, _I32, _isum,
+                     _isum_rows)
 from .mesh import LocalMesh
 from .planner.lowering import TreeProgram
-from .planner.sizing import StoreCaps, match_caps
+from .planner.sizing import StoreCaps, match_caps, unit_table_caps
 
 __all__ = [
     "stack_partitions", "make_list_step", "UpdateShapes", "make_storage_update_step",
-    "MatchStore", "StoreCaps", "match_caps", "make_init_store_step", "make_maintain_step",
+    "make_patch_step", "make_update_step", "MatchStore", "StoreCaps", "match_caps",
+    "UnitCarry", "unit_plan_registry", "unit_table_caps", "make_unit_refresh_step",
+    "make_init_store_step", "make_maintain_step", "MaintainSpec", "make_maintain_mega_step",
 ]
 
 
@@ -73,14 +85,20 @@ def _put(out, m: int, j: int, x):
     if out is None:
         out = je.map_tensors(
             lambda a: torch.empty((m,) + tuple(a.shape), dtype=a.dtype, device=a.device), x)
+    _copy_into(out, j, x)
+    return out
+
+
+def _copy_into(dst, j: int, x) -> None:
     for f in dataclasses.fields(x):
-        v, dst = getattr(x, f.name), getattr(out, f.name)
+        v, d = getattr(x, f.name), getattr(dst, f.name)
         if isinstance(v, dict):
             for k, a in v.items():
-                dst[k][j].copy_(a)
+                d[k][j].copy_(a)
+        elif dataclasses.is_dataclass(v):
+            _copy_into(d, j, v)
         else:
-            dst[j].copy_(v)
-    return out
+            d[j].copy_(v)
 
 
 def _part(x, j: int):
@@ -303,21 +321,106 @@ def _delta_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: torc
     return out, ovf, counters
 
 
+def _storage_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: torch.Tensor,
+                         mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateShapes):
+    """Alg. 4 in full, ``Φ(d) → Φ(d')``: the exact oracle that the delta
+    update is held against.
+
+    The global adjacency is gathered from the partition centers (one psum
+    over ``[nv_glob, deg_cap]``), the first ``n_del`` deletions and
+    ``n_add`` insertions are applied to it, and every partition is rebuilt
+    from the NP membership rule ``(v, w) ∈ E_j ⇔ h(v)=j ∨ h(w)=j ∨ ∃z ∈
+    CN(v, w): h(z)=j``. The JAX body tests ``z ∈ N(w)`` for every ``(v,
+    w, z)`` as a ``[C, D, D, D]`` compare on every device; here the test
+    does not depend on the partition, so it runs once, as ``set_intersect``
+    over the valid ``(v, w)`` rows (``a = N(v)``, ``b = N(w)``, pad
+    ``_BIG``), and each partition reduces it with its own ``h(z)``. The
+    valid rows are counted on the host (one sync). Returns the new
+    partitions and the per-partition overflows.
+    """
+    m = mesh.size
+    nv_glob = m * caps.v_cap
+    D = caps.deg_cap
+    add = add.to(_I32)[:ushapes.n_add]
+    dele = dele.to(_I32)[:ushapes.n_del]
+    ids = torch.arange(nv_glob, dtype=_I32, device=add.device)
+
+    # ---- replicated: the global adjacency after the batch ----------------
+    gn = mesh.psum([je.center_adj_contrib(pt, ids, ids >= 0) for pt in pts]) - 1
+    rows, o_slot = je.apply_edge_delta_rows(ids, gn, add, dele, nv_glob)
+    del gn
+    rep = _isum((add >= nv_glob).any(dim=1)) + o_slot
+    gm = torch.where(rows < 0, _BIG, rows)             # ascending, _BIG tail
+    del rows
+    wvalid = gm != _BIG                                # [NV, D]: w = gm[v, j]
+
+    # ---- replicated: z ∈ N(v) ∩ N(w) per valid (v, w), by z's home -------
+    pv, pj = wvalid.nonzero(as_tuple=True)
+    flat = pv * D + pj
+    cond = torch.zeros((m, nv_glob * D), dtype=torch.bool, device=gm.device)
+    for s in je._row_slices(pv.shape[0], 2 * D):
+        a = gm[pv[s]]
+        w = gm[pv[s], pj[s]].clamp(0, nv_glob - 1).long()
+        z = je.ops.set_intersect(a, gm[w], pad=_BIG,
+                                 use_kernels=caps.use_kernels)
+        home = torch.where(z, a % m, m)
+        for me in mesh.indices():
+            cond[me, flat[s]] = (home == me).any(dim=1)
+        del a, w, z, home
+    cond = cond.reshape(m, nv_glob, D)
+    gm_home = gm % m
+
+    # ---- per partition: the rule, then the rebuilt partition -------------
+    out, ovf = [], []
+    for me, pt in zip(mesh.indices(), pts):
+        o_own = _isum(pt.center & (pt.vertices >= 0) & (pt.vertices >= nv_glob))
+        m1 = ((ids % m) == me)[:, None] | (wvalid & (gm_home == me))
+        memb = (m1 | cond[me]) & wvalid
+        vertices, vvalid, o_v = je._compact_vec(ids, memb.any(dim=1), caps.v_cap, fill=PAD)
+        vsafe = torch.where(vertices >= 0, vertices, 0).long()
+        ladj = torch.where(memb[vsafe] & vvalid[:, None], gm[vsafe], _BIG)
+        ladj = torch.sort(ladj, dim=1).values
+        ldeg = _isum_rows(ladj != _BIG)
+        ladj = torch.where(ladj == _BIG, PAD, ladj)
+        center = vvalid & (vertices % m == me)
+        vv = vertices[:, None].expand_as(ladj)
+        e_ok = (ladj >= 0) & (ladj > vv)
+        epairs = torch.stack([vv.reshape(-1), ladj.reshape(-1)], dim=1)
+        epacked, _, o_e = je._compact_rows(epairs, e_ok.reshape(-1), caps.e_cap)
+        out.append(PaddedPartition(vertices=vertices, center=center, deg=ldeg, adj=ladj,
+                                   edge_hi=epacked[:, 0].contiguous(),
+                                   edge_lo=epacked[:, 1].contiguous()))
+        ovf.append(o_own + rep + o_v + o_e)
+    return out, ovf
+
+
+def _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode: str):
+    """Dispatch the storage update body by ``mode``: ``(pts', ovfs, counters)``."""
+    if mode == "full":
+        pts2, ovf = _storage_update_body(pts, add, dele, mesh, caps, ushapes)
+        return pts2, ovf, {}
+    if mode == "delta":
+        return _delta_update_body(pts, add, dele, mesh, caps, ushapes)
+    raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
+
+
 def make_storage_update_step(mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateShapes,
                              mode: str = "delta"):
     """Step: (partitions, E_a, E_d) → (partitions', diag).
 
-    ``diag``: ``overflow``, ``stored_edges``, ``part_dirty`` ([m] bool:
-    the partition's edge list changed), ``cand_vertices``, ``cand_edges``,
-    ``cand_overflow``. Only ``mode="delta"`` is ported; the full-gather
-    oracle stays in the JAX package.
+    ``diag``: ``overflow``, ``stored_edges`` and ``part_dirty`` ([m] bool:
+    the partition's edge list changed, so every per-partition artifact
+    derived from it, such as the unit-table carry, is stale), plus
+    ``cand_vertices``, ``cand_edges`` and ``cand_overflow`` for
+    ``mode="delta"``. ``mode="full"`` is the full-gather rebuild; the two
+    are byte-equal.
     """
-    if mode != "delta":
-        raise ValueError(f"update mode {mode!r} is not ported (only 'delta')")
+    if mode not in ("delta", "full"):
+        raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
 
     def step(pt_st: PaddedPartition, add: torch.Tensor, dele: torch.Tensor):
         pts = [_part(pt_st, j) for j in mesh.indices()]
-        pts2, ovf, counters = _delta_update_body(pts, add, dele, mesh, caps, ushapes)
+        pts2, ovf, counters = _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode)
         dirty = torch.stack([(a.edge_hi != b.edge_hi).any() | (a.edge_lo != b.edge_lo).any()
                              for a, b in zip(pts2, pts)])
         diag = {
@@ -430,10 +533,18 @@ def _purge_nonparticipating(cur: CompTensors, comp_labels, ord_, set_cap: int):
 
 
 def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgram,
-                chains: Tuple[_ChainPlan, ...], mesh: LocalMesh, caps: EngineCaps):
+                chains: Tuple[_ChainPlan, ...], mesh: LocalMesh, caps: EngineCaps,
+                unit_tables: Optional[Dict[Tuple, "UnitCarry"]] = None):
     """Nav-join patch chains (Lemma 6.2 + Thm. 6.1) over the updated
     partitions, merged onto their full-skeleton owners. Returns the
-    per-partition patches and overflows."""
+    per-partition patches and overflows.
+
+    ``unit_tables`` (keyed by unit-pattern key, stacked ``[m, ...]``) are
+    the carried unit tables: a seed is the carried plain table re-filtered
+    against this batch's ``E_a``, a chain step joins the carried compressed
+    table, and no ``unit_list`` runs. Without them every table is listed
+    from ``Φ(d')``; the two are byte-equal while the carry is fresh.
+    """
     m = mesh.size
     pattern = prog.nodes[prog.root].pattern
     cover = prog.cover
@@ -444,8 +555,11 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
     add_hi = torch.maximum(add[:, 0], add[:, 1])
     unit_cache: Dict[Tuple, Tuple[List[CompTensors], List[torch.Tensor]]] = {}
 
-    def unit_tables(up: UnitPlan):
+    def unit_tables_of(up: UnitPlan):
         key = up.pattern.key()
+        if unit_tables is not None:
+            comp = unit_tables[key].comp
+            return [_part(comp, j) for j in mesh.indices()], [je._zero(add) for _ in pts2]
         if key not in unit_cache:
             tcs, os_ = [], []
             for pt in pts2:
@@ -456,19 +570,29 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
             unit_cache[key] = (tcs, os_)
         return unit_cache[key]
 
+    def seed(chain: _ChainPlan, j: int, pt: PaddedPartition):
+        if unit_tables is not None:
+            uc = unit_tables[chain.seed_plan.pattern.key()]
+            tbl = uc.tbl[j]
+            valid = uc.valid[j] & je.require_edges_mask(tbl, chain.seed_plan.edge_cols, add)
+            return tbl, valid, je._zero(add)
+        return je.unit_list(pt, chain.seed_plan, caps, require_edges=add)
+
     povf = [je._zero(add) for _ in pts2]
     chain_out: List[List[CompTensors]] = []
     for chain in chains:
         curs = []
         for j, pt in enumerate(pts2):
-            tbl, valid, o1 = je.unit_list(pt, chain.seed_plan, caps, require_edges=add)
+            tbl, valid, o1 = seed(chain, j, pt)
             cur, _, o2 = je.compress_plain(tbl, valid, chain.seed_plan.cols, cover, caps)
             povf[j] = povf[j] + o1 + o2
             curs.append(cur)
         for up, jp in chain.steps:
-            tcks, _ = unit_tables(up)
+            tcks, o3 = unit_tables_of(up)
             curs, o4 = _dist_join(curs, tcks, jp, caps, mesh)
-            povf = [a + b for a, b in zip(povf, o4)]
+            # as in JAX, a listed table's overflow counts at each use and
+            # once more below
+            povf = [a + b + c for a, b, c in zip(povf, o3, o4)]
         outs = []
         for cur in curs:
             # Thm. 6.1 dedup: drop matches mapping an earlier unit's edge
@@ -514,6 +638,178 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
         patches.append(patch)
         povf[me] = povf[me] + om
     return patches, povf
+
+
+# ---------------------------------------------------------------------------
+# Unit-table carries
+# ---------------------------------------------------------------------------
+#
+# A unit table is a function of its partition's canonical edge list
+# (Lemma 3.1 anchors units to centers), so a pattern's tables are carried
+# across batches and listed again only on the partitions whose edge list
+# the storage step changed (``diag["part_dirty"]``).
+
+@dataclasses.dataclass
+class UnitCarry:
+    """One unit plan's carried tables (twin of ``sharded.UnitCarry``): the
+    plain listing ``tbl [match_cap, k]`` + ``valid``, which seeds
+    re-filter, and its compressed form ``comp``, which chain steps join;
+    stacked ``[m, ...]`` in a carry."""
+
+    tbl: torch.Tensor
+    valid: torch.Tensor
+    comp: CompTensors
+
+
+def unit_plan_registry(prog: TreeProgram, units: Sequence[R1Unit]):
+    """Distinct unit plans of a pattern's patch chains: ``(plans, names)``,
+    ``plans`` from a name (``u0``, ``u1``, … in sorted-key order) to its
+    :class:`UnitPlan`, ``names`` from a unit-pattern key to its name. A
+    seed plan and a chain-step plan of one unit shape share one entry."""
+    pattern = prog.nodes[prog.root].pattern
+    chains = _chain_plans(units, pattern, prog.cover, prog.ord)
+    reg: Dict[Tuple, UnitPlan] = {}
+    for chain in chains:
+        for up in (chain.seed_plan, *(u for u, _ in chain.steps)):
+            reg.setdefault(up.pattern.key(), up)
+    names = {k: f"u{i}" for i, k in enumerate(sorted(reg))}
+    return {names[k]: up for k, up in reg.items()}, names
+
+
+def _refresh_units(pt: PaddedPartition, plans: Dict[str, UnitPlan], cover: Tuple[int, ...],
+                   caps: EngineCaps, ucaps: StoreCaps):
+    """List and compress every registered unit plan on one partition: the
+    cold fill of its carry slot, listed with ``caps`` and compressed with
+    ``ucaps``' group and set caps. Returns ``({name: UnitCarry}, overflow)``."""
+    ccaps = dataclasses.replace(caps, group_cap=ucaps.group_cap, set_cap=ucaps.set_cap)
+    out: Dict[str, UnitCarry] = {}
+    ovf = je._zero(pt.vertices)
+    for name in sorted(plans):
+        up = plans[name]
+        tbl, valid, o1 = je.unit_list(pt, up, caps)
+        tc, _, o2 = je.compress_plain(tbl, valid, up.cols, cover, ccaps)
+        out[name] = UnitCarry(tbl=tbl, valid=valid, comp=tc)
+        ovf = ovf + o1 + o2
+    return out, ovf
+
+
+def make_unit_refresh_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+                           caps: EngineCaps, ucaps: StoreCaps):
+    """Step: partitions → ({name: UnitCarry}, diag), the cold fill of a
+    pattern's carry on every partition. ``diag``: ``overflow``."""
+    plans, _ = unit_plan_registry(prog, units)
+
+    def step(pt_st: PaddedPartition):
+        carry: Dict[str, UnitCarry] = {name: None for name in sorted(plans)}
+        ovfs = []
+        for j in mesh.indices():
+            fresh, ovf = _refresh_units(_part(pt_st, j), plans, prog.cover, caps, ucaps)
+            for name, uc in fresh.items():
+                carry[name] = _put(carry[name], mesh.size, j, uc)
+            del fresh
+            ovfs.append(ovf)
+        return carry, {"overflow": mesh.psum(ovfs)}
+
+    return step
+
+
+def _dirty_flags(dirty: torch.Tensor) -> List[bool]:
+    """The storage step's ``part_dirty`` on the host: the one device-to-host
+    read of a carried step (a CUDA graph of the step would branch on the
+    device instead)."""
+    return [bool(x) for x in dirty.tolist()]
+
+
+def _refresh_dirty(pts2: List[PaddedPartition], carry: Dict[str, UnitCarry],
+                   flags: List[bool], prog: TreeProgram, plans: Dict[str, UnitPlan],
+                   caps: EngineCaps, ucaps: StoreCaps) -> List[torch.Tensor]:
+    """Refresh, in place, the carry slots of the partitions flagged dirty
+    (the JAX step's ``lax.cond``); returns each partition's overflow."""
+    rovf = []
+    for j, (pt, dirty) in enumerate(zip(pts2, flags)):
+        if dirty:
+            fresh, o = _refresh_units(pt, plans, prog.cover, caps, ucaps)
+            for name, uc in fresh.items():
+                _put(carry[name], len(pts2), j, uc)
+            del fresh
+        else:
+            o = je._zero(pt.vertices)
+        rovf.append(o)
+    return rovf
+
+
+def _carry_by_key(carry: Dict[str, UnitCarry], names: Dict[Tuple, str]):
+    return {k: carry[n] for k, n in names.items()}
+
+
+def make_patch_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+                    caps: EngineCaps, unit_caps: Optional[StoreCaps] = None):
+    """Step: (Φ(d'), E_a) → (patch, diag), the Nav-join patch chains over
+    the partitions of :func:`make_storage_update_step`. ``diag``:
+    ``overflow``, ``patch_groups``.
+
+    With ``unit_caps`` the step threads the unit-table carry: ``(Φ(d'),
+    carry, dirty, E_a) → (patch, carry', diag)``, where ``dirty`` is the
+    storage step's ``part_dirty``; only dirty partitions list their units
+    again, into the carry in place (the returned carry is the same
+    object). ``diag`` gains ``unit_refreshes``, and ``overflow`` includes
+    the refresh's.
+    """
+    pattern = prog.nodes[prog.root].pattern
+    chains = _chain_plans(units, pattern, prog.cover, prog.ord)
+
+    if unit_caps is None:
+        def step(pt2_st: PaddedPartition, add: torch.Tensor):
+            pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+            patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps)
+            diag = {"overflow": mesh.psum(povf),
+                    "patch_groups": mesh.psum([_isum(p.valid) for p in patches])}
+            return _stack(patches), diag
+
+        return step
+
+    plans, names = unit_plan_registry(prog, units)
+
+    def step_carry(pt2_st: PaddedPartition, carry: Dict[str, UnitCarry],
+                   dirty: torch.Tensor, add: torch.Tensor):
+        pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+        rovf = _refresh_dirty(pts2, carry, _dirty_flags(dirty), prog, plans, caps, unit_caps)
+        patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps,
+                                    unit_tables=_carry_by_key(carry, names))
+        diag = {"overflow": mesh.psum([a + b for a, b in zip(povf, rovf)]),
+                "patch_groups": mesh.psum([_isum(p.valid) for p in patches]),
+                "unit_refreshes": _isum(dirty)}
+        return _stack(patches), carry, diag
+
+    return step_carry
+
+
+def make_update_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+                     caps: EngineCaps, ushapes: UpdateShapes, mode: str = "delta"):
+    """Step: (partitions, E_a, E_d) → (partitions', patch, diag): the
+    storage update (``mode`` as in :func:`make_storage_update_step`) and
+    the patch of :func:`make_patch_step` for one pattern. ``diag``:
+    ``overflow``, ``patch_groups``, ``stored_edges`` and, for
+    ``mode="delta"``, the candidate counters."""
+    pattern = prog.nodes[prog.root].pattern
+    chains = _chain_plans(units, pattern, prog.cover, prog.ord)
+    if mode not in ("delta", "full"):
+        raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
+
+    def step(pt_st: PaddedPartition, add: torch.Tensor, dele: torch.Tensor):
+        pts = [_part(pt_st, j) for j in mesh.indices()]
+        pts2, ovf, counters = _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode)
+        del pts
+        patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps)
+        diag = {
+            "overflow": mesh.psum([a + b for a, b in zip(ovf, povf)]),
+            "patch_groups": mesh.psum([_isum(p.valid) for p in patches]),
+            "stored_edges": mesh.psum([_isum(p.edge_hi >= 0) for p in pts2]),
+            **counters,
+        }
+        return _stack(pts2), _stack(patches), diag
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -594,8 +890,42 @@ def _maintain_local(st: CompTensors, patch: CompTensors, d_tbl: torch.Tensor,
     return merged, removed, movf, cnt
 
 
+def _maintain_shards(st_st: MatchStore, patches: List[CompTensors], d_tbl: torch.Tensor,
+                     prog: TreeProgram, store: StoreCaps, skel_pairs, comp_pairs, skel_cols,
+                     caps: EngineCaps, mesh: LocalMesh):
+    """Filter ∘ merge ∘ count on every shard, each shard of the store
+    overwritten in place by its result. Returns the per-partition counts,
+    removed groups, store groups and merge overflows."""
+    cnts, removed, ngroups, movfs = [], [], [], []
+    for me in mesh.indices():
+        merged, rem, movf, cnt = _maintain_local(
+            _comp(_part(st_st, me)), patches[me], d_tbl, prog, store,
+            skel_pairs, comp_pairs, skel_cols, caps)
+        ngroups.append(_isum(merged.valid))
+        _put(st_st, mesh.size, me, MatchStore(skeleton=merged.skeleton,
+                                              valid=merged.valid, sets=merged.sets))
+        del merged
+        cnts.append(cnt)
+        removed.append(rem)
+        movfs.append(movf)
+    return cnts, removed, ngroups, movfs
+
+
+def _maintain_diag(mesh: LocalMesh, patches, povf, rovf, shards) -> Dict[str, torch.Tensor]:
+    cnts, removed, ngroups, movfs = shards
+    return {
+        "count": mesh.psum(cnts),
+        "patch_groups": mesh.psum([_isum(p.valid) for p in patches]),
+        "removed_groups": mesh.psum(removed),
+        "store_groups": mesh.psum(ngroups),
+        "overflow": mesh.psum([a + b + c for a, b, c in zip(povf, movfs, rovf)]),
+        "store_overflow": mesh.psum(movfs),
+    }
+
+
 def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
-                       caps: EngineCaps, store: StoreCaps):
+                       caps: EngineCaps, store: StoreCaps,
+                       unit_caps: Optional[StoreCaps] = None):
     """Step: (Φ(d'), store, E_a, E_d) → (store', patch, diag).
 
     Patch ∘ filter ∘ merge ∘ count, the device twin of
@@ -603,41 +933,123 @@ def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMe
     ``count``, ``patch_groups``, ``removed_groups``, ``store_groups``,
     ``overflow``, ``store_overflow``.
 
-    The step consumes its input store: each shard is overwritten in place
-    by its result (the store holds ``m·group_cap·set_cap`` values, so a
-    second copy would double the step's largest allocation). The returned
-    store is the same object.
+    With ``unit_caps`` the step threads the pattern's unit-table carry:
+    ``(Φ(d'), store, carry, dirty, E_a, E_d) → (store', patch, carry',
+    diag)``. Seeds and chain steps take the carried tables; only the
+    partitions flagged in ``dirty`` (the storage step's ``part_dirty``)
+    list their units again. ``diag`` gains ``unit_refreshes``, and
+    ``overflow`` includes the refresh's.
+
+    The step consumes its input store and carry: each shard is overwritten
+    in place by its result (the store holds ``m·group_cap·set_cap`` values,
+    so a second copy would double the step's largest allocation), and the
+    returned store and carry are the same objects.
     """
     pattern = prog.nodes[prog.root].pattern
     skel_cols = prog.nodes[prog.root].skel_cols
     chains = _chain_plans(units, pattern, prog.cover, prog.ord)
     skel_pairs, comp_pairs = je.deleted_edge_cols(pattern, skel_cols)
 
-    def step(pt2_st: PaddedPartition, st_st: MatchStore, add: torch.Tensor,
-             dele: torch.Tensor):
+    def maintain(pts2, st_st, unit_tables, rovf, add, dele):
+        patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps, unit_tables)
+        shards = _maintain_shards(st_st, patches, _delete_table(dele), prog, store,
+                                  skel_pairs, comp_pairs, skel_cols, caps, mesh)
+        return patches, _maintain_diag(mesh, patches, povf, rovf, shards)
+
+    if unit_caps is None:
+        def step(pt2_st: PaddedPartition, st_st: MatchStore, add: torch.Tensor,
+                 dele: torch.Tensor):
+            pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+            zero = [je._zero(add) for _ in pts2]
+            patches, diag = maintain(pts2, st_st, None, zero, add, dele)
+            return st_st, _stack(patches), diag
+
+        return step
+
+    plans, names = unit_plan_registry(prog, units)
+
+    def step_carry(pt2_st: PaddedPartition, st_st: MatchStore, carry: Dict[str, UnitCarry],
+                   dirty: torch.Tensor, add: torch.Tensor, dele: torch.Tensor):
         pts2 = [_part(pt2_st, j) for j in mesh.indices()]
-        patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps)
+        rovf = _refresh_dirty(pts2, carry, _dirty_flags(dirty), prog, plans, caps, unit_caps)
+        patches, diag = maintain(pts2, st_st, _carry_by_key(carry, names), rovf, add, dele)
+        diag["unit_refreshes"] = _isum(dirty)
+        return st_st, _stack(patches), carry, diag
+
+    return step_carry
+
+
+@dataclasses.dataclass(frozen=True)
+class MaintainSpec:
+    """One pattern's slot in :func:`make_maintain_mega_step` (twin of
+    ``sharded.MaintainSpec``): ``name`` keys its entries in the step's
+    dicts, ``prog`` / ``units`` are its compiled program, ``store`` its
+    :class:`MatchStore` caps and ``unit_caps`` its carry's caps. A slot
+    with ``wcoj`` set runs the generic-join executor, which the port does
+    not have yet: the megastep raises for it."""
+
+    name: str
+    prog: TreeProgram
+    units: Tuple[R1Unit, ...]
+    store: StoreCaps
+    unit_caps: StoreCaps
+    wcoj: Optional[object] = None
+    wcoj_level_caps: Optional[Tuple[int, ...]] = None
+
+
+def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
+                            caps: EngineCaps):
+    """One step maintaining every registered pattern.
+
+    Signature: ``(Φ(d'), {name: store}, {name: carry}, dirty, E_a, E_d) →
+    ({name: store'}, {name: patch}, {name: carry'}, {name: diag})``.
+    Each pattern's outputs equal those of its carried
+    :func:`make_maintain_step` run alone; one call builds the Lemma 6.1
+    delete table once and reads ``dirty`` (the storage step's
+    ``part_dirty``) from the card once for all patterns. Per pattern it
+    refreshes the carry on the dirty partitions, patches from the carry,
+    filters, merges and counts; ``diag`` has the keys of the carried
+    single-pattern step: ``count``, ``patch_groups``, ``removed_groups``,
+    ``store_groups``, ``overflow``, ``store_overflow``, ``unit_refreshes``.
+
+    The JAX step donates the stores and carries, and its callers treat
+    them as consumed. Here they are overwritten in place and the returned
+    dicts hold the same objects; a retry after a failed batch rebuilds
+    them from the partitions. The host read of ``dirty`` is the step's one
+    synchronisation; capturing the step as a CUDA graph would move the
+    branch onto the device.
+    """
+    pre = []
+    for sp in specs:
+        if sp.wcoj is not None:
+            raise NotImplementedError(
+                f"pattern {sp.name!r}: the WCOJ slot of the megastep is not ported yet "
+                "(ROADMAP Queue 1 item 4)")
+        root = sp.prog.nodes[sp.prog.root]
+        chains = _chain_plans(sp.units, root.pattern, sp.prog.cover, sp.prog.ord)
+        skel_pairs, comp_pairs = je.deleted_edge_cols(root.pattern, root.skel_cols)
+        plans, names = unit_plan_registry(sp.prog, sp.units)
+        pre.append((sp, root.skel_cols, chains, skel_pairs, comp_pairs, plans, names))
+
+    def step(pt2_st: PaddedPartition, stores: Dict[str, MatchStore],
+             carries: Dict[str, Dict[str, UnitCarry]], dirty: torch.Tensor,
+             add: torch.Tensor, dele: torch.Tensor):
+        pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+        flags = _dirty_flags(dirty)
         d_tbl = _delete_table(dele)
-        cnts, removed, ngroups, movfs = [], [], [], []
-        for me in mesh.indices():
-            merged, rem, movf, cnt = _maintain_local(
-                _comp(_part(st_st, me)), patches[me], d_tbl, prog, store,
-                skel_pairs, comp_pairs, skel_cols, caps)
-            ngroups.append(_isum(merged.valid))
-            _put(st_st, mesh.size, me, MatchStore(skeleton=merged.skeleton,
-                                                  valid=merged.valid, sets=merged.sets))
-            del merged
-            cnts.append(cnt)
-            removed.append(rem)
-            movfs.append(movf)
-        diag = {
-            "count": mesh.psum(cnts),
-            "patch_groups": mesh.psum([_isum(p.valid) for p in patches]),
-            "removed_groups": mesh.psum(removed),
-            "store_groups": mesh.psum(ngroups),
-            "overflow": mesh.psum([a + b for a, b in zip(povf, movfs)]),
-            "store_overflow": mesh.psum(movfs),
-        }
-        return st_st, _stack(patches), diag
+        refreshes = _isum(dirty)
+        patches, diag = {}, {}
+        for sp, skel_cols, chains, skel_pairs, comp_pairs, plans, names in pre:
+            carry = carries[sp.name]
+            rovf = _refresh_dirty(pts2, carry, flags, sp.prog, plans, caps, sp.unit_caps)
+            pat, povf = _patch_body(pts2, add, sp.prog, chains, mesh, caps,
+                                    unit_tables=_carry_by_key(carry, names))
+            shards = _maintain_shards(stores[sp.name], pat, d_tbl, sp.prog, sp.store,
+                                      skel_pairs, comp_pairs, skel_cols, caps, mesh)
+            diag[sp.name] = {**_maintain_diag(mesh, pat, povf, rovf, shards),
+                             "unit_refreshes": refreshes}
+            patches[sp.name] = _stack(pat)
+            del pat
+        return stores, patches, carries, diag
 
     return step
