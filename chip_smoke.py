@@ -49,7 +49,36 @@ Prints one JSON object per line, in phases:
    (count and store equal to the maintained ones).
 7. ``reference`` — the example graph of examples/distributed_listing.py,
    whose host-engine counts are known, checked on the card.
-8. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
+8. The generic-join (WCOJ) executor. ``wcoj_plan`` / ``wcoj``:
+   q6_clique5 and q4_clique4 on WT~ at m = 8 (``run.WT_CLIQUE``,
+   ``executor="auto"``, which picks the generic join for both, with level
+   caps calibrated on the host partitions), stage 1 and three 64 + 64
+   batches with the kernels, each stage's counts ``WT_K5_COUNTS`` /
+   ``WT_K4_COUNTS``, overflow 0, ``unit_refreshes`` 0, seconds and peak;
+   ``member_probe`` and ``set_intersect`` launches on this path.
+   ``wcoj_profile``: the next batch (seed 103) under ``torch.profiler``.
+   ``wcoj_audit``: both patterns listed from scratch on the final
+   partitions, count and store equal to the maintained ones.
+   ``wcoj_plain``: the same stages and the profiled batch with
+   ``use_kernels=False``, stores equal at every stage; its last batch hands
+   the widest level probe (16,384 x 512 queries against one partition's
+   edge table) to ``kernel_check`` (``member_probe`` case ``wcoj_level``).
+   ``multi_auto``: ``run.WT_MULTI_AUTO``, q1_square on its join tree and
+   q2_triangle on the generic join in one megastep, stage 1 and three
+   batches: the q1_square store equal to the single run's, the q2_triangle
+   counts equal to ``WT_Q2_COUNTS`` and to the tree executor's in
+   ``multi``. ``wcoj_vs_tree``: K5 and K4 on the planted near-clique graph
+   (m = 1) listed from scratch under each executor, both lossless (the
+   tree's match_cap grown 4x from 8,192 and its store groups 2x until
+   nothing drops), counts ``PLANTED_COUNTS``, steady-state seconds (median
+   of 3 after a warm-up) and their ratio, not gated. Each executor's
+   first list + init is a counted run (launches set to 0 just before it
+   and read just after: ``planted_k5_wcoj`` ... ``planted_k4_tree`` in
+   ``launches_by_path``; ``member_probe`` must launch), and its widest
+   edge-table probe goes to ``kernel_check`` (``member_probe`` cases
+   ``planted_wcoj`` and ``planted_tree``, 32,768 x 72 queries against the
+   24,768-row table).
+9. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
    plain version on their float64 accumulators, each case through its
    segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
    2,449,029 nodes with 1 % set to n and 0.5 % to -1), the same rows with
@@ -60,7 +89,7 @@ Prints one JSON object per line, in phases:
    plan build's, the plain version's and ``index_add_``'s median ms beside
    the byte bound (data and ids once, the touched float32 rows once);
    under 1 ms also over 20 calls in a row, the card's time alone.
-9. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
+10. ``gnn_plan`` / ``gnn_forward`` — GNN full-graph inference: gatedgcn at
    its full config (16 layers, d_hidden 70, bf16, d_in 100) on the
    ``ogb_products`` shape (2,449,029 nodes, 123,718,280 directed edges,
    ``build_graph_data`` seed 0), once with the kernels (every segment sum
@@ -71,11 +100,11 @@ Prints one JSON object per line, in phases:
    kernel forward under ``torch.profiler``. ``gnn_equal``: max |kernel -
    plain| <= 3e-2 * max |plain|, the share of equal outputs, and the
    largest difference between the two kernel forwards (0: no atomics).
-10. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
+11. ``gnn_small`` — graphsage-reddit (float32, limit 1e-4 * max |plain|)
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
    kernel against plain, after one warm-up forward.
-11. ``kernel_check`` (``flash_attention``) — the three attention kernels
+12. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
    at offset 4,096 on the tensor-core kernel; decode at offsets 8,192 and
@@ -90,7 +119,7 @@ Prints one JSON object per line, in phases:
    median ms beside the bound (and, under 1 ms, the kernel's and SDPA's
    time over 20 calls in a row). ``flash_kernels``: each kernel's
    registers, shared and spill bytes, and the decode grid.
-12. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
+13. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
    (32 layers, d_model 3,072, 24/8 heads of 128, d_ff 8,192, vocab
    200,064, bf16, random weights from seed 0) through
    ``repro_torch.launch.serve.serve``: 4 prompts of 8,192 tokens, prefill
@@ -107,7 +136,7 @@ Prints one JSON object per line, in phases:
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
-13. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
+14. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
    its plain version on a ``[26,000,000, 64]`` float32 table (the 26
    stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
    ``serve_p99`` (13,312) must be equal; ``multi_hot`` (batch 4,096 with
@@ -122,7 +151,7 @@ Prints one JSON object per line, in phases:
    and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
    serve_bulk's lookups folded into the table's first GiB (a TLB limit
    would show as a gap), with the library call beside it too.
-14. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
+15. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
    ``repro_torch.launch.serve.serve_recsys``: 8 ``serve_p99`` requests
@@ -149,6 +178,7 @@ under ``build/``) are compared in turns on one card in one call.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -174,6 +204,21 @@ WT_COUNTS = (WT_INITIAL_COUNT, 385_521, 373_667, 365_873, 347_791)
 # Small batches after the main ones: 1 deletion + 1 insertion each.
 N_SMALL, SMALL_SEED = 3, 500
 EXAMPLE_COUNTS = {"q1_square": (1282, 1238, 1128, 1086), "q2_triangle": (188, 182, 172, 168)}
+# WT~ counts of the generic-join configurations after stage 1, each of the
+# N_BATCHES batches and the profiled batch (64 + 64 edges, seeds 100-103):
+# the JAX package's host generic join (repro.core.match_engine
+# list_matches_wcoj over the whole graph after each batch) and its host
+# DDSL (repro.core.DDSL, m = 8, initial() then apply() per batch) both give
+# these on the CPU. WT_Q2_COUNTS is q2_triangle's, which the tree executor
+# (WT_MULTI) and the generic join (WT_MULTI_AUTO) must both give.
+WT_K5_COUNTS = (13_098, 12_437, 11_386, 11_191, 8_918)
+WT_K4_COUNTS = (15_320, 14_817, 14_074, 13_790, 12_341)
+WT_Q2_COUNTS = (12_691, 12_474, 12_191, 11_983, 11_544)
+# K5 / K4 on the planted near-clique graph (benchmarks/bench_wcoj.py), from
+# the host generic join; the tree executor's match_cap starts at 8,192 and
+# grows 4x until its listing is lossless, as bench_wcoj.py's does.
+PLANTED_COUNTS = {"q6_clique5": 14_785, "q4_clique4": 7_358}
+TREE_MATCH_CAP0 = 8192
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the float32 rate outside the
 # tensor cores as the peak for 32-bit integer compares and float32 adds and
@@ -641,16 +686,18 @@ def storage_full_phase(pipe) -> None:
     torch.cuda.empty_cache()
 
 
-def multi_phase(single_snaps) -> None:
+def multi_phase(single_snaps):
     """q1_square and q2_triangle in one megastep on WT~ (stage 1 and
     N_BATCHES batches with the kernels): the q1_square counts and store
-    snapshots must equal the single-pattern run's at every stage; then
-    each pattern is listed from scratch on the final partitions and must
-    equal its maintained count and store."""
+    snapshots must equal the single-pattern run's at every stage, the
+    q2_triangle counts ``WT_Q2_COUNTS``; then each pattern is listed from
+    scratch on the final partitions and must equal its maintained count
+    and store. Returns the q2_triangle count of each stage."""
     from repro_torch.run import WT_MULTI, Pipeline, stages
 
     pipe, setup_s, _ = timed_stage(lambda: Pipeline(WT_MULTI, "cuda"))
     emit({"phase": "plan", "run": "multi", "setup_seconds": setup_s, **pipe.describe()})
+    q2_counts = []
     for i, d in enumerate(stages(pipe, N_BATCHES)):
         emit({**d, "stage": d["phase"], "phase": "multi"})
         check(d["overflow"] == 0, f"multi: overflow in {d}")
@@ -658,6 +705,9 @@ def multi_phase(single_snaps) -> None:
         check(q1["count"] == WT_COUNTS[i], f"multi: q1_square count {q1['count']} at stage {i}")
         check(snapshots_equal(store_snapshot(pipe.stores["q1_square"]), single_snaps[i]),
               f"multi: q1_square store differs from the single-pattern run at stage {i}")
+        q2_counts.append(d["patterns"]["q2_triangle"]["count"])
+        check(q2_counts[-1] == WT_Q2_COUNTS[i],
+              f"multi: q2_triangle count {q2_counts[-1]} at stage {i} != {WT_Q2_COUNTS[i]}")
     final = {name: (pd["count"], store_snapshot(pipe.stores[name]))
              for name, pd in d["patterns"].items()}
     pipe.stores = pipe.carries = None
@@ -675,6 +725,371 @@ def multi_phase(single_snaps) -> None:
         torch.cuda.empty_cache()
     del pipe
     torch.cuda.empty_cache()
+    return q2_counts
+
+
+# ---------------------------------------------------------------------------
+# The generic-join (WCOJ) executor
+# ---------------------------------------------------------------------------
+
+WCOJ_COUNTS = {"q6_clique5": WT_K5_COUNTS, "q4_clique4": WT_K4_COUNTS}
+
+
+def snapshots(pipe):
+    return {name: store_snapshot(st) for name, st in pipe.stores.items()}
+
+
+def as_ints(d):
+    return {k: as_ints(v) if isinstance(v, dict) else int(v) for k, v in d.items()}
+
+
+def drive_wcoj(config, use_kernels: bool, label: str):
+    """Stage 1 + N_BATCHES batches of ``config`` (WT~, q6_clique5 and
+    q4_clique4 by the generic join) through ``repro_torch.run.stages``:
+    every stage's counts ``WCOJ_COUNTS``, overflow 0 and ``unit_refreshes``
+    0. Returns (records, per-pattern store snapshots, pipeline)."""
+    from repro_torch.run import Pipeline, stages
+
+    pipe, setup_s, _ = timed_stage(lambda: Pipeline(config, "cuda", use_kernels=use_kernels))
+    emit({"phase": "wcoj_plan", "run": label, "setup_seconds": setup_s, **pipe.describe()})
+    for name, pp in pipe.plans.items():
+        check(pp.executor == "wcoj", f"wcoj_plan: {name} is not on the generic join")
+    recs, snaps = [], []
+    for i, d in enumerate(stages(pipe, N_BATCHES)):
+        d.update(stage=d["phase"], phase="wcoj", run=label)
+        emit(d)
+        check(d["overflow"] == 0, f"wcoj {label}: overflow in {d}")
+        for name, want in WCOJ_COUNTS.items():
+            pd = d["patterns"][name]
+            check(pd["count"] == want[i], f"wcoj {label}: {name} count {pd['count']} at "
+                  f"stage {i} != {want[i]}")
+            check(i == 0 or pd["unit_refreshes"] == 0, f"wcoj {label}: {name} refreshed")
+        recs.append(d)
+        snaps.append(snapshots(pipe))
+    return recs, snaps, pipe
+
+
+def wcoj_profile(pipe):
+    """The next batch (seed 103) under ``torch.profiler``: device time by
+    kernel, ``member_probe``'s seconds and launches, the idle share; counts
+    the last of ``WCOJ_COUNTS``."""
+    upd = pipe.next_update()
+    d, prof = profiled(lambda: as_ints(pipe.apply(upd)), DDSL_KERNELS)
+    emit({"phase": "wcoj_profile", "update_seed": pipe.config.update_seed + pipe.batches - 1,
+          **d, **prof})
+    check(d["overflow"] == 0, f"wcoj_profile: overflow in {d}")
+    for name, want in WCOJ_COUNTS.items():
+        check(d["patterns"][name]["count"] == want[-1],
+              f"wcoj_profile: {name} count {d['patterns'][name]['count']} != {want[-1]}")
+    return d
+
+
+@contextlib.contextmanager
+def probe_spy(e_cap: int):
+    """Wraps ``ops.member_probe`` while the block runs; the dict it yields
+    gets a copy of the inputs of the widest call against a partition's edge
+    table (``e_cap`` rows): the largest level of the generic join, the
+    ``[level_caps[i-1] x deg_cap]`` queries, or a join tree's largest edge
+    check. (The storage update's probes go against its drop table, the
+    delete filter's against the delete table.) The calls go on to the
+    kernel and count as the path's launches."""
+    from repro_torch.kernels import ops
+
+    inner, widest = ops.member_probe, {}
+
+    def spy(q_hi, q_lo, t_hi, t_lo, *, use_kernels):
+        if t_hi.shape[0] == e_cap and q_hi.numel() > widest.get("n", -1):
+            widest.update(n=q_hi.numel(), args=tuple(t.clone() for t in (q_hi, q_lo, t_hi, t_lo)))
+        return inner(q_hi, q_lo, t_hi, t_lo, use_kernels=use_kernels)
+
+    ops.member_probe = spy
+    try:
+        yield widest
+    finally:
+        ops.member_probe = inner
+
+
+def widest_probe(pipe):
+    """The next batch under :func:`probe_spy`: its diag and the inputs of
+    its widest level probe."""
+    upd = pipe.next_update()
+    with probe_spy(pipe.caps.e_cap) as widest:
+        d = pipe.apply(upd)
+    return d, widest["args"]
+
+
+def level_probe_case(case: str, args, **launches):
+    """``member_probe`` on the inputs of a call the main path made (a
+    level or edge-check probe against one partition's edge table): against
+    its plain version, timed one call at a time and 20 in a row, beside
+    ``torch.isin`` on packed keys and the byte bound; ``launches`` are the
+    kernel's launches on the paths that make such calls."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.member_probe import member_probe_cuda, probe_stride
+
+    q_hi, q_lo, t_hi, t_lo = args
+    n, m_rows = q_hi.shape[0], t_hi.shape[0]
+    got = member_probe_cuda(*args)
+    want = ref.member_probe_ref(*args)
+    torch.cuda.synchronize()
+    err = int((got != want).sum())
+    check(err == 0, f"member_probe {case}: {err} mismatches")
+    check(torch.equal(got, member_probe_cuda(*args)), f"member_probe {case}: not repeatable")
+    lib = probe_library(*args)
+    rec = {"case": case, "n": n, "m": m_rows, "stride": probe_stride(m_rows, n),
+           "offset": 0, "equal": True, "max_abs_err": max_abs_err(got, want),
+           "live_queries": int(((q_hi != -1) | (q_lo != -1)).sum()),
+           "table_rows": int(((t_hi != -1) | (t_lo != -1)).sum()), "hits": int(want.sum()),
+           "ms": cuda_ms(lambda: member_probe_cuda(*args)),
+           "ms_back_to_back": cuda_ms(lambda: member_probe_cuda(*args), per=20),
+           "plain_ms": cuda_ms(lambda: ref.member_probe_ref(*args), reps=3),
+           "library_equal": torch.equal(lib(), want), "library_ms": cuda_ms(lib, reps=3),
+           "library_ms_back_to_back": cuda_ms(lib, per=20), **launches}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(9.0 * n + 8.0 * m_rows,
+                                                n * math.ceil(math.log2(m_rows + 1)))
+    check(rec["library_equal"], f"member_probe {case}: the library call differs")
+    return rec
+
+
+def wcoj_phase(single_snaps, multi_q2_counts):
+    """The generic-join executor on WT~ (``wcoj_plan``, ``wcoj``,
+    ``wcoj_profile``, ``wcoj_audit``, ``wcoj_plain``, ``multi_auto``).
+    Returns the DDSL kernels' launches on the WCOJ path and on the mixed
+    path, and the ``wcoj_level`` kernel case."""
+    from repro_torch.kernels import ops
+    from repro_torch.run import WT_CLIQUE
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    recs_k, snaps_k, pipe = drive_wcoj(WT_CLIQUE, True, "kernels")
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    for k in DDSL_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the WCOJ path")
+    final = wcoj_profile(pipe)
+    final_snaps = snapshots(pipe)
+    emit({"phase": "wcoj", "run": "kernels", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+
+    # audit: list both patterns from scratch on the final partitions
+    t0 = time.perf_counter()
+    pipe.stores = pipe.carries = None
+    torch.cuda.empty_cache()
+    for name in WCOJ_COUNTS:
+        (astore, adiag), seconds, peak = timed_stage(lambda: pipe.list_pattern(name))
+        audit = {k: int(v) for k, v in adiag.items()}
+        maintained = final["patterns"][name]["count"]
+        emit({"phase": "wcoj_audit", "pattern": name, **audit, "maintained": maintained,
+              "seconds": seconds, "peak_gib": peak})
+        check(audit["overflow"] == 0 and audit["count"] == maintained,
+              f"wcoj_audit {name}: count differs from the maintained count")
+        check(snapshots_equal(store_snapshot(astore), final_snaps[name]),
+              f"wcoj_audit {name}: store differs from the maintained store")
+        del astore
+    del pipe
+    torch.cuda.empty_cache()
+    emit({"phase": "wcoj_audit", "seconds": time.perf_counter() - t0})
+
+    # the plain path on the card: the same counts and store tensors at every
+    # stage; its profiled batch also hands over the widest level probe
+    t0 = time.perf_counter()
+    recs_p, snaps_p, pipe = drive_wcoj(WT_CLIQUE, False, "plain")
+    for i, (a, b) in enumerate(zip(snaps_k, snaps_p)):
+        for name in WCOJ_COUNTS:
+            check(snapshots_equal(a[name], b[name]), f"wcoj_plain: {name} store differs at "
+                  f"stage {i}")
+    d, probe_args = widest_probe(pipe)
+    for name in WCOJ_COUNTS:
+        check(int(d["patterns"][name]["count"]) == final["patterns"][name]["count"],
+              f"wcoj_plain: {name} profiled-batch count differs")
+        check(snapshots_equal(store_snapshot(pipe.stores[name]), final_snaps[name]),
+              f"wcoj_plain: {name} profiled-batch store differs")
+    del pipe
+    torch.cuda.empty_cache()
+    emit({"phase": "wcoj_plain", "equal": True, "steps": len(recs_p) + 1,
+          "seconds": time.perf_counter() - t0})
+    case = level_probe_case("wcoj_level", probe_args, launches_wcoj=launches["member_probe"])
+    del probe_args
+    emit({"phase": "kernel_check", "member_probe": [case]})
+    torch.cuda.empty_cache()
+    return launches, multi_auto_phase(single_snaps, multi_q2_counts), case
+
+
+def multi_auto_phase(single_snaps, multi_q2_counts):
+    """``WT_MULTI_AUTO``: q1_square on its join tree and q2_triangle on the
+    generic join in one megastep, stage 1 and N_BATCHES batches with the
+    kernels. At every stage the q1_square store must equal the
+    single-pattern run's, and the q2_triangle counts ``WT_Q2_COUNTS`` and
+    the tree executor's counts in the ``multi`` phase. Returns the DDSL
+    kernels' launches on this path."""
+    from repro_torch.kernels import ops
+    from repro_torch.run import WT_MULTI_AUTO, Pipeline, stages
+
+    t_phase = time.perf_counter()
+    pipe, setup_s, _ = timed_stage(lambda: Pipeline(WT_MULTI_AUTO, "cuda"))
+    emit({"phase": "plan", "run": "multi_auto", "setup_seconds": setup_s, **pipe.describe()})
+    check(pipe.plans["q1_square"].executor == "tree"
+          and pipe.plans["q2_triangle"].executor == "wcoj",
+          "multi_auto: expected q1_square on the tree and q2_triangle on the generic join")
+    ops.reset_launch_counts()
+    for i, d in enumerate(stages(pipe, N_BATCHES)):
+        emit({**d, "stage": d["phase"], "phase": "multi_auto"})
+        check(d["overflow"] == 0, f"multi_auto: overflow in {d}")
+        q1, q2 = d["patterns"]["q1_square"], d["patterns"]["q2_triangle"]
+        check(q1["count"] == WT_COUNTS[i], f"multi_auto: q1_square count {q1['count']}")
+        check(snapshots_equal(store_snapshot(pipe.stores["q1_square"]), single_snaps[i]),
+              f"multi_auto: q1_square store differs from the single-pattern run at stage {i}")
+        check(q2["count"] == WT_Q2_COUNTS[i] == multi_q2_counts[i],
+              f"multi_auto: q2_triangle count {q2['count']} at stage {i}: tree "
+              f"{multi_q2_counts[i]}, host {WT_Q2_COUNTS[i]}")
+        check(i == 0 or q2["unit_refreshes"] == 0, "multi_auto: the WCOJ slot refreshed")
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    for k in DDSL_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the mixed path")
+    emit({"phase": "multi_auto", "launches": launches, "q2_tree_counts": multi_q2_counts,
+          "seconds": time.perf_counter() - t_phase})
+    pipe.stores = pipe.carries = None
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def steady(fn, reps: int = 3):
+    """``fn()`` once to warm up, then ``reps`` timed runs (host clock
+    ending in a synchronize): (last result, median seconds, all seconds,
+    peak GiB)."""
+    fn()
+    times, peak, result = [], 0.0, None
+    for _ in range(reps):
+        result, seconds, pk = timed_stage(fn)
+        times.append(seconds)
+        peak = max(peak, pk)
+    return result, statistics.median(times), times, peak
+
+
+def device_split(fn):
+    """One more ``fn()`` under the profiler: its device seconds, kernel
+    count and the idle share of its device span."""
+    _, prof = profiled(fn)
+    return {"device_s": prof["device_s"], "kernels": prof["device_events"],
+            "span_idle_share": prof["span_idle_share"]}
+
+
+def counted_run(fn, e_cap: int, path: str):
+    """One run of ``fn()`` with the launch counts set to 0 just before it
+    and read just after, under :func:`probe_spy`: (result, the DDSL
+    kernels' launches in the run, the inputs of its widest edge-table
+    probe). ``member_probe`` must have launched."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    with probe_spy(e_cap) as widest:
+        result = fn()
+    torch.cuda.synchronize()
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    check(launches["member_probe"] > 0, f"member_probe never launched on {path}")
+    return result, launches, widest["args"]
+
+
+def wcoj_vs_tree_phase():
+    """K5 and K4 on the planted near-clique graph at m = 1, listed from
+    scratch (list + init store, ``Pipeline.list_pattern``) under each
+    executor, both lossless: the generic join with its calibrated caps; the
+    join tree with match_cap from TREE_MATCH_CAP0 up 4x until its listing
+    drops nothing, and its store groups doubled until its store does (the
+    steps are rebuilt at each cap, as bench_wcoj.py's protocol does, and
+    the lossless pair is put into the pipeline's plan). Both must give
+    ``PLANTED_COUNTS``. Each executor's first run after planning is the
+    counted run (launches set to 0 just before it, read just after, its
+    widest level or edge-check probe kept); then the steady-state seconds
+    (median of 3 after a warm-up) and their ratio are reported, not gated,
+    with one more run of each under the profiler (device seconds, kernels,
+    idle share). These listings make no ``set_intersect`` call (the
+    generic join intersects by edge probes; the planted trees at m = 1
+    check edges by probes and join no compressed sets), so only
+    ``member_probe`` must launch; both counts are reported. Returns the
+    launches by path and the ``member_probe`` cases at the widest probe of
+    each executor."""
+    import dataclasses
+
+    from repro_torch import sharded
+    from repro_torch.planner.sizing import StoreCaps, quantize_store_caps
+    from repro_torch.run import PLANTED_K4, PLANTED_K5, Pipeline
+
+    by_path, widest = {}, {}
+    for cfg in (PLANTED_K5, PLANTED_K4):
+        t_phase = time.perf_counter()
+        name, want = cfg.pattern, PLANTED_COUNTS[cfg.pattern]
+        path = f"planted_k{name[-1]}"
+        pipe = Pipeline(cfg, "cuda")
+        p = pipe.plans[name]
+        check(p.executor == "wcoj", f"wcoj_vs_tree: {name} is not on the generic join")
+        (_, wd0), launches, args = counted_run(lambda: pipe.list_pattern(name),
+                                               pipe.caps.e_cap, f"{path}_wcoj")
+        by_path[f"{path}_wcoj"] = launches
+        if args[0].numel() > widest.get("wcoj", args)[0].numel() or "wcoj" not in widest:
+            widest["wcoj"] = args
+        (wst, wd), w_s, w_runs, w_peak = steady(lambda: pipe.list_pattern(name))
+        wcoj = {"s": w_s, "runs": w_runs, "peak_gib": w_peak, "count": int(wd["count"]),
+                "overflow": int(wd["overflow"]), "first_count": int(wd0["count"]),
+                "level_caps": list(p.level_caps), "store_caps": dataclasses.asdict(p.store_caps),
+                "launches": launches, "widest_probe": int(args[0].numel()),
+                **device_split(lambda: pipe.list_pattern(name))}
+        del pipe, wst, args
+        torch.cuda.empty_cache()
+
+        pipe = Pipeline(dataclasses.replace(cfg, executor="tree"), "cuda")
+        p = pipe.plans[name]
+        mc, store_g, tries = TREE_MATCH_CAP0, p.store_caps.group_cap, []
+        while True:
+            check(mc <= 1 << 22, f"wcoj_vs_tree: {name} tree caps past 4M rows")
+            caps = dataclasses.replace(pipe.caps, match_cap=mc,
+                                       group_cap=max(pipe.caps.group_cap, mc))
+            lstep = sharded.make_list_step(p.prog, pipe.mesh, caps)
+            out, ld = lstep(pipe.pt)
+            if int(ld["overflow"]):
+                tries.append({"match_cap": mc, "list_overflow": int(ld["overflow"])})
+                mc *= 4
+                continue
+            scaps = quantize_store_caps(StoreCaps(store_g, p.store_caps.set_cap))
+            istep = sharded.make_init_store_step(p.prog, pipe.mesh, caps, scaps)
+            _, idiag = istep(out)
+            if int(idiag["overflow"]):
+                tries.append({"match_cap": mc, "store_group_cap": scaps.group_cap,
+                              "store_overflow": int(idiag["overflow"])})
+                store_g *= 2
+                continue
+            break
+        del out
+        pipe.plans[name] = dataclasses.replace(p, list_step=lstep, init_step=istep,
+                                               store_caps=scaps)
+        torch.cuda.empty_cache()
+        (_, td0), launches, args = counted_run(lambda: pipe.list_pattern(name),
+                                               pipe.caps.e_cap, f"{path}_tree")
+        by_path[f"{path}_tree"] = launches
+        if args[0].numel() > widest.get("tree", args)[0].numel() or "tree" not in widest:
+            widest["tree"] = args
+        (tst, td), t_s, t_runs, t_peak = steady(lambda: pipe.list_pattern(name))
+        tree = {"s": t_s, "runs": t_runs, "peak_gib": t_peak, "count": int(td["count"]),
+                "overflow": int(td["overflow"]), "first_count": int(td0["count"]),
+                "match_cap": mc, "store_caps": dataclasses.asdict(scaps), "escalations": tries,
+                "launches": launches, "widest_probe": int(args[0].numel()),
+                **device_split(lambda: pipe.list_pattern(name))}
+        del pipe, tst, lstep, istep, args
+        torch.cuda.empty_cache()
+        emit({"phase": "wcoj_vs_tree", "pattern": name, "graph": "planted", "m": cfg.m,
+              "wcoj": wcoj, "tree": tree, "tree_over_wcoj": t_s / w_s,
+              "seconds": time.perf_counter() - t_phase})
+        for label, r in (("wcoj", wcoj), ("tree", tree)):
+            check(r["overflow"] == 0 and r["count"] == r["first_count"] == want,
+                  f"wcoj_vs_tree: {name} {label} count {r['count']} (overflow "
+                  f"{r['overflow']}) != {want}")
+    cases = [level_probe_case(f"planted_{label}", widest[label], **{
+        f"launches_{path}": n["member_probe"] for path, n in by_path.items()
+        if path.endswith(label)}) for label in ("wcoj", "tree")]
+    del widest
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_check", "member_probe": cases})
+    return by_path, cases
 
 
 def profiled(fn, kernels=()):
@@ -1874,7 +2289,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. two patterns in one megastep
-    multi_phase(snaps_k)
+    q2_tree_counts = multi_phase(snaps_k)
 
     # 7. small reference: host-engine counts of the example graph
     for pname, want in EXAMPLE_COUNTS.items():
@@ -1888,23 +2303,31 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
 
-    # 8. segment_sum against its plain version at the GNN path's shapes
+    # 8. the generic-join executor: K5 + K4 on WT~, its audit and plain
+    #    replay, the mixed megastep beside the tree, and the planted graph
+    wcoj_launches, auto_launches, wcoj_case = wcoj_phase(snaps_k, q2_tree_counts)
+    checks["member_probe"].append(wcoj_case)
+    del snaps_k
+    planted_launches, planted_cases = wcoj_vs_tree_phase()
+    checks["member_probe"].extend(planted_cases)
+
+    # 9. segment_sum against its plain version at the GNN path's shapes
     checks["segment_sum"] = segment_sum_phase()
     emit({"phase": "kernel_check", "segment_sum": checks["segment_sum"]})
 
-    # 9. GNN full-graph inference; launches counted over the kernel forward
+    # 10. GNN full-graph inference; launches counted over the kernel forward
     launches["segment_sum"] = gnn_phase()["segment_sum"]
 
-    # 10. the two other architectures at full width on the small graph
+    # 11. the two other architectures at full width on the small graph
     gnn_small_phase()
 
-    # 11. flash_attention against its plain version at the serving shapes
+    # 12. flash_attention against its plain version at the serving shapes
     checks["flash_attention"] = flash_attention_phase()
     emit({"phase": "kernel_check", "flash_attention": checks["flash_attention"]})
 
     emit(flash_kernels_line())
 
-    # 12. phi4-mini-3.8b serving; launches counted over the kernel serve (the
+    # 13. phi4-mini-3.8b serving; launches counted over the kernel serve (the
     #     float32 gate's for the CUDA-core kernel, which bf16 serving skips)
     lm_counts, f32_counts = lm_phase()
     launches["flash_attention"] = lm_counts["flash_attention_tc"]
@@ -1913,11 +2336,11 @@ def main() -> None:
                                         - f32_counts["flash_attention_tc"])
     checks["flash_decode"] = checks["flash_attention_simt"] = checks["flash_attention"]
 
-    # 13. embedding_bag against its plain version at the DLRM shapes
+    # 14. embedding_bag against its plain version at the DLRM shapes
     checks["embedding_bag"] = embedding_bag_phase()
     emit({"phase": "kernel_check", "embedding_bag": checks["embedding_bag"]})
 
-    # 14. dlrm-rm2 serving; launches counted over the kernel serve
+    # 15. dlrm-rm2 serving; launches counted over the kernel serve
     launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
 
     # summary lines
@@ -1943,11 +2366,19 @@ def main() -> None:
     kernels = []
     for name, (src, replaces, case) in sources.items():
         rec = next(r for r in checks[name] if r["case"] == case)
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"], "case": case})
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                 "library_ms": rec["library_ms"], "case": case}
+        if name in DDSL_KERNELS:
+            # the same kernel's launches on each DDSL path (counts set to 0
+            # just before each path and read just after)
+            entry["launches_by_path"] = {
+                "wt_q1": launches[name], "wt_clique": wcoj_launches[name],
+                "wt_multi_auto": auto_launches[name],
+                **{path: n[name] for path, n in planted_launches.items()}}
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

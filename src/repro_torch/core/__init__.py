@@ -4,7 +4,7 @@ from .estimator import GraphStats, match_size_estimate, skeleton_size_estimate
 from .graph import Graph, GraphUpdate, decode_edges, edge_codes
 from .join_tree import JoinTree, minimum_unit_decomposition, optimal_join_tree
 from .pattern import PATTERN_LIBRARY, Pattern, R1Unit, symmetry_break
-from .plan import LT, NEQ, JoinPlan, UnitPlan, build_unit_plan
+from .plan import LT, NEQ, JoinPlan, UnitPlan, WcojPlan, build_unit_plan, build_wcoj_plan
 from .storage import NPStorage, Partition, PartitionFn, build_np_storage
 
 __all__ = [
@@ -12,6 +12,6 @@ __all__ = [
     "Graph", "GraphUpdate", "decode_edges", "edge_codes",
     "JoinTree", "minimum_unit_decomposition", "optimal_join_tree",
     "PATTERN_LIBRARY", "Pattern", "R1Unit", "symmetry_break",
-    "LT", "NEQ", "JoinPlan", "UnitPlan", "build_unit_plan",
+    "LT", "NEQ", "JoinPlan", "UnitPlan", "WcojPlan", "build_unit_plan", "build_wcoj_plan",
     "NPStorage", "Partition", "PartitionFn", "build_np_storage",
 ]

@@ -1,8 +1,10 @@
 """Backend-agnostic listing/join plan IR.
 
-Host copy of ``repro/core/plan.py`` without the WCOJ plans:
-:class:`UnitPlan` (anchored frontier listing of one R1 unit) and
-:class:`JoinPlan` (one CC-join), with the value-check modes ``NEQ``/``LT``/``GT``.
+Host copy of ``repro/core/plan.py``: :class:`UnitPlan` (anchored frontier
+listing of one R1 unit), :class:`WcojPlan` (anchored generic-join listing
+of a whole pattern, with :func:`wcoj_anchors` and :func:`wcoj_eligible`)
+and :class:`JoinPlan` (one CC-join), with the value-check modes
+``NEQ``/``LT``/``GT``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ __all__ = [
     "ExtendStep",
     "UnitPlan",
     "build_unit_plan",
+    "WcojLevel",
+    "WcojPlan",
+    "build_wcoj_plan",
+    "wcoj_anchors",
+    "wcoj_eligible",
     "ValueCheck",
     "CompVertexPlan",
     "JoinPlan",
@@ -119,6 +126,104 @@ def build_unit_plan(
     return UnitPlan(
         pattern=pattern, anchor=start, order=tuple(order), steps=tuple(steps),
         edge_cols=edge_cols, anchor_min_degree=pattern.degree(start),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Worst-case-optimal (generic-join) plans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WcojLevel:
+    """One generic-join extension level: candidates for ``vertex`` are the
+    intersection of the adjacency lists of every placed neighbor. ``pivot``
+    enumerates (the seed adjacency list); ``intersect_cols`` constrain via
+    set membership."""
+
+    vertex: int
+    pivot: int                                  # prefix column whose adjacency seeds candidates
+    intersect_cols: Tuple[int, ...]             # prefix columns intersected against
+    ord_checks: Tuple[Tuple[int, bool], ...]    # (prefix col idx, candidate_must_be_greater)
+    min_degree: int                             # MC₁ degree prune threshold
+
+
+@dataclasses.dataclass(frozen=True)
+class WcojPlan:
+    """Attribute-at-a-time generic-join plan over a whole pattern.
+
+    Unlike :class:`UnitPlan` (one R1 unit of a decomposition, later CC-
+    joined), a WCOJ plan lists the full pattern in one anchored pass:
+    each level is a multiway adjacency intersection, so intermediate
+    table sizes are bounded per level (AGM-style) instead of per binary
+    join. Only R1-anchored patterns qualify (:func:`wcoj_eligible`) —
+    the anchor adjacent to every other vertex makes per-partition
+    center-anchored listing complete, exactly as for unit plans."""
+
+    pattern: Pattern
+    anchor: int
+    order: Tuple[int, ...]                      # extension order; order[0] == anchor
+    levels: Tuple[WcojLevel, ...]               # len == |V| - 1
+    edge_cols: Tuple[Tuple[int, int], ...]      # pattern edges as (col_i, col_j) pairs
+    anchor_min_degree: int
+
+    @property
+    def cols(self) -> Tuple[int, ...]:
+        """Column labels of the produced match table (== extension order)."""
+        return self.order
+
+
+def wcoj_anchors(pattern: Pattern) -> Tuple[int, ...]:
+    """Vertices adjacent to every other pattern vertex (R1 anchors of the
+    whole pattern): valid WCOJ seeds for partition-complete listing."""
+    vset = set(pattern.vertices)
+    return tuple(v for v in pattern.vertices
+                 if set(pattern.neighbors(v)) | {v} == vset)
+
+
+def wcoj_eligible(pattern: Pattern) -> bool:
+    """True iff the whole pattern admits an anchored generic-join plan."""
+    return pattern.m > 0 and bool(wcoj_anchors(pattern))
+
+
+def build_wcoj_plan(
+    pattern: Pattern,
+    anchor: int | None = None,
+    ord_: Sequence[Tuple[int, int]] = (),
+) -> WcojPlan:
+    """Compile a generic-join plan for ``pattern``.
+
+    ``anchor`` must be adjacent to all other vertices; ``None`` picks the
+    max-degree such vertex. The extension order is the same greedy
+    max-connectivity order as frontier listing, so on cliques every
+    level intersects against the whole prefix."""
+    anchors = wcoj_anchors(pattern)
+    if not anchors:
+        raise ValueError("pattern has no vertex adjacent to all others; "
+                         "not WCOJ-eligible")
+    if anchor is None:
+        anchor = max(anchors, key=pattern.degree)
+    elif anchor not in anchors:
+        raise ValueError(f"anchor {anchor} is not adjacent to all other vertices")
+    order = plan_extension_order(pattern, anchor)
+    levels = []
+    for i in range(1, len(order)):
+        v = order[i]
+        placed = order[:i]
+        nbr_cols = tuple(j for j, u in enumerate(placed) if pattern.has_edge(u, v))
+        levels.append(WcojLevel(
+            vertex=v,
+            pivot=nbr_cols[0],
+            intersect_cols=nbr_cols[1:],
+            ord_checks=_ord_pairs_for(ord_, v, placed),
+            min_degree=pattern.degree(v),
+        ))
+    col_of = {u: j for j, u in enumerate(order)}
+    edge_cols = tuple(sorted((col_of[a], col_of[b]) for a, b in pattern.edges))
+    return WcojPlan(
+        pattern=pattern, anchor=anchor, order=tuple(order),
+        levels=tuple(levels), edge_cols=edge_cols,
+        anchor_min_degree=pattern.degree(anchor),
     )
 
 

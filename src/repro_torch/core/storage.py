@@ -37,7 +37,9 @@ class PartitionFn:
 
 @dataclasses.dataclass
 class Partition:
-    """Copy of ``repro.core.storage.Partition``: one part ``d_j`` as a local CSR."""
+    """Copy of ``repro.core.storage.Partition``: one part ``d_j`` as a local CSR,
+    with the views the host listing engine reads (centers, local ids,
+    degrees, edge membership)."""
 
     pid: int
     vertices: np.ndarray      # sorted global ids appearing in this part
@@ -45,6 +47,33 @@ class Partition:
     indptr: np.ndarray        # local CSR row pointers
     indices: np.ndarray       # neighbor GLOBAL ids, sorted per row
     codes: np.ndarray         # sorted edge codes of E_j
+
+    def center_vertices(self) -> np.ndarray:
+        return self.vertices[self.center_mask]
+
+    def local_ids(self, global_ids: np.ndarray) -> np.ndarray:
+        """Map global → local ids (must be present)."""
+        return np.searchsorted(self.vertices, global_ids)
+
+    def contains(self, global_ids: np.ndarray) -> np.ndarray:
+        g = np.asarray(global_ids, dtype=np.int64)
+        if self.vertices.size == 0:
+            return np.zeros(g.shape, bool)
+        pos = np.clip(np.searchsorted(self.vertices, g), 0, self.vertices.shape[0] - 1)
+        return self.vertices[pos] == g
+
+    def degrees_of(self, global_ids: np.ndarray) -> np.ndarray:
+        lids = self.local_ids(global_ids)
+        return (self.indptr[lids + 1] - self.indptr[lids]).astype(np.int64)
+
+    def has_edges(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+        u = np.asarray(u, dtype=np.int64)
+        v = np.asarray(v, dtype=np.int64)
+        q = (np.minimum(u, v) << np.int64(32)) | np.maximum(u, v)
+        if not self.codes.size:
+            return np.zeros(q.shape, bool)
+        pos = np.clip(np.searchsorted(self.codes, q), 0, self.codes.shape[0] - 1)
+        return self.codes[pos] == q
 
     @staticmethod
     def from_codes(pid: int, codes: np.ndarray, centers: np.ndarray) -> "Partition":

@@ -1,7 +1,8 @@
-"""R-MAT graphs, batch updates and padded GNN graphs.
+"""R-MAT and planted near-clique graphs, batch updates and padded GNN graphs.
 
 Host copy (NumPy only) of ``rmat_graph``, ``sample_update`` and
-``build_graph_data`` from ``repro/data/graphs.py``. Each draws from
+``build_graph_data`` from ``repro/data/graphs.py``, and of ``planted_graph``
+from ``benchmarks/bench_wcoj.py``. Each draws from
 ``numpy.random.default_rng(seed)`` exactly as the original does, so a seed
 gives the same arrays in both packages.
 """
@@ -12,7 +13,12 @@ import numpy as np
 
 from ..core.graph import Graph, GraphUpdate
 
-__all__ = ["rmat_graph", "sample_update", "build_graph_data"]
+__all__ = ["rmat_graph", "planted_graph", "sample_update", "build_graph_data"]
+
+# The planted near-clique graph: a uniform background of PLANTED_M_BG edges
+# over PLANTED_N vertices and an Erdős–Rényi core of PLANTED_CORE_K vertices
+# with edge probability PLANTED_CORE_P, which holds the cliques.
+PLANTED_N, PLANTED_M_BG, PLANTED_CORE_K, PLANTED_CORE_P = 4096, 12000, 32, 0.8
 
 
 def rmat_graph(n_log2: int, n_edges: int, seed: int = 0,
@@ -30,6 +36,25 @@ def rmat_graph(n_log2: int, n_edges: int, seed: int = 0,
         dst |= dst_bit.astype(np.int64) << bit
     mask = src != dst
     return Graph.from_edges(np.stack([src[mask], dst[mask]], 1), n=n)
+
+
+def planted_graph(seed: int = 0) -> Graph:
+    """Copy of ``benchmarks.bench_wcoj.planted_graph``: the near-clique graph
+    on which the generic join beats join trees (K4/K5 counts in the
+    thousands, almost all in the core)."""
+    rng = np.random.default_rng(seed)
+    edges = set()
+    while len(edges) < PLANTED_M_BG:
+        a, b = int(rng.integers(PLANTED_N)), int(rng.integers(PLANTED_N))
+        if a != b:
+            edges.add((min(a, b), max(a, b)))
+    core = rng.choice(PLANTED_N, size=PLANTED_CORE_K, replace=False)
+    for i in range(PLANTED_CORE_K):
+        for j in range(i + 1, PLANTED_CORE_K):
+            if rng.random() < PLANTED_CORE_P:
+                a, b = int(core[i]), int(core[j])
+                edges.add((min(a, b), max(a, b)))
+    return Graph.from_edges(np.array(sorted(edges), np.int64), n=PLANTED_N)
 
 
 def sample_update(graph: Graph, n_delete: int, n_add: int, seed: int = 0) -> GraphUpdate:

@@ -1,7 +1,6 @@
 """Static-shape PyTorch executor of the listing/join plan IR.
 
-Port of ``repro/dist/jax_engine.py`` (everything but ``wcoj_list``): the
-device half of the plan/executor split, on padded tensors whose shapes
+Port of ``repro/dist/jax_engine.py``: the device half of the plan/executor split, on padded tensors whose shapes
 come from :class:`EngineCaps`. Invalid slots hold :data:`PAD` (= -1),
 every id is ``int32``, and every compaction returns a dropped-entry
 counter, so a zero overflow proves the padded result exact. Results are
@@ -11,6 +10,11 @@ The two membership predicates of the engine go through the hand-written
 CUDA kernels of :mod:`repro_torch.kernels` when ``caps.use_kernels`` is
 set: ``member_probe`` in :func:`edge_probe` / :func:`_has_edge`, and
 ``set_intersect`` in :func:`ccjoin_local`.
+
+Two listing executors run a plan on one partition: :func:`unit_list`
+(one R1 unit of a join tree, every step packed to ``match_cap``) and
+:func:`wcoj_list` (a whole pattern by generic join, each level packed to
+its own cap).
 """
 
 from __future__ import annotations
@@ -24,13 +28,14 @@ import torch
 
 from .core.graph import decode_edges
 from .core.pattern import Pattern
-from .core.plan import LT, NEQ, JoinPlan, UnitPlan, build_unit_plan
+from .core.plan import LT, NEQ, JoinPlan, UnitPlan, WcojPlan, build_unit_plan
 from .core.storage import Partition
 from .kernels import ops
 
 __all__ = [
     "PAD", "EngineCaps", "PaddedPartition", "CompTensors", "pad_partition",
-    "build_unit_plan", "UnitPlan", "JoinPlan", "unit_list", "require_edges_mask",
+    "build_unit_plan", "UnitPlan", "JoinPlan", "WcojPlan", "unit_list", "wcoj_list",
+    "require_edges_mask",
     "compress_plain", "group_rows", "scatter_grouped_values", "ccjoin_local",
     "dedup_rows", "lookup_sorted", "edge_probe", "center_adj_contrib",
     "apply_edge_delta_rows", "patch_partition", "deleted_edge_cols",
@@ -298,6 +303,49 @@ def unit_list(pt: PaddedPartition, plan: UnitPlan, caps: EngineCaps,
             cu = tbl[:, j][:, None]
             ok &= (cand > cu) if greater else (cand < cu)
         tbl, valid, o = _compact_expand(tbl, cand, ok, caps.match_cap)
+        ovf = ovf + o
+    if require_edges is not None:
+        valid = valid & require_edges_mask(tbl, plan.edge_cols, require_edges)
+    return tbl, valid, ovf
+
+
+def wcoj_list(pt: PaddedPartition, plan: WcojPlan, caps: EngineCaps,
+              level_caps: Sequence[int], require_edges: torch.Tensor | None = None,
+              seed_mask: torch.Tensor | None = None):
+    """Anchored generic-join listing of a whole pattern (WCOJ executor).
+
+    Each level gathers the pivot's adjacency, keeps the candidates that are
+    adjacent to every other placed neighbour (``intersect_cols``, through
+    :func:`_has_edge`) and packs the survivors, row-major over (row,
+    candidate), into that level's cap; ``level_caps[0]`` caps the anchor
+    seeds. Returns ``(table [level_caps[-1], |V|], valid, overflow)`` with
+    columns aligned to ``plan.cols``, the drops of every level summed.
+    ``require_edges`` (``[k, 2]``) keeps matches mapping ≥1 pattern edge
+    into that edge set; ``seed_mask`` (``[v_cap]`` bool) restricts the
+    anchor seeds (the delta candidates of an incremental batch).
+    """
+    k = len(plan.order)
+    level_caps = tuple(int(c) for c in level_caps)
+    if len(level_caps) != k:
+        raise ValueError(f"need {k} level caps (incl. seed), got {len(level_caps)}")
+    seed_ok = pt.center & (pt.vertices >= 0) & (pt.deg >= plan.anchor_min_degree)
+    if seed_mask is not None:
+        seed_ok = seed_ok & seed_mask
+    tbl, valid, ovf = _compact_rows(pt.vertices[:, None], seed_ok, level_caps[0])
+    for i, lv in enumerate(plan.levels, start=1):
+        rows = _row_of(pt, tbl[:, lv.pivot]).long()
+        cand = pt.adj[rows]                                   # [W_{i-1}, D]
+        ok = valid[:, None] & (cand >= 0)
+        ok &= pt.deg[_row_of(pt, cand).long()] >= lv.min_degree     # MC₁ prune
+        for j in range(tbl.shape[1]):                         # injectivity
+            ok &= cand != tbl[:, j][:, None]
+        for j in lv.intersect_cols:                           # adjacency intersection
+            ok &= _has_edge(pt, cand, tbl[:, j][:, None].expand_as(cand),
+                            caps.use_kernels)
+        for j, greater in lv.ord_checks:                      # SimB order
+            cu = tbl[:, j][:, None]
+            ok &= (cand > cu) if greater else (cand < cu)
+        tbl, valid, o = _compact_expand(tbl, cand, ok, level_caps[i])
         ovf = ovf + o
     if require_edges is not None:
         valid = valid & require_edges_mask(tbl, plan.edge_cols, require_edges)

@@ -2,20 +2,28 @@
 
 :class:`Pipeline` builds the graph, the NP storage, each pattern's plan and
 caps, puts the stacked partitions on the device, runs stage 1 for every
-pattern (:func:`~repro_torch.sharded.make_list_step` +
-:func:`~repro_torch.sharded.make_init_store_step`, then the cold fill of
-its unit-table carry, :func:`~repro_torch.sharded.make_unit_refresh_step`)
-and answers each update batch as the streaming service's sharded backend
-does: one storage update (:func:`~repro_torch.sharded.make_storage_update_step`)
-and one carried maintain step for every pattern
-(:func:`~repro_torch.sharded.make_maintain_mega_step`). Its answer to a
-batch is each pattern's exact maintained match count.
+pattern and answers each update batch as the streaming service's sharded
+backend does: one storage update
+(:func:`~repro_torch.sharded.make_storage_update_step`) and one maintain
+step for every pattern (:func:`~repro_torch.sharded.make_maintain_mega_step`).
+Its answer to a batch is each pattern's exact maintained match count.
+
+Each pattern runs the executor that ``RunConfig.executor`` picks, as the
+service's planner does (:func:`~repro_torch.planner.compiler.choose_executor`):
+a join tree, whose stage 1 is :func:`~repro_torch.sharded.make_list_step` +
+:func:`~repro_torch.sharded.make_init_store_step` and the cold fill of its
+unit-table carry (:func:`~repro_torch.sharded.make_unit_refresh_step`), or
+the generic join (WCOJ), whose level caps are calibrated on the host
+partitions (:func:`~repro_torch.planner.sizing.calibrate_wcoj_caps`) and
+whose stage 1 is :func:`~repro_torch.sharded.make_wcoj_list_step` +
+:func:`~repro_torch.sharded.make_wcoj_init_store_step`, with no carry.
 
 :func:`stages` is the driver: it runs stage 1 and then the batches, and
 yields each stage's diag with its time and peak device memory.
 
     PYTHONPATH=src python -m repro_torch.run            # WT~ / q1_square, one H100
     PYTHONPATH=src python -m repro_torch.run --config wt_multi
+    PYTHONPATH=src python -m repro_torch.run --config wt_clique      # WCOJ, K5 + K4
     PYTHONPATH=src python -m repro_torch.run --device cpu --config example
 """
 
@@ -25,7 +33,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,25 +43,33 @@ from .core.estimator import GraphStats
 from .core.graph import GraphUpdate
 from .core.join_tree import minimum_unit_decomposition, optimal_join_tree
 from .core.pattern import PATTERN_LIBRARY, Pattern, R1Unit, symmetry_break
+from .core.plan import WcojPlan
 from .core.storage import build_np_storage
-from .data.graphs import rmat_graph, sample_update
+from .data.graphs import PLANTED_M_BG, PLANTED_N, planted_graph, rmat_graph, sample_update
 from .engine import EngineCaps
 from .mesh import LocalMesh
-from .planner.compiler import choose_cover
+from .planner.compiler import choose_cover, choose_executor
 from .planner.lowering import TreeProgram, build_tree_program
-from .planner.sizing import match_caps, unit_table_caps
+from .planner.sizing import calibrate_wcoj_caps, match_caps, quantize_store_caps, unit_table_caps
 from . import sharded
 
-__all__ = ["RunConfig", "WT_Q1", "WT_MULTI", "EXAMPLE_Q1", "PatternPlan", "Pipeline",
+__all__ = ["RunConfig", "WT_Q1", "WT_MULTI", "WT_CLIQUE", "WT_MULTI_AUTO", "EXAMPLE_Q1",
+           "PLANTED_K5", "PLANTED_K4", "CONFIGS", "PatternPlan", "plan_pattern", "Pipeline",
            "stages"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """One deployment: an R-MAT graph, a pattern (and ``more_patterns``
-    maintained beside it), ``m`` partitions, the engine caps and the batch
-    shape. The store and carry caps and the candidate caps of the update
-    come from the §IV-D estimators."""
+    """One deployment: a graph (``"rmat"``: ``rmat_graph(n_log2, n_edges,
+    graph_seed)``; ``"planted"``: the planted near-clique graph of
+    ``planted_graph(graph_seed)``, whose size is fixed, so ``n_log2`` and
+    ``n_edges`` must state it: 2**12 vertices, 12,000 background edges), a
+    pattern (and
+    ``more_patterns`` maintained beside it), the executor choice
+    (``"tree"``, ``"wcoj"`` or ``"auto"``), ``m`` partitions, the engine
+    caps and the batch shape. The store and carry caps and the candidate
+    caps of the update come from the §IV-D estimators; a WCOJ pattern's
+    level caps and store groups from the calibration."""
 
     n_log2: int
     n_edges: int
@@ -71,6 +87,20 @@ class RunConfig:
     n_del: int = 64
     update_seed: int = 100
     more_patterns: Tuple[str, ...] = ()
+    executor: str = "tree"
+    graph: str = "rmat"
+
+    def __post_init__(self):
+        if self.executor not in ("tree", "wcoj", "auto"):
+            raise ValueError(f"unknown executor {self.executor!r} "
+                             "(expected 'tree', 'wcoj' or 'auto')")
+        if self.graph not in ("rmat", "planted"):
+            raise ValueError(f"unknown graph {self.graph!r} (expected 'rmat' or 'planted')")
+        if self.graph == "planted" and (1 << self.n_log2, self.n_edges) != (PLANTED_N,
+                                                                             PLANTED_M_BG):
+            raise ValueError(f"the planted graph has {PLANTED_N} vertices and {PLANTED_M_BG} "
+                             f"background edges; got n_log2={self.n_log2}, "
+                             f"n_edges={self.n_edges}")
 
 
 # The "WT~" stand-in of the paper's WikiTalk graph (benchmarks/common.py,
@@ -94,7 +124,30 @@ EXAMPLE_Q1 = RunConfig(n_log2=7, n_edges=320, graph_seed=0, pattern="q1_square",
                        v_cap=128, deg_cap=64, e_cap=1024, match_cap=8192,
                        group_cap=4096, set_cap=64, pair_cap=256, n_add=4, n_del=4)
 
-CONFIGS = {"wt": WT_Q1, "wt_multi": WT_MULTI, "example": EXAMPLE_Q1}
+# A service keeping dense patterns on the WikiTalk stand-in: q6_clique5 and
+# q4_clique4 under executor="auto", which picks the generic join for both
+# (its summed prefix estimates cost less than the join tree on WT~).
+WT_CLIQUE = dataclasses.replace(WT_Q1, pattern="q6_clique5", more_patterns=("q4_clique4",),
+                                executor="auto")
+
+# examples/dynamic_subgraph_service.py --backend sharded --executor auto with
+# the patterns of WT_MULTI: q1_square stays on its join tree and q2_triangle
+# takes the generic join, so one megastep holds both kinds of slot.
+WT_MULTI_AUTO = dataclasses.replace(WT_MULTI, executor="auto")
+
+# The planted near-clique graph of benchmarks/bench_wcoj.py at m = 1, with
+# the engine caps the streaming service sizes for it (stream/service.py
+# _default_caps). On this graph "auto" keeps every library pattern on its
+# join tree, so the generic join is asked for; a tree run of the same
+# pattern sets its own match_cap and group_cap.
+PLANTED_K5 = RunConfig(n_log2=12, n_edges=12_000, graph_seed=0, pattern="q6_clique5", m=1,
+                       v_cap=6208, deg_cap=72, e_cap=24_768, match_cap=4096, group_cap=4096,
+                       set_cap=64, pair_cap=128, executor="wcoj", graph="planted")
+PLANTED_K4 = dataclasses.replace(PLANTED_K5, pattern="q4_clique4")
+
+CONFIGS = {"wt": WT_Q1, "wt_multi": WT_MULTI, "wt_clique": WT_CLIQUE,
+           "wt_multi_auto": WT_MULTI_AUTO, "example": EXAMPLE_Q1,
+           "planted_k5": PLANTED_K5, "planted_k4": PLANTED_K4}
 
 
 def _require_device(device) -> torch.device:
@@ -106,7 +159,10 @@ def _require_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class PatternPlan:
-    """One pattern of a pipeline: its plan, caps and stage-1 steps."""
+    """One pattern of a pipeline: its plan, executor, caps and stage-1
+    steps, and the estimated cost the executor was chosen on. A WCOJ
+    pattern has its plan ``wcoj``, calibrated ``level_caps`` and no carry
+    (``refresh_step`` is None)."""
 
     name: str
     pattern: Pattern
@@ -118,17 +174,31 @@ class PatternPlan:
     unit_caps: sharded.StoreCaps
     list_step: Callable
     init_step: Callable
-    refresh_step: Callable
+    refresh_step: Optional[Callable]
+    executor: str = "tree"
+    wcoj: Optional[WcojPlan] = None
+    level_caps: Optional[Tuple[int, ...]] = None
+    cost: float = 0.0
 
     def spec(self) -> sharded.MaintainSpec:
         return sharded.MaintainSpec(name=self.name, prog=self.prog, units=self.units,
-                                    store=self.store_caps, unit_caps=self.unit_caps)
+                                    store=self.store_caps, unit_caps=self.unit_caps,
+                                    wcoj=self.wcoj, wcoj_level_caps=self.level_caps)
 
     def gib(self, caps: EngineCaps, m: int) -> Dict[str, float]:
-        """Device GiB of this pattern's store and carry, from their caps."""
+        """Device GiB of this pattern's store and carry, from their caps; for
+        a WCOJ pattern also its widest level tensor, the ``[level_caps[i-1],
+        deg_cap]`` candidates of one partition's level ``i``."""
         def table(groups, skel, n_sets, width):
             return groups * (4 * skel + 1 + 4 * n_sets * width)
 
+        if self.wcoj is not None:
+            k = len(self.wcoj.order)
+            rows = max(self.level_caps[:-1])
+            return {"unit_plans": 0,
+                    "store_gib": m * table(self.store_caps.group_cap, k, 0, 0) / 2**30,
+                    "carry_gib": 0.0, "widest_level": [rows, caps.deg_cap],
+                    "widest_level_gib": rows * caps.deg_cap * 4 / 2**30}
         root = self.prog.nodes[self.prog.root]
         n_comp = len(set(self.pattern.vertices) - set(self.cover))
         store = table(self.store_caps.group_cap, len(root.skel_cols), n_comp,
@@ -143,6 +213,46 @@ class PatternPlan:
                 "carry_gib": m * carry / 2**30}
 
 
+def plan_pattern(name: str, stats: GraphStats, storage, caps: EngineCaps, mesh: LocalMesh,
+                 executor: str = "tree") -> PatternPlan:
+    """Compile one library pattern for ``mesh.size`` partitions, as the
+    service's planner and registration do: symmetry breaking, cover, join
+    tree and its caps, the executor choice and, for the generic join, the
+    calibration of its level caps and store groups over ``storage`` (the
+    host NP storage the partitions were padded from)."""
+    pattern = PATTERN_LIBRARY[name]
+    ord_ = symmetry_break(pattern)
+    cover = choose_cover(pattern, ord_, stats)
+    tree = optimal_join_tree(pattern, cover, CostModel(cover, ord_, stats))
+    prog = build_tree_program(tree, cover, ord_)
+    units = tuple(minimum_unit_decomposition(pattern, cover))
+    store_caps = match_caps(pattern, cover, ord_, stats, caps)
+    unit_caps = unit_table_caps(units, cover, ord_, stats, caps)
+    choice = choose_executor(pattern, ord_, stats, tree.cost, executor, mesh.size, caps,
+                             store_caps)
+    if choice.executor == "wcoj":
+        # the service's register-time calibration: observed level sizes set
+        # the level caps, the last level's the store's group floor
+        level_caps, floor = calibrate_wcoj_caps(storage, choice.wcoj)
+        store_caps = quantize_store_caps(dataclasses.replace(
+            choice.store_caps, group_cap=max(choice.store_caps.group_cap, floor)))
+        return PatternPlan(
+            name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
+            store_caps=store_caps, unit_caps=unit_caps,
+            list_step=sharded.make_wcoj_list_step(pattern, choice.wcoj, mesh, caps,
+                                                  level_caps),
+            init_step=sharded.make_wcoj_init_store_step(pattern, ord_, mesh, store_caps),
+            refresh_step=None, executor="wcoj", wcoj=choice.wcoj, level_caps=level_caps,
+            cost=choice.cost)
+    return PatternPlan(
+        name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
+        store_caps=store_caps, unit_caps=unit_caps,
+        list_step=sharded.make_list_step(prog, mesh, caps),
+        init_step=sharded.make_init_store_step(prog, mesh, caps, store_caps),
+        refresh_step=sharded.make_unit_refresh_step(prog, units, mesh, caps, unit_caps),
+        cost=choice.cost)
+
+
 class Pipeline:
     """Stage 1 and stage 2 of the configuration's patterns over one graph,
     on one device."""
@@ -150,7 +260,10 @@ class Pipeline:
     def __init__(self, config: RunConfig, device="cuda", use_kernels: bool = True):
         self.config = config
         self.device = _require_device(device)
-        self.graph = rmat_graph(config.n_log2, config.n_edges, seed=config.graph_seed)
+        if config.graph == "planted":
+            self.graph = planted_graph(seed=config.graph_seed)
+        else:
+            self.graph = rmat_graph(config.n_log2, config.n_edges, seed=config.graph_seed)
         stats = GraphStats.of(self.graph)
         c = config
         self.caps = EngineCaps(v_cap=c.v_cap, deg_cap=c.deg_cap, e_cap=c.e_cap,
@@ -158,7 +271,9 @@ class Pipeline:
                                set_cap=c.set_cap, pair_cap=c.pair_cap,
                                use_kernels=use_kernels)
         self.mesh = LocalMesh(c.m)
-        self.plans = {name: self._plan(name, stats)
+        storage = build_np_storage(self.graph, c.m)
+        self.plans = {name: plan_pattern(name, stats, storage, self.caps, self.mesh,
+                                         c.executor)
                       for name in (c.pattern, *c.more_patterns)}
         main = self.plans[c.pattern]
         # the first pattern's plan, as single-pattern callers read it
@@ -170,28 +285,10 @@ class Pipeline:
                                                              self.ushapes)
         self.maintain_step = sharded.make_maintain_mega_step(
             [p.spec() for p in self.plans.values()], self.mesh, self.caps)
-        self.pt = sharded.stack_partitions(build_np_storage(self.graph, c.m), self.caps,
-                                           self.device)
+        self.pt = sharded.stack_partitions(storage, self.caps, self.device)
         self.stores = None
         self.carries = None
         self.batches = 0
-
-    def _plan(self, name: str, stats) -> PatternPlan:
-        pattern = PATTERN_LIBRARY[name]
-        ord_ = symmetry_break(pattern)
-        cover = choose_cover(pattern, ord_, stats)
-        tree = optimal_join_tree(pattern, cover, CostModel(cover, ord_, stats))
-        prog = build_tree_program(tree, cover, ord_)
-        units = tuple(minimum_unit_decomposition(pattern, cover))
-        store_caps = match_caps(pattern, cover, ord_, stats, self.caps)
-        unit_caps = unit_table_caps(units, cover, ord_, stats, self.caps)
-        return PatternPlan(
-            name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
-            store_caps=store_caps, unit_caps=unit_caps,
-            list_step=sharded.make_list_step(prog, self.mesh, self.caps),
-            init_step=sharded.make_init_store_step(prog, self.mesh, self.caps, store_caps),
-            refresh_step=sharded.make_unit_refresh_step(prog, units, self.mesh, self.caps,
-                                                        unit_caps))
 
     @property
     def store(self):
@@ -199,15 +296,19 @@ class Pipeline:
         return None if self.stores is None else self.stores[self.config.pattern]
 
     def describe(self) -> Dict:
-        """The plan and every cap, as plain values; per pattern its cover,
-        caps and the GiB of its store and carry."""
+        """The plan and every cap, as plain values; per pattern its executor
+        and the estimated cost it was chosen on, cover, caps (and a WCOJ
+        pattern's level caps) and the GiB of its store and carry."""
         return {"graph": {"n": self.graph.n, "edges": self.graph.num_edges},
                 "pattern": self.config.pattern, "cover": list(self.cover), "m": self.config.m,
                 "caps": {k: v for k, v in dataclasses.asdict(self.caps).items()
                          if k != "use_kernels"},
                 "store_caps": dataclasses.asdict(self.store_caps),
                 "update_shapes": dataclasses.asdict(self.ushapes),
-                "patterns": {name: {"cover": list(p.cover),
+                "patterns": {name: {"executor": p.executor, "cost": p.cost,
+                                    "level_caps": None if p.level_caps is None
+                                    else list(p.level_caps),
+                                    "cover": list(p.cover),
                                     "store_caps": dataclasses.asdict(p.store_caps),
                                     "unit_caps": dataclasses.asdict(p.unit_caps),
                                     **p.gib(self.caps, self.config.m)}
@@ -226,12 +327,21 @@ class Pipeline:
 
     def initial(self) -> Dict:
         """Stage 1: list every pattern, seed its match store and fill its
-        unit-table carry (whose overflow joins the pattern's)."""
+        unit-table carry (whose overflow joins the pattern's). A WCOJ
+        pattern has no carry, and its listing or store overflowing raises,
+        as the service's registration does."""
         self.stores, self.carries, per = {}, {}, {}
         for name, p in self.plans.items():
             self.stores[name], diag = self.list_pattern(name)
-            self.carries[name], rdiag = p.refresh_step(self.pt)
-            diag["overflow"] = diag["overflow"] + rdiag["overflow"]
+            if p.refresh_step is None:
+                if int(diag["overflow"]):
+                    raise ValueError(
+                        f"{name}: the initial WCOJ listing or store overflowed its caps "
+                        f"({int(diag['overflow'])} rows)")
+                self.carries[name] = {}
+            else:
+                self.carries[name], rdiag = p.refresh_step(self.pt)
+                diag["overflow"] = diag["overflow"] + rdiag["overflow"]
             per[name] = diag
         return self._record(per, {})
 

@@ -1,6 +1,6 @@
 """Whole join-tree programs over ``m`` NP partitions on one card.
 
-Port of ``repro/dist/sharded.py`` but its WCOJ steps and ``stack_matches``.
+Port of ``repro/dist/sharded.py`` but ``stack_matches``.
 The partitions are a leading ``[m]`` axis of every input and output
 (partition ``j`` holds the centers ``h(v) = v mod m``); each step loops
 over them and meets the other partitions only through
@@ -14,6 +14,10 @@ groups) runs once.
   CC-join redistributes groups by join-key ownership and joins locally.
 - :func:`make_init_store_step` — the initial listing regrouped into the
   sharded :class:`MatchStore` and counted.
+- :func:`make_wcoj_list_step` / :func:`make_wcoj_init_store_step` — the
+  same for the generic-join executor: plain match rows per partition, kept
+  as a table whose skeleton is every pattern vertex and whose sets are
+  empty.
 - :func:`make_unit_refresh_step` — the cold fill of a pattern's
   unit-table carry (:class:`UnitCarry`).
 - :func:`make_storage_update_step` — Alg. 4: the candidate-restricted
@@ -24,7 +28,9 @@ groups) runs once.
 - :func:`make_maintain_step` — Nav-join patch ∘ Lemma 6.1 delete filter ∘
   merge ∘ count over the updated partitions, with or without the carry.
 - :func:`make_maintain_mega_step` — the same for every registered pattern
-  in one call (:class:`MaintainSpec`), the streaming service's batch step.
+  in one call (:class:`MaintainSpec`), the streaming service's batch step;
+  a slot runs a join tree with its unit-table carry, or the generic join
+  seeded from the batch's delta candidates.
 
 Every step reports overflow through explicit counters in its ``diag``
 dict (0-d tensors, summed over partitions like the JAX ``psum``).
@@ -41,7 +47,7 @@ import torch
 from . import engine as je
 from .core.navjoin import left_deep_order
 from .core.pattern import Pattern, R1Unit
-from .core.plan import JoinPlan, UnitPlan, build_unit_plan
+from .core.plan import JoinPlan, UnitPlan, WcojPlan, build_unit_plan
 from .core.storage import NPStorage
 from .engine import (PAD, CompTensors, EngineCaps, PaddedPartition, _BIG, _I32, _isum,
                      _isum_rows)
@@ -53,7 +59,8 @@ __all__ = [
     "stack_partitions", "make_list_step", "UpdateShapes", "make_storage_update_step",
     "make_patch_step", "make_update_step", "MatchStore", "StoreCaps", "match_caps",
     "UnitCarry", "unit_plan_registry", "unit_table_caps", "make_unit_refresh_step",
-    "make_init_store_step", "make_maintain_step", "MaintainSpec", "make_maintain_mega_step",
+    "make_init_store_step", "make_wcoj_list_step", "make_wcoj_init_store_step",
+    "make_maintain_step", "MaintainSpec", "make_maintain_mega_step",
 ]
 
 
@@ -837,13 +844,12 @@ class MatchStore:
             sets={v: a.reshape(-1, a.shape[-1]) for v, a in self.sets.items()})
 
 
-def make_init_store_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps,
-                         store: StoreCaps):
-    """Step: stacked root CompTensors of the list step → (MatchStore, diag)
-    with ``diag`` = ``count``, ``store_groups``, ``overflow``."""
+def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: LocalMesh, store: StoreCaps):
+    """Step: a stacked listing → (MatchStore, diag): every group gathered,
+    placed by the ownership hash over its whole skeleton, merged into its
+    owner's shard and counted there."""
     m = mesh.size
-    root = prog.nodes[prog.root]
-    n_s = len(root.skel_cols)
+    n_s = len(skel_cols)
 
     def step(tc_st: CompTensors):
         g = _gather_groups([_part(tc_st, j) for j in mesh.indices()], mesh)
@@ -852,7 +858,7 @@ def make_init_store_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps,
         for me in mesh.indices():
             st, ovf = je.merge_groups(g.skeleton, g.valid & (own == me), g.sets,
                                       store.group_cap, store.set_cap)
-            cnts.append(je.count_matches_dev(st, root.skel_cols, prog.ord))
+            cnts.append(je.count_matches_dev(st, skel_cols, ord_))
             ngroups.append(_isum(st.valid))
             ovfs.append(ovf)
             out = _put(out, m, me, MatchStore(skeleton=st.skeleton, valid=st.valid,
@@ -863,6 +869,70 @@ def make_init_store_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps,
         return out, diag
 
     return step
+
+
+def make_init_store_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps,
+                         store: StoreCaps):
+    """Step: stacked root CompTensors of the list step → (MatchStore, diag)
+    with ``diag`` = ``count``, ``store_groups``, ``overflow``."""
+    return _init_store(prog.nodes[prog.root].skel_cols, prog.ord, mesh, store)
+
+
+def _cover_all(pattern: Pattern) -> Tuple[int, ...]:
+    """The storage cover of a WCOJ pattern: every vertex (plain rows)."""
+    return tuple(sorted(int(v) for v in pattern.vertices))
+
+
+def make_wcoj_list_step(pattern: Pattern, plan: WcojPlan, mesh: LocalMesh,
+                        caps: EngineCaps, level_caps: Sequence[int]):
+    """Step: stacked partitions → (stacked CompTensors, diag), stage 1 of
+    the generic-join executor: :func:`~repro_torch.engine.wcoj_list` on
+    every partition (complete and disjoint, as the anchor is adjacent to
+    every other vertex and seeded at its center), its rows wrapped as a
+    table whose skeleton is every column and whose sets are empty, with
+    ``level_caps[-1]`` groups. ``diag``: ``overflow``, ``matches_lower_bound``."""
+    cover_all = _cover_all(pattern)
+    ccaps = dataclasses.replace(caps, group_cap=int(level_caps[-1]))
+
+    def step(pt_st: PaddedPartition):
+        out, ovfs, nvalid = None, [], []
+        for j in mesh.indices():
+            tbl, valid, o1 = je.wcoj_list(_part(pt_st, j), plan, caps, level_caps)
+            tc, _, o2 = je.compress_plain(tbl, valid, plan.cols, cover_all, ccaps)
+            ovfs.append(o1 + o2)
+            nvalid.append(_isum(tc.valid))
+            out = _put(out, mesh.size, j, tc)
+            del tbl, valid, tc
+        return out, {"overflow": mesh.psum(ovfs), "matches_lower_bound": mesh.psum(nvalid)}
+
+    return step
+
+
+def make_wcoj_init_store_step(pattern: Pattern, ord_, mesh: LocalMesh, store: StoreCaps):
+    """Step: the listing of :func:`make_wcoj_list_step` → (MatchStore,
+    diag), :func:`make_init_store_step` for plain rows: the ownership hash
+    runs over every column. ``diag``: ``count``, ``store_groups``,
+    ``overflow``. (JAX's step also takes the engine and level caps and
+    reads neither; they are left out here.)"""
+    return _init_store(_cover_all(pattern), ord_, mesh, store)
+
+
+def _wcoj_seed_masks(pts2: List[PaddedPartition], add: torch.Tensor,
+                     mesh: LocalMesh) -> List[torch.Tensor]:
+    """Each partition's ``[v_cap]`` anchor-seed mask for the delta-seeded
+    WCOJ patch: the candidates ``C1 ∪ N_{d'}(C1)`` over the inserted
+    endpoints. A new match holds an inserted edge ``(a, b)``, and its
+    anchor is adjacent to every other match vertex, so the anchor is ``a``,
+    ``b`` or a common neighbour of both. Both dedup caps hold every input,
+    so nothing drops. The candidates are replicated: computed once."""
+    ends = add.to(_I32).reshape(-1)
+    c1_t, c1_valid, _ = je.dedup_rows(ends[:, None], ends >= 0, max(int(ends.shape[0]), 1))
+    c1 = c1_t[:, 0].contiguous()
+    rows1 = mesh.psum([je.center_adj_contrib(pt, c1, c1_valid) for pt in pts2]) - 1
+    cids = torch.cat([torch.where(c1_valid, c1, PAD), rows1.reshape(-1)])
+    cand, _, _ = je.dedup_rows(cids[:, None], cids >= 0, max(int(cids.shape[0]), 1))
+    cand = cand[:, 0].contiguous()
+    return [je.lookup_sorted(cand, pt.vertices)[1] for pt in pts2]
 
 
 def _delete_table(dele: torch.Tensor) -> torch.Tensor:
@@ -984,17 +1054,52 @@ class MaintainSpec:
     """One pattern's slot in :func:`make_maintain_mega_step` (twin of
     ``sharded.MaintainSpec``): ``name`` keys its entries in the step's
     dicts, ``prog`` / ``units`` are its compiled program, ``store`` its
-    :class:`MatchStore` caps and ``unit_caps`` its carry's caps. A slot
-    with ``wcoj`` set runs the generic-join executor, which the port does
-    not have yet: the megastep raises for it."""
+    :class:`MatchStore` caps and ``unit_caps`` its carry's caps.
+
+    With ``wcoj`` set the slot runs the generic-join executor: its patch is
+    a :func:`~repro_torch.engine.wcoj_list` over Φ(d') with the level caps
+    ``wcoj_level_caps``, seeded from the batch's delta candidates and kept
+    to the matches that hold an inserted edge; its store holds plain rows.
+    Such a slot has no carry (``{}`` in and out) and ``unit_refreshes`` 0."""
 
     name: str
     prog: TreeProgram
     units: Tuple[R1Unit, ...]
     store: StoreCaps
     unit_caps: StoreCaps
-    wcoj: Optional[object] = None
+    wcoj: Optional[WcojPlan] = None
     wcoj_level_caps: Optional[Tuple[int, ...]] = None
+
+
+def _wcoj_patch(pts2: List[PaddedPartition], add: torch.Tensor, seed_masks, sp: MaintainSpec,
+                skel_cols: Tuple[int, ...], caps: EngineCaps, mesh: LocalMesh):
+    """A WCOJ slot's patch: on every partition, exactly the matches of
+    Φ(d') that hold an inserted edge and whose anchor is a delta candidate
+    (one pass over the whole pattern, so a match with several inserted
+    edges is listed once), placed by the ownership hash over every column.
+    Returns the per-partition patches, list overflows and placement
+    overflows (the patch fits the store's caps, as it is a subset of the
+    merged shard)."""
+    ccaps = dataclasses.replace(caps, group_cap=int(sp.wcoj_level_caps[-1]))
+    add = add.to(_I32)
+    tcs, povf = [], []
+    for pt, seed in zip(pts2, seed_masks):
+        tbl, valid, o1 = je.wcoj_list(pt, sp.wcoj, caps, sp.wcoj_level_caps,
+                                      require_edges=add, seed_mask=seed)
+        tc, _, o2 = je.compress_plain(tbl, valid, sp.wcoj.cols, skel_cols, ccaps)
+        tcs.append(tc)
+        povf.append(o1 + o2)
+        del tbl, valid
+    g = _gather_groups(tcs, mesh)
+    del tcs
+    own = _owner_of(g.skeleton, tuple(range(len(skel_cols))), mesh.size)
+    patches, govf = [], []
+    for me in mesh.indices():
+        patch, o = je.merge_groups(g.skeleton, g.valid & (own == me), g.sets,
+                                   sp.store.group_cap, sp.store.set_cap)
+        patches.append(patch)
+        govf.append(o)
+    return patches, povf, govf
 
 
 def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
@@ -1004,13 +1109,17 @@ def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
     Signature: ``(Φ(d'), {name: store}, {name: carry}, dirty, E_a, E_d) →
     ({name: store'}, {name: patch}, {name: carry'}, {name: diag})``.
     Each pattern's outputs equal those of its carried
-    :func:`make_maintain_step` run alone; one call builds the Lemma 6.1
-    delete table once and reads ``dirty`` (the storage step's
-    ``part_dirty``) from the card once for all patterns. Per pattern it
-    refreshes the carry on the dirty partitions, patches from the carry,
-    filters, merges and counts; ``diag`` has the keys of the carried
-    single-pattern step: ``count``, ``patch_groups``, ``removed_groups``,
-    ``store_groups``, ``overflow``, ``store_overflow``, ``unit_refreshes``.
+    :func:`make_maintain_step` run alone (a tree slot) or of JAX's WCOJ
+    slot; one call builds the Lemma 6.1 delete table once, the WCOJ seed
+    masks once for all WCOJ slots, and reads ``dirty`` (the storage step's
+    ``part_dirty``) from the card once for all tree slots, not at all when
+    there is none. A tree slot refreshes its carry on the dirty partitions
+    and patches from it; a WCOJ slot patches by a delta-seeded generic
+    join; then each filters, merges and counts. ``diag`` has the keys of
+    the carried single-pattern step: ``count``, ``patch_groups``,
+    ``removed_groups``, ``store_groups``, ``overflow``, ``store_overflow``,
+    ``unit_refreshes``; a WCOJ slot's placement overflow is in both
+    ``overflow`` and ``store_overflow``.
 
     The JAX step donates the stores and carries, and its callers treat
     them as consumed. Here they are overwritten in place and the returned
@@ -1021,33 +1130,47 @@ def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
     """
     pre = []
     for sp in specs:
-        if sp.wcoj is not None:
-            raise NotImplementedError(
-                f"pattern {sp.name!r}: the WCOJ slot of the megastep is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         root = sp.prog.nodes[sp.prog.root]
+        if sp.wcoj is not None:
+            cover_all = _cover_all(root.pattern)
+            skel_pairs, comp_pairs = je.deleted_edge_cols(root.pattern, cover_all)
+            pre.append((sp, cover_all, None, skel_pairs, comp_pairs, None, None))
+            continue
         chains = _chain_plans(sp.units, root.pattern, sp.prog.cover, sp.prog.ord)
         skel_pairs, comp_pairs = je.deleted_edge_cols(root.pattern, root.skel_cols)
         plans, names = unit_plan_registry(sp.prog, sp.units)
         pre.append((sp, root.skel_cols, chains, skel_pairs, comp_pairs, plans, names))
+    any_wcoj = any(sp.wcoj is not None for sp in specs)
+    any_tree = any(sp.wcoj is None for sp in specs)
 
     def step(pt2_st: PaddedPartition, stores: Dict[str, MatchStore],
              carries: Dict[str, Dict[str, UnitCarry]], dirty: torch.Tensor,
              add: torch.Tensor, dele: torch.Tensor):
         pts2 = [_part(pt2_st, j) for j in mesh.indices()]
-        flags = _dirty_flags(dirty)
+        flags = _dirty_flags(dirty) if any_tree else None
         d_tbl = _delete_table(dele)
+        seed_masks = _wcoj_seed_masks(pts2, add, mesh) if any_wcoj else None
         refreshes = _isum(dirty)
+        zero = [je._zero(add) for _ in pts2]
         patches, diag = {}, {}
         for sp, skel_cols, chains, skel_pairs, comp_pairs, plans, names in pre:
-            carry = carries[sp.name]
-            rovf = _refresh_dirty(pts2, carry, flags, sp.prog, plans, caps, sp.unit_caps)
-            pat, povf = _patch_body(pts2, add, sp.prog, chains, mesh, caps,
-                                    unit_tables=_carry_by_key(carry, names))
-            shards = _maintain_shards(stores[sp.name], pat, d_tbl, sp.prog, sp.store,
-                                      skel_pairs, comp_pairs, skel_cols, caps, mesh)
-            diag[sp.name] = {**_maintain_diag(mesh, pat, povf, rovf, shards),
-                             "unit_refreshes": refreshes}
+            if sp.wcoj is not None:
+                pat, povf, govf = _wcoj_patch(pts2, add, seed_masks, sp, skel_cols, caps, mesh)
+                shards = _maintain_shards(stores[sp.name], pat, d_tbl, sp.prog, sp.store,
+                                          skel_pairs, comp_pairs, skel_cols, caps, mesh)
+                d = _maintain_diag(mesh, pat, [a + b for a, b in zip(povf, govf)], zero,
+                                   shards)
+                d["store_overflow"] = mesh.psum([a + b for a, b in zip(govf, shards[3])])
+                diag[sp.name] = {**d, "unit_refreshes": je._zero(add)}
+            else:
+                carry = carries[sp.name]
+                rovf = _refresh_dirty(pts2, carry, flags, sp.prog, plans, caps, sp.unit_caps)
+                pat, povf = _patch_body(pts2, add, sp.prog, chains, mesh, caps,
+                                        unit_tables=_carry_by_key(carry, names))
+                shards = _maintain_shards(stores[sp.name], pat, d_tbl, sp.prog, sp.store,
+                                          skel_pairs, comp_pairs, skel_cols, caps, mesh)
+                diag[sp.name] = {**_maintain_diag(mesh, pat, povf, rovf, shards),
+                                 "unit_refreshes": refreshes}
             patches[sp.name] = _stack(pat)
             del pat
         return stores, patches, carries, diag

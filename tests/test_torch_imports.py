@@ -17,6 +17,11 @@ from repro_torch.run import EXAMPLE_Q1, Pipeline, stages
 s1, b0 = stages(Pipeline(EXAMPLE_Q1, "cpu", use_kernels=False), 1)
 assert s1["phase"] == "stage1" and s1["count"] == 1282 and s1["overflow"] == 0, s1
 assert b0["phase"] == "batch" and b0["count"] == 1238 and b0["overflow"] == 0, b0
+from dataclasses import replace
+w1, wb = stages(Pipeline(replace(EXAMPLE_Q1, pattern="q2_triangle", executor="wcoj"), "cpu",
+                         use_kernels=False), 1)
+assert w1["count"] == 188 and w1["overflow"] == 0, w1
+assert wb["count"] == 182 and wb["overflow"] == 0 and wb["unit_refreshes"] == 0, wb
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.data import build_graph_data
@@ -66,6 +71,8 @@ def _sources():
 
 def test_no_source_imports_jax_or_repro():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
+    scanned = {os.path.relpath(p, PKG) for p in _sources()}
+    assert os.path.join("core", "match_engine.py") in scanned
     bad = []
     for path in _sources():
         with open(path) as fh:

@@ -284,16 +284,6 @@ def test_maintain_mega_step_matches_per_pattern_and_jax():
     assert int(got[3]["q1_square"]["count"]) > 0 and int(got[3]["q2_triangle"]["count"]) > 0
 
 
-def test_maintain_mega_step_rejects_a_wcoj_slot():
-    g = random_graph(30, 70, seed=47)
-    jc, tc = _caps()
-    p = _pattern(g, "q4_clique4", jc)
-    spec = tsh.MaintainSpec(name="q4_clique4", prog=p.prog, units=p.units, store=p.store,
-                            unit_caps=p.ucaps, wcoj=object(), wcoj_level_caps=(64, 64))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tsh.make_maintain_mega_step([spec], LocalMesh(1), tc)
-
-
 def _host_rows(host):
     return set(map(tuple, host.matches_plain().tolist()))
 
