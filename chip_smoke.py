@@ -78,6 +78,25 @@ Prints one JSON object per line, in phases:
    edge-table probe goes to ``kernel_check`` (``member_probe`` cases
    ``planted_wcoj`` and ``planted_tree``, 32,768 x 72 queries against the
    24,768-row table).
+   ``backend``: the streaming service's device backend,
+   ``repro_torch.backend.TorchBackend``, over ``multi_auto``'s deployment
+   (WT~, m = 8, WT_Q1's caps, ``executor="auto"``, the kernels on):
+   q1_square and q2_triangle registered (tree and generic join), then three
+   64 + 64 batches, each wrapped in the service's ``SharedDelta``; counts
+   ``WT_COUNTS`` / ``WT_Q2_COUNTS``, overflow, store resizes and cap
+   fallbacks 0, host bytes 0, stores and candidate counters equal to
+   ``multi_auto``'s at every stage; each stage's seconds and peak; the
+   batches' launches are ``launches_by_path["backend"]``.
+   ``backend_materialize``: both match sets pulled (valid prefix only),
+   seconds and bytes; q2_triangle's rows equal the host generic join's,
+   q1_square's row count its maintained count. ``backend_restore``:
+   q2_triangle removed and restored from its table, q1_square removed and
+   installed with its own plan and table (its carry reused), then the
+   batch with seed 103 (``WT_COUNTS[4]`` / ``WT_Q2_COUNTS[4]``).
+   ``backend_resize``: on the example graph, one reported store overflow
+   rebuilds the stores with doubled caps and retries the batch
+   (``store_resizes`` 1, counts ``EXAMPLE_COUNTS``); a strict backend
+   raises before it commits, its partitions unchanged, and replays.
 9. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
    plain version on their float64 accumulators, each case through its
    segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
@@ -179,6 +198,7 @@ under ``build/``) are compared in turns on one card in one call.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -191,6 +211,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # Host-engine counts (repro.core.DDSL, the NumPy reference) of the two
@@ -911,7 +932,7 @@ def wcoj_phase(single_snaps, multi_q2_counts):
     del probe_args
     emit({"phase": "kernel_check", "member_probe": [case]})
     torch.cuda.empty_cache()
-    return launches, multi_auto_phase(single_snaps, multi_q2_counts), case
+    return (launches, *multi_auto_phase(single_snaps, multi_q2_counts), case)
 
 
 def multi_auto_phase(single_snaps, multi_q2_counts):
@@ -920,7 +941,8 @@ def multi_auto_phase(single_snaps, multi_q2_counts):
     kernels. At every stage the q1_square store must equal the
     single-pattern run's, and the q2_triangle counts ``WT_Q2_COUNTS`` and
     the tree executor's counts in the ``multi`` phase. Returns the DDSL
-    kernels' launches on this path."""
+    kernels' launches on this path, each stage's store snapshots of both
+    patterns and its record."""
     from repro_torch.kernels import ops
     from repro_torch.run import WT_MULTI_AUTO, Pipeline, stages
 
@@ -931,8 +953,11 @@ def multi_auto_phase(single_snaps, multi_q2_counts):
           and pipe.plans["q2_triangle"].executor == "wcoj",
           "multi_auto: expected q1_square on the tree and q2_triangle on the generic join")
     ops.reset_launch_counts()
+    snaps, recs = [], []
     for i, d in enumerate(stages(pipe, N_BATCHES)):
         emit({**d, "stage": d["phase"], "phase": "multi_auto"})
+        snaps.append(snapshots(pipe))
+        recs.append(d)
         check(d["overflow"] == 0, f"multi_auto: overflow in {d}")
         q1, q2 = d["patterns"]["q1_square"], d["patterns"]["q2_triangle"]
         check(q1["count"] == WT_COUNTS[i], f"multi_auto: q1_square count {q1['count']}")
@@ -950,7 +975,282 @@ def multi_auto_phase(single_snaps, multi_q2_counts):
     pipe.stores = pipe.carries = None
     del pipe
     torch.cuda.empty_cache()
+    return launches, snaps, recs
+
+
+# ---------------------------------------------------------------------------
+# The streaming service's device backend (TorchBackend)
+# ---------------------------------------------------------------------------
+
+BACKEND_PATTERNS = ("q1_square", "q2_triangle")
+CAP_FIELDS = ("v_cap", "deg_cap", "e_cap", "match_cap", "group_cap", "set_cap", "pair_cap")
+
+
+def config_caps(config):
+    from repro_torch.engine import EngineCaps
+
+    return EngineCaps(**{f: getattr(config, f) for f in CAP_FIELDS})
+
+
+def shared_delta(update, lo: int):
+    """The service's per-batch delta for ``update`` as the ops [lo, hi)."""
+    from repro_torch.stream import SharedDelta
+
+    return SharedDelta(lo=lo, hi=lo + update.size, update=update,
+                       add_codes=update.add_codes(), delete_codes=update.delete_codes())
+
+
+def backend_record(be, reps, seconds: float, peak: float) -> dict:
+    """One backend stage: counts, seconds, peak, host bytes, candidate
+    counters, overflow, resizes and fallbacks; from the backend's spans
+    (its tracer is on) the storage update's and the megastep's seconds, the
+    rest of ``seconds`` as ``bookkeeping_s``, and each pattern's
+    ``unit_refreshes``."""
+    spans = be.obs.tracer.drain()
+    took = {name: sum(sp.dur_s for sp in spans if sp.name == name)
+            for name in ("storage_update", "maintain_mega")}
+    return {"counts": {n: be.count(n) for n in be.names()}, "seconds": seconds,
+            "peak_gib": peak, "last_host_bytes": be.last_host_bytes,
+            "cand_vertices": be.last_cand_vertices, "cand_edges": be.last_cand_edges,
+            "overflow": be.last_storage_overflow + sum(r.overflow for r in reps.values()),
+            "unit_refreshes": {sp.attrs["pattern"]: sp.counters["unit_refreshes"]
+                               for sp in spans if sp.name == "maintain"},
+            "storage_update_s": took["storage_update"], "maintain_mega_s": took["maintain_mega"],
+            "bookkeeping_s": seconds - sum(took.values()) if reps else None,
+            "store_resizes": be.store_resizes, "cap_fallbacks": be.cap_fallbacks}
+
+
+def check_backend(be, rec: dict, i: int, label: str) -> None:
+    got = (rec["counts"]["q1_square"], rec["counts"]["q2_triangle"])
+    check(got == (WT_COUNTS[i], WT_Q2_COUNTS[i]),
+          f"{label}: counts {got} at stage {i} != {(WT_COUNTS[i], WT_Q2_COUNTS[i])}")
+    check(rec.get("overflow", 0) == 0 and be.store_resizes == 0 and be.cap_fallbacks == 0,
+          f"{label}: overflow, store resize or cap fallback in {rec}")
+
+
+def doctored_maintain(be, name: str, extra: int, store_extra: int):
+    """The backend's megastep, reporting ``extra`` more overflow (and
+    ``store_extra`` more store overflow) for ``name``: the seam the
+    service's overflow tests use."""
+    orig = be.maintain_step
+
+    def step(pt2, stores, carries, dirty, add, dele):
+        stores2, patches, carries2, diag = orig(pt2, stores, carries, dirty, add, dele)
+        d = dict(diag[name])
+        d["overflow"] = d["overflow"] + extra
+        d["store_overflow"] = d["store_overflow"] + store_extra
+        return stores2, patches, carries2, {**diag, name: d}
+
+    return step
+
+
+def backend_phase(auto_snaps, auto_recs):
+    """``backend``: ``TorchBackend`` over ``run.WT_MULTI_AUTO``'s deployment
+    (WT~, m = 8, WT_Q1's caps, 64 + 64 batches, executor="auto", the
+    kernels on): q1_square and q2_triangle registered (tree and generic
+    join), then N_BATCHES batches, each wrapped in a ``SharedDelta``. Counts
+    ``WT_COUNTS`` / ``WT_Q2_COUNTS``, overflow, store resizes and cap
+    fallbacks 0, stores equal to ``multi_auto``'s at every stage and the
+    candidate counters to its storage step's. Then ``backend_materialize``
+    and ``backend_restore``. Returns the DDSL kernels' launches over the
+    batches."""
+    from repro_torch.backend import TorchBackend
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.data.graphs import rmat_graph, sample_update
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observability
+    from repro_torch.run import WT_MULTI_AUTO as c
+
+    t_phase = time.perf_counter()
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+
+    def stage1():
+        be = TorchBackend(graph, m=c.m, caps=config_caps(c), max_add=c.n_add,
+                          max_del=c.n_del, executor=c.executor)
+        be.obs = Observability.full()   # spans time each step of a batch
+        for name in BACKEND_PATTERNS:
+            be.register(name, PATTERN_LIBRARY[name])
+        return be
+
+    be, seconds, peak = timed_stage(stage1)
+    rec = backend_record(be, {}, seconds, peak)
+    rec["executors"] = {n: be.plan(n).executor for n in BACKEND_PATTERNS}
+    rec["store_caps"] = {n: dataclasses.asdict(be.entries[n].store_caps)
+                         for n in BACKEND_PATTERNS}
+    emit({"phase": "backend", "stage": "stage1", **rec})
+    check(rec["executors"] == {"q1_square": "tree", "q2_triangle": "wcoj"},
+          f"backend: executors {rec['executors']}")
+    check_backend(be, rec, 0, "backend")
+
+    def same_stores(i: int) -> None:
+        for n in BACKEND_PATTERNS:
+            check(snapshots_equal(store_snapshot(be.entries[n].store), auto_snaps[i][n]),
+                  f"backend: {n} store differs from multi_auto's at stage {i}")
+
+    same_stores(0)
+    ops.reset_launch_counts()
+    lo = 0
+    for b in range(N_BATCHES):
+        upd = sample_update(be.graph, c.n_del, c.n_add, seed=c.update_seed + b)
+        delta = shared_delta(upd, lo)
+        lo = delta.hi
+        reps, seconds, peak = timed_stage(lambda: be.apply_batch(delta, set()))
+        rec = backend_record(be, reps, seconds, peak)
+        emit({"phase": "backend", "stage": "batch", "batch": b, **rec})
+        check_backend(be, rec, b + 1, "backend")
+        want = auto_recs[b + 1]
+        check(rec["unit_refreshes"] == {n: want["patterns"][n]["unit_refreshes"]
+                                        for n in BACKEND_PATTERNS},
+              f"backend: unit_refreshes {rec['unit_refreshes']} differ from multi_auto's")
+        check((rec["cand_vertices"], rec["cand_edges"]) == (want["cand_vertices"],
+                                                            want["cand_edges"]),
+              f"backend: candidate counters differ from multi_auto's at batch {b}")
+        check(rec["last_host_bytes"] == 0, "backend: a count-only batch pulled match bytes")
+        same_stores(b + 1)
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    for k in DDSL_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the backend path")
+    emit({"phase": "backend", "launches": launches, "seconds": time.perf_counter() - t_phase})
+    backend_materialize(be)
+    backend_restore(be, lo)
+    del be
+    torch.cuda.empty_cache()
     return launches
+
+
+def backend_materialize(be) -> None:
+    """``backend_materialize``: both running match sets pulled to the host
+    (valid prefix only); q2_triangle's rows equal the host generic join's on
+    the backend's graph, q1_square's row count its maintained count."""
+    from repro_torch.core.match_engine import list_matches_wcoj
+
+    t0 = time.perf_counter()
+    rec = {"phase": "backend_materialize"}
+    for name in BACKEND_PATTERNS:
+        b0 = be.total_host_bytes
+        table, seconds, _ = timed_stage(lambda: be.materialize(name))
+        rec[name] = {"seconds": seconds, "host_bytes": be.total_host_bytes - b0,
+                     "groups": table.n_groups}
+    meta = be.meta("q2_triangle")
+    cols, rows = be.materialize("q2_triangle").decompress(meta.ord_)
+    wcols, want = list_matches_wcoj(be.graph, meta.pattern, meta.ord_)
+    want = want[:, [list(wcols).index(c) for c in cols]]
+    same = set(map(tuple, rows.tolist())) == set(map(tuple, want.tolist()))
+    meta1 = be.meta("q1_square")
+    rows1 = be.materialize("q1_square").decompress(meta1.ord_)[1]
+    distinct = np.unique(rows1, axis=0).shape[0]
+    rec.update(q2_rows=int(rows.shape[0]), q2_host_rows=int(want.shape[0]), q2_equal=same,
+               q1_rows=int(rows1.shape[0]), q1_distinct=int(distinct),
+               q1_maintained=be.count("q1_square"), seconds=time.perf_counter() - t0)
+    emit(rec)
+    check(same and rows.shape[0] == be.count("q2_triangle"),
+          "backend_materialize: q2_triangle rows differ from the host generic join's")
+    check(rows1.shape[0] == distinct == be.count("q1_square"),
+          "backend_materialize: q1_square rows differ from its maintained count")
+
+
+def backend_restore(be, lo: int) -> None:
+    """``backend_restore``: q2_triangle removed and restored from its
+    materialized table; q1_square removed and installed with its own plan
+    and table at the same watermark (the carry stash reused); then the batch
+    with seed ``update_seed + N_BATCHES``, whose counts are ``WT_COUNTS[4]``
+    and ``WT_Q2_COUNTS[4]``."""
+    from repro_torch.data.graphs import sample_update
+    from repro_torch.run import WT_MULTI_AUTO as c
+
+    t0 = time.perf_counter()
+    metrics = be._obs().metrics
+    table2, meta2 = be.materialize("q2_triangle"), be.meta("q2_triangle")
+    be.remove_pattern("q2_triangle")
+    n2, s2, _ = timed_stage(lambda: be.restore_pattern("q2_triangle", meta2.pattern,
+                                                       meta2.cover, table2))
+    plan1, table1 = be.plan("q1_square"), be.materialize("q1_square")
+    reuses0 = metrics.counter("plan_swap_carry_reuses_total").value
+    be.remove_pattern("q1_square")
+    n1, s1, peak = timed_stage(lambda: be.install_plan("q1_square", plan1, table1))
+    reuses = metrics.counter("plan_swap_carry_reuses_total").value - reuses0
+    be.obs.tracer.drain()   # the materialize spans
+    emit({"phase": "backend_restore", "stage": "restore", "q2_restore_seconds": s2,
+          "q1_install_seconds": s1, "peak_gib": peak, "counts": {"q1_square": n1,
+                                                                   "q2_triangle": n2},
+          "q2_executor": be.plan("q2_triangle").executor, "carry_reuses": reuses})
+    check((n1, n2) == (WT_COUNTS[N_BATCHES], WT_Q2_COUNTS[N_BATCHES]),
+          f"backend_restore: restored counts {(n1, n2)}")
+    check(reuses == 1, "backend_restore: the q1_square carry was not reused")
+    upd = sample_update(be.graph, c.n_del, c.n_add, seed=c.update_seed + N_BATCHES)
+    delta = shared_delta(upd, lo)
+    reps, seconds, peak = timed_stage(lambda: be.apply_batch(delta, set()))
+    rec = backend_record(be, reps, seconds, peak)
+    emit({"phase": "backend_restore", "stage": "batch", **rec,
+          "phase_seconds": time.perf_counter() - t0})
+    check_backend(be, rec, N_BATCHES + 1, "backend_restore")
+
+
+def backend_resize_phase() -> None:
+    """``backend_resize``: ``TorchBackend`` on the example graph
+    (``run.EXAMPLE_Q1``), q1_square, its megastep wrapped once to report a
+    store overflow: the stores are rebuilt from the partitions with doubled
+    caps and the batch retried (``store_resizes`` 1), and the counts stay
+    ``EXAMPLE_COUNTS``. Then a strict backend under a reported overflow
+    raises before it commits (partitions unchanged) and replays the batch."""
+    from repro_torch.backend import TorchBackend
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.data.graphs import rmat_graph, sample_update
+    from repro_torch.run import EXAMPLE_Q1 as c
+
+    t0 = time.perf_counter()
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+    want = EXAMPLE_COUNTS["q1_square"]
+
+    def build(strict: bool):
+        be = TorchBackend(graph, m=c.m, caps=config_caps(c), max_add=c.n_add,
+                          max_del=c.n_del, strict_overflow=strict)
+        check(be.register("q1_square", PATTERN_LIBRARY["q1_square"]) == want[0],
+              "backend_resize: stage-1 count")
+        return be
+
+    be = build(False)
+    e = be.entries["q1_square"]
+    caps0 = (e.store_caps.group_cap, e.store_caps.set_cap)
+    be.maintain_step = doctored_maintain(be, "q1_square", extra=3, store_extra=3)
+    counts, lo = [want[0]], 0
+    for b in range(N_BATCHES):
+        upd = sample_update(be.graph, c.n_del, c.n_add, seed=c.update_seed + b)
+        delta = shared_delta(upd, lo)
+        lo = delta.hi
+        reps = be.apply_batch(delta, set())
+        check(reps["q1_square"].overflow == 0, "backend_resize: overflow after the resize")
+        counts.append(be.count("q1_square"))
+    caps1 = (e.store_caps.group_cap, e.store_caps.set_cap)
+    rec = {"phase": "backend_resize", "counts": counts, "store_resizes": be.store_resizes,
+           "store_caps": [caps0, caps1]}
+    check(be.store_resizes == 1 and caps1 == (2 * caps0[0], 2 * caps0[1]),
+          f"backend_resize: {be.store_resizes} resizes, caps {caps0} -> {caps1}")
+    check(tuple(counts) == want, f"backend_resize: counts {counts} != {list(want)}")
+    del be
+
+    be = build(True)
+    pt0 = {f.name: getattr(be.pt, f.name).clone() for f in dataclasses.fields(be.pt)}
+    orig = be.maintain_step
+    be.maintain_step = doctored_maintain(be, "q1_square", extra=3, store_extra=0)
+    delta = shared_delta(sample_update(be.graph, c.n_del, c.n_add, seed=c.update_seed), 0)
+    try:
+        be.apply_batch(delta, set())
+        raised = False
+    except RuntimeError:
+        raised = True
+    unchanged = all(torch.equal(getattr(be.pt, k), v) for k, v in pt0.items())
+    kept = be.count("q1_square")
+    be.maintain_step = orig
+    be.apply_batch(delta, set())
+    rec.update(strict_raised=raised, strict_partitions_unchanged=unchanged,
+               strict_count_kept=kept, strict_replayed=be.count("q1_square"),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    check(raised and unchanged and kept == want[0] and be.count("q1_square") == want[1],
+          f"backend_resize: the strict backend did not abort and replay cleanly: {rec}")
+    del be
+    torch.cuda.empty_cache()
 
 
 def steady(fn, reps: int = 3):
@@ -2305,9 +2605,15 @@ def main() -> None:
 
     # 8. the generic-join executor: K5 + K4 on WT~, its audit and plain
     #    replay, the mixed megastep beside the tree, and the planted graph
-    wcoj_launches, auto_launches, wcoj_case = wcoj_phase(snaps_k, q2_tree_counts)
+    wcoj_launches, auto_launches, auto_snaps, auto_recs, wcoj_case = wcoj_phase(
+        snaps_k, q2_tree_counts)
     checks["member_probe"].append(wcoj_case)
     del snaps_k
+
+    # 8b. the streaming service's device backend over the same deployment
+    backend_launches = backend_phase(auto_snaps, auto_recs)
+    del auto_snaps
+    backend_resize_phase()
     planted_launches, planted_cases = wcoj_vs_tree_phase()
     checks["member_probe"].extend(planted_cases)
 
@@ -2376,7 +2682,7 @@ def main() -> None:
             # just before each path and read just after)
             entry["launches_by_path"] = {
                 "wt_q1": launches[name], "wt_clique": wcoj_launches[name],
-                "wt_multi_auto": auto_launches[name],
+                "wt_multi_auto": auto_launches[name], "backend": backend_launches[name],
                 **{path: n[name] for path, n in planted_launches.items()}}
         kernels.append(entry)
     emit({"kernels": kernels})

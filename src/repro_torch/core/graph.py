@@ -1,8 +1,8 @@
 """Undirected data graph in CSR form with sorted int64 edge codes.
 
-Host copy (NumPy only) of the parts of ``repro/core/graph.py`` the port
-uses: :class:`Graph`, :class:`GraphUpdate`, :func:`edge_codes`,
-:func:`decode_edges` and :meth:`Graph.apply_update`.
+Host copy (NumPy only) of ``repro/core/graph.py``: :class:`Graph`,
+:class:`GraphUpdate`, :func:`edge_codes` and :func:`decode_edges`, with
+every query the streaming service reads from its committed graph.
 """
 
 from __future__ import annotations
@@ -48,11 +48,19 @@ class GraphUpdate:
         a = np.asarray(list(add), dtype=np.int64).reshape(-1, 2)
         return GraphUpdate(delete=d, add=a)
 
+    @property
+    def size(self) -> int:
+        return int(self.delete.shape[0] + self.add.shape[0])
+
     def delete_codes(self) -> np.ndarray:
         return np.sort(edge_codes(self.delete))
 
     def add_codes(self) -> np.ndarray:
         return np.sort(edge_codes(self.add))
+
+    def touched_vertices(self) -> np.ndarray:
+        both = np.concatenate([self.delete.reshape(-1), self.add.reshape(-1)])
+        return np.unique(both)
 
 
 class Graph:
@@ -101,6 +109,9 @@ class Graph:
     def edges(self) -> np.ndarray:
         return decode_edges(self.codes)
 
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.indices[self.indptr[u] : self.indptr[u + 1]]
+
     def has_edges(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
         """Vectorized edge membership for aligned id arrays."""
         u = np.asarray(u, dtype=np.int64)
@@ -117,6 +128,35 @@ class Graph:
             return np.zeros(1, dtype=np.int64)
         return np.bincount(self._degrees)
 
+    def triangle_count(self) -> int:
+        """Exact triangle count Δ(d) (the NP-storage space bound, §III-B)."""
+        return int(self.triangles_per_edge().sum()) // 3
+
+    def triangles_per_edge(self) -> np.ndarray:
+        """For each edge (by ``codes`` order) the number of common neighbors."""
+        und = decode_edges(self.codes)
+        out = np.zeros(und.shape[0], dtype=np.int64)
+        for i in range(und.shape[0]):
+            a, b = und[i]
+            na = self.neighbors(int(a))
+            nb = self.neighbors(int(b))
+            if na.shape[0] > nb.shape[0]:
+                na, nb = nb, na
+            pos = np.searchsorted(nb, na)
+            pos = np.clip(pos, 0, nb.shape[0] - 1)
+            out[i] = int(np.count_nonzero(nb[pos] == na)) if nb.size else 0
+        return out
+
+    def common_neighbors(self, a: int, b: int) -> np.ndarray:
+        na = self.neighbors(a)
+        nb = self.neighbors(b)
+        if na.shape[0] > nb.shape[0]:
+            na, nb = nb, na
+        if nb.size == 0:
+            return na[:0]
+        pos = np.clip(np.searchsorted(nb, na), 0, nb.shape[0] - 1)
+        return na[nb[pos] == na]
+
     def apply_update(self, update: GraphUpdate) -> "Graph":
         """Return ``d' = d ⊖ E_d ⊕ E_a`` (ids may grow ``n``)."""
         del_codes = update.delete_codes()
@@ -127,6 +167,16 @@ class Graph:
         if update.add.size:
             n = max(n, int(update.add.max()) + 1)
         return Graph._from_codes(n, merged)
+
+    def subgraph_codes(self, vertices: np.ndarray) -> np.ndarray:
+        """Edge codes of the induced subgraph ``d[vertices]``."""
+        vset = np.sort(np.asarray(vertices, dtype=np.int64))
+        und = decode_edges(self.codes)
+        lo_in = np.searchsorted(vset, und[:, 0])
+        hi_in = np.searchsorted(vset, und[:, 1])
+        lo_ok = (lo_in < vset.size) & (vset[np.clip(lo_in, 0, vset.size - 1)] == und[:, 0])
+        hi_ok = (hi_in < vset.size) & (vset[np.clip(hi_in, 0, vset.size - 1)] == und[:, 1])
+        return self.codes[lo_ok & hi_ok]
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Graph(n={self.n}, m={self.num_edges})"

@@ -30,6 +30,7 @@ from .core.graph import decode_edges
 from .core.pattern import Pattern
 from .core.plan import LT, NEQ, JoinPlan, UnitPlan, WcojPlan, build_unit_plan
 from .core.storage import Partition
+from .core.vcbc import CompressedTable, Ragged
 from .kernels import ops
 
 __all__ = [
@@ -40,7 +41,7 @@ __all__ = [
     "dedup_rows", "lookup_sorted", "edge_probe", "center_adj_contrib",
     "apply_edge_delta_rows", "patch_partition", "deleted_edge_cols",
     "filter_deleted_dev", "merge_groups", "merge_tables_dev", "count_matches_dev",
-    "map_tensors",
+    "map_tensors", "comp_to_host",
 ]
 
 PAD = -1
@@ -893,3 +894,23 @@ def count_matches_dev(tc: CompTensors, skel_cols: Sequence[int], ord_) -> torch.
                                *[op.to(torch.float64) for op in operands])
             total = total + per.round().to(torch.int64).sum()
     return total
+
+
+def comp_to_host(tc: CompTensors, pattern: Pattern, cover: Sequence[int],
+                 skel_cols: Sequence[int]) -> CompressedTable:
+    """Padded VCBC tensors back into a host
+    :class:`~repro_torch.core.vcbc.CompressedTable` (twin of
+    ``jax_engine.comp_to_host``). ``tc`` holds NumPy arrays or CPU tensors;
+    a device table is pulled to the host first (``TorchBackend._pull``)."""
+    skel = np.asarray(tc.skeleton, np.int64)
+    valid = np.asarray(tc.valid, bool)
+    keep = np.nonzero(valid)[0]
+    rows = skel[keep]
+    comp: Dict[int, Ragged] = {}
+    for v in sorted(int(k) for k in tc.sets):
+        a = np.asarray(tc.sets[v], np.int64)[keep]
+        g, s = np.nonzero(a >= 0)
+        comp[int(v)] = Ragged.from_group_ids(g.astype(np.int64), a[g, s], rows.shape[0])
+    return CompressedTable(pattern=pattern, cover=tuple(sorted(int(c) for c in cover)),
+                           skeleton_cols=tuple(int(c) for c in skel_cols), skeleton=rows,
+                           comp=comp)

@@ -1,8 +1,8 @@
 """Match-store and WCOJ level cap sizing from the §IV-D estimators.
 
-Host copy of ``StoreCaps``, ``match_caps``, ``quantize_store_caps``,
-``unit_table_caps``, ``wcoj_prefix_estimates`` and ``wcoj_level_caps`` from
-``repro/planner/sizing.py``. ``caps`` only needs ``group_cap`` and
+Host copy of ``StoreCaps``, ``ShardingSpec``, ``match_caps``,
+``quantize_store_caps``, ``unit_table_caps``, ``wcoj_prefix_estimates`` and
+``wcoj_level_caps`` from ``repro/planner/sizing.py``. ``caps`` only needs ``group_cap`` and
 ``set_cap`` attributes. :func:`calibrate_wcoj_caps` is the register-time
 calibration of the streaming service's sharded backend
 (``ShardedBackend._calibrate_wcoj_caps``) as a plain function.
@@ -19,7 +19,7 @@ from ..core.pattern import Pattern
 from ..core.plan import WcojPlan
 from ..core.storage import NPStorage
 
-__all__ = ["StoreCaps", "match_caps", "quantize_store_caps", "unit_table_caps",
+__all__ = ["StoreCaps", "ShardingSpec", "match_caps", "quantize_store_caps", "unit_table_caps",
            "wcoj_prefix_estimates", "wcoj_level_caps", "calibrate_wcoj_caps"]
 
 
@@ -30,6 +30,18 @@ class StoreCaps:
 
     group_cap: int
     set_cap: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingSpec:
+    """Copy of ``repro.planner.sizing.ShardingSpec``: a running match set is
+    placed over ``m`` partitions by the int32 ownership hash of its
+    ``key_cols`` (the full skeleton, cover ∩ V(p), sorted), the rule the
+    patch merge uses too (:func:`repro_torch.sharded._owner_of`)."""
+
+    m: int
+    key_cols: Tuple[int, ...]
+    placement: str = "full_skeleton_owner_hash"
 
 
 def _up(x: float, align: int) -> int:

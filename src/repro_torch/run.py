@@ -9,7 +9,7 @@ step for every pattern (:func:`~repro_torch.sharded.make_maintain_mega_step`).
 Its answer to a batch is each pattern's exact maintained match count.
 
 Each pattern runs the executor that ``RunConfig.executor`` picks, as the
-service's planner does (:func:`~repro_torch.planner.compiler.choose_executor`):
+service's planner does (:func:`~repro_torch.planner.compiler.compile_plan`):
 a join tree, whose stage 1 is :func:`~repro_torch.sharded.make_list_step` +
 :func:`~repro_torch.sharded.make_init_store_step` and the cold fill of its
 unit-table carry (:func:`~repro_torch.sharded.make_unit_refresh_step`), or
@@ -38,19 +38,17 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .core.cost import CostModel
 from .core.estimator import GraphStats
 from .core.graph import GraphUpdate
-from .core.join_tree import minimum_unit_decomposition, optimal_join_tree
-from .core.pattern import PATTERN_LIBRARY, Pattern, R1Unit, symmetry_break
+from .core.pattern import PATTERN_LIBRARY, Pattern, R1Unit
 from .core.plan import WcojPlan
 from .core.storage import build_np_storage
 from .data.graphs import PLANTED_M_BG, PLANTED_N, planted_graph, rmat_graph, sample_update
 from .engine import EngineCaps
 from .mesh import LocalMesh
-from .planner.compiler import choose_cover, choose_executor
-from .planner.lowering import TreeProgram, build_tree_program
-from .planner.sizing import calibrate_wcoj_caps, match_caps, quantize_store_caps, unit_table_caps
+from .planner.compiler import CompileContext, compile_plan
+from .planner.lowering import TreeProgram
+from .planner.sizing import calibrate_wcoj_caps, quantize_store_caps
 from . import sharded
 
 __all__ = ["RunConfig", "WT_Q1", "WT_MULTI", "WT_CLIQUE", "WT_MULTI_AUTO", "EXAMPLE_Q1",
@@ -216,41 +214,35 @@ class PatternPlan:
 def plan_pattern(name: str, stats: GraphStats, storage, caps: EngineCaps, mesh: LocalMesh,
                  executor: str = "tree") -> PatternPlan:
     """Compile one library pattern for ``mesh.size`` partitions, as the
-    service's planner and registration do: symmetry breaking, cover, join
-    tree and its caps, the executor choice and, for the generic join, the
-    calibration of its level caps and store groups over ``storage`` (the
-    host NP storage the partitions were padded from)."""
-    pattern = PATTERN_LIBRARY[name]
-    ord_ = symmetry_break(pattern)
-    cover = choose_cover(pattern, ord_, stats)
-    tree = optimal_join_tree(pattern, cover, CostModel(cover, ord_, stats))
-    prog = build_tree_program(tree, cover, ord_)
-    units = tuple(minimum_unit_decomposition(pattern, cover))
-    store_caps = match_caps(pattern, cover, ord_, stats, caps)
-    unit_caps = unit_table_caps(units, cover, ord_, stats, caps)
-    choice = choose_executor(pattern, ord_, stats, tree.cost, executor, mesh.size, caps,
-                             store_caps)
-    if choice.executor == "wcoj":
+    service's registration does: :func:`~repro_torch.planner.compile_plan`
+    (symmetry breaking, cover, join tree, caps, executor) and, for the
+    generic join, the calibration of its level caps and store groups over
+    ``storage`` (the host NP storage the partitions were padded from)."""
+    plan = compile_plan(CompileContext(pattern=PATTERN_LIBRARY[name], stats=stats,
+                                       m=mesh.size, caps=caps, executor=executor))
+    common = dict(name=name, pattern=plan.pattern, ord=plan.ord, cover=plan.cover,
+                  prog=plan.program, units=plan.units, unit_caps=plan.unit_caps,
+                  cost=plan.cost)
+    if plan.executor == "wcoj":
         # the service's register-time calibration: observed level sizes set
         # the level caps, the last level's the store's group floor
-        level_caps, floor = calibrate_wcoj_caps(storage, choice.wcoj)
+        level_caps, floor = calibrate_wcoj_caps(storage, plan.wcoj)
         store_caps = quantize_store_caps(dataclasses.replace(
-            choice.store_caps, group_cap=max(choice.store_caps.group_cap, floor)))
+            plan.store_caps, group_cap=max(plan.store_caps.group_cap, floor)))
         return PatternPlan(
-            name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
-            store_caps=store_caps, unit_caps=unit_caps,
-            list_step=sharded.make_wcoj_list_step(pattern, choice.wcoj, mesh, caps,
+            **common, store_caps=store_caps,
+            list_step=sharded.make_wcoj_list_step(plan.pattern, plan.wcoj, mesh, caps,
                                                   level_caps),
-            init_step=sharded.make_wcoj_init_store_step(pattern, ord_, mesh, store_caps),
-            refresh_step=None, executor="wcoj", wcoj=choice.wcoj, level_caps=level_caps,
-            cost=choice.cost)
+            init_step=sharded.make_wcoj_init_store_step(plan.pattern, plan.ord, mesh,
+                                                        store_caps),
+            refresh_step=None, executor="wcoj", wcoj=plan.wcoj, level_caps=level_caps)
+    prog = plan.program
     return PatternPlan(
-        name=name, pattern=pattern, ord=ord_, cover=cover, prog=prog, units=units,
-        store_caps=store_caps, unit_caps=unit_caps,
+        **common, store_caps=plan.store_caps,
         list_step=sharded.make_list_step(prog, mesh, caps),
-        init_step=sharded.make_init_store_step(prog, mesh, caps, store_caps),
-        refresh_step=sharded.make_unit_refresh_step(prog, units, mesh, caps, unit_caps),
-        cost=choice.cost)
+        init_step=sharded.make_init_store_step(prog, mesh, caps, plan.store_caps),
+        refresh_step=sharded.make_unit_refresh_step(prog, plan.units, mesh, caps,
+                                                    plan.unit_caps))
 
 
 class Pipeline:

@@ -1,6 +1,7 @@
 """Whole join-tree programs over ``m`` NP partitions on one card.
 
-Port of ``repro/dist/sharded.py`` but ``stack_matches``.
+Port of ``repro/dist/sharded.py`` (its ``*_specs`` helpers have no role on
+:class:`~repro_torch.mesh.LocalMesh`).
 The partitions are a leading ``[m]`` axis of every input and output
 (partition ``j`` holds the centers ``h(v) = v mod m``); each step loops
 over them and meets the other partitions only through
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from . import engine as je
+from .core.match_engine import ragged_expand
 from .core.navjoin import left_deep_order
 from .core.pattern import Pattern, R1Unit
 from .core.plan import JoinPlan, UnitPlan, WcojPlan, build_unit_plan
@@ -60,7 +62,7 @@ __all__ = [
     "make_patch_step", "make_update_step", "MatchStore", "StoreCaps", "match_caps",
     "UnitCarry", "unit_plan_registry", "unit_table_caps", "make_unit_refresh_step",
     "make_init_store_step", "make_wcoj_list_step", "make_wcoj_init_store_step",
-    "make_maintain_step", "MaintainSpec", "make_maintain_mega_step",
+    "make_maintain_step", "MaintainSpec", "make_maintain_mega_step", "stack_matches",
 ]
 
 
@@ -842,6 +844,63 @@ class MatchStore:
             skeleton=self.skeleton.reshape(-1, self.skeleton.shape[-1]),
             valid=self.valid.reshape(-1),
             sets={v: a.reshape(-1, a.shape[-1]) for v, a in self.sets.items()})
+
+
+def _owner_rows_np(skel: np.ndarray, m: int) -> np.ndarray:
+    """Host twin of :func:`_owner_of` (int32 wraparound semantics)."""
+    h = np.zeros(skel.shape[0], np.int32)
+    with np.errstate(over="ignore"):
+        for j in range(skel.shape[1]):
+            h = h * np.int32(1000003) + skel[:, j].astype(np.int32)
+    return ((h.astype(np.int64) % m) + m) % m
+
+
+def stack_matches(table, m: int, store: StoreCaps, device="cuda") -> MatchStore:
+    """Shard a host :class:`~repro_torch.core.vcbc.CompressedTable` into a
+    stacked :class:`MatchStore` on ``device`` by full-skeleton ownership
+    (the restore path; registration builds the store on the card through
+    :func:`make_init_store_step`). Shard ``j`` holds the groups that hash to
+    ``j``, in table order, with PAD tails. The caps must hold every owner's
+    shard: a misfit is a sizing error and raises instead of truncating (the
+    first misfit in shard order, as ``sharded.stack_matches`` finds it).
+
+    The padded tensors are built on ``device`` and only the table's values
+    cross from the host (a WT~ store is tens of GiB once padded)."""
+    S = len(table.skeleton_cols)
+    G, C = store.group_cap, store.set_cap
+    owner = _owner_rows_np(table.skeleton.astype(np.int64), m)
+    comp_labels = sorted(int(v) for v in table.comp)
+    order = np.argsort(owner, kind="stable")
+    shard = owner[order]
+    n_of = np.bincount(owner, minlength=m)
+    slot = np.arange(order.shape[0]) - np.repeat(np.cumsum(n_of) - n_of, n_of)
+    counts = {v: np.diff(table.comp[v].offsets)[order] for v in comp_labels}
+    for j in range(m):
+        if n_of[j] > G:
+            raise ValueError(f"shard {j} holds {n_of[j]} groups > group_cap={G}")
+        for v in comp_labels:
+            over = counts[v][shard == j]
+            over = over[over > C]
+            if over.size:
+                raise ValueError(f"group set has {int(over[0])} values > set_cap={C}")
+
+    def put(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    sh, sl = put(shard, torch.long), put(slot, torch.long)
+    skel = torch.full((m, G, S), PAD, dtype=torch.int32, device=device)
+    skel[sh, sl] = put(table.skeleton[order])
+    valid = torch.zeros((m, G), dtype=torch.bool, device=device)
+    valid[sh, sl] = True
+    sets = {}
+    for v in comp_labels:
+        r = table.comp[v]
+        rep, vals = ragged_expand(r.offsets[order], counts[v], r.values)
+        col = np.arange(rep.shape[0]) - np.repeat(np.cumsum(counts[v]) - counts[v], counts[v])
+        rep_t = put(rep, torch.long)
+        sets[v] = torch.full((m, G, C), PAD, dtype=torch.int32, device=device)
+        sets[v][sh[rep_t], sl[rep_t], put(col, torch.long)] = put(vals)
+    return MatchStore(skeleton=skel, valid=valid, sets=sets)
 
 
 def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: LocalMesh, store: StoreCaps):

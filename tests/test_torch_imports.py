@@ -22,6 +22,21 @@ w1, wb = stages(Pipeline(replace(EXAMPLE_Q1, pattern="q2_triangle", executor="wc
                          use_kernels=False), 1)
 assert w1["count"] == 188 and w1["overflow"] == 0, w1
 assert wb["count"] == 182 and wb["overflow"] == 0 and wb["unit_refreshes"] == 0, wb
+import repro_torch.obs, repro_torch.planner.compiler
+from repro_torch.backend import TorchBackend
+from repro_torch.core.pattern import PATTERN_LIBRARY
+from repro_torch.data.graphs import rmat_graph, sample_update
+from repro_torch.stream import SharedDelta
+g = rmat_graph(7, 320, seed=0)
+from repro_torch.engine import EngineCaps
+caps = EngineCaps(**{f: getattr(EXAMPLE_Q1, f) for f in ("v_cap", "deg_cap", "e_cap",
+                    "match_cap", "group_cap", "set_cap", "pair_cap")})
+be = TorchBackend(g, m=8, caps=caps, max_add=4, max_del=4, device="cpu")
+assert be.register("sq", PATTERN_LIBRARY["q1_square"]) == 1282
+u = sample_update(g, 4, 4, seed=100)
+rep = be.apply_batch(SharedDelta(lo=0, hi=8, update=u, add_codes=u.add_codes(),
+                                 delete_codes=u.delete_codes()), set())
+assert rep["sq"].count_after == 1238 and rep["sq"].overflow == 0, rep
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.data import build_graph_data

@@ -294,17 +294,19 @@ def _store_rows(store, p):
     return set(map(tuple, back.decompress(p.ord)[1].tolist()))
 
 
-def test_megastep_with_q5_house_at_m8_matches_host_ddsl():
-    """q5_house (and q1_square) as megastep slots at m = 8 equal the host
-    DDSL after stage 1 and each of three batches: counts and match sets."""
-    g = random_graph(30, 70, seed=47)
+def _megastep_at_m8(names, n, n_edges, seed):
+    """The named patterns (tree executor) as slots of one megastep at m = 8
+    on ``random_graph(n, n_edges, seed)`` against the host DDSL after stage
+    1 and each of three batches: counts and match sets. Returns the host
+    engines."""
+    g = random_graph(n, n_edges, seed=seed)
     m = 8
     jc, tc = _caps()
     mesh = LocalMesh(m)
     storage = build_np_storage(g, m)
     pt = tsh.stack_partitions(storage, tc, "cpu")
     pats, stores, carries, hosts, specs = {}, {}, {}, {}, []
-    for name in ("q5_house", "q1_square"):
+    for name in names:
         p = pats[name] = _pattern(g, name, jc)
         root, _ = tsh.make_list_step(p.prog, mesh, tc)(pt)
         stores[name], d = tsh.make_init_store_step(p.prog, mesh, tc, p.store)(root)
@@ -321,7 +323,7 @@ def test_megastep_with_q5_house_at_m8_matches_host_ddsl():
     rng = np.random.default_rng(59)
     cur = storage
     for b in range(3):
-        add, dele = _sample_batch(cur.graph, rng, 3, 30)
+        add, dele = _sample_batch(cur.graph, rng, 3, n)
         cur, _ = update_np_storage(cur, GraphUpdate(delete=dele, add=add))
         ta = torch.from_numpy(add.astype(np.int32))
         td_ = torch.from_numpy(dele.astype(np.int32))
@@ -332,7 +334,22 @@ def test_megastep_with_q5_house_at_m8_matches_host_ddsl():
             assert int(diag[name]["overflow"]) == 0, (b, name)
             assert int(diag[name]["count"]) == hosts[name].count(), (b, name)
             assert _store_rows(stores[name], p) == _host_rows(hosts[name]), (b, name)
+    return hosts
+
+
+def test_megastep_with_q5_house_at_m8_matches_host_ddsl():
+    """q5_house (and q1_square) as megastep slots at m = 8 equal the host
+    DDSL after stage 1 and each of three batches: counts and match sets."""
+    hosts = _megastep_at_m8(("q5_house", "q1_square"), 30, 70, seed=47)
     assert hosts["q5_house"].count() > 0
+
+
+def test_megastep_tree_q3_diamond_q4_clique4_at_m8_matches_host_ddsl():
+    """q3_diamond and q4_clique4 on their join trees as megastep slots at
+    m = 8 equal the host DDSL after stage 1 and each of three batches (a
+    denser graph than q5_house's, which holds 11 K4s)."""
+    hosts = _megastep_at_m8(("q3_diamond", "q4_clique4"), 20, 70, seed=50)
+    assert hosts["q3_diamond"].count() > 0 and hosts["q4_clique4"].count() > 0
 
 
 # A small graph and caps for whole pipelines (stage 1 + three batches).
