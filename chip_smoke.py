@@ -97,6 +97,28 @@ Prints one JSON object per line, in phases:
    rebuilds the stores with doubled caps and retries the batch
    (``store_resizes`` 1, counts ``EXAMPLE_COUNTS``); a strict backend
    raises before it commits, its partitions unchanged, and replays.
+   ``service``: the port's streaming front door,
+   ``repro_torch.stream.ListingService(graph, backend="sharded")``, over
+   the same deployment (a ``TorchBackend`` built by the service), q1_square
+   and q2_triangle registered through it, a ``BatchScheduler(min_ops=64,
+   max_ops=64)``, a ``CountDeltaSink``, spans on. The three 64 + 64 updates
+   of ``backend`` are ingested into the journal and one ``advance()``
+   commits them as six batches (64 deletions, then 64 insertions): counts
+   ``WT_COUNTS`` / ``WT_Q2_COUNTS`` at watermarks 128, 256, 384 and
+   ``SERVICE_DELETE_COUNTS`` at 64, 192, 320, 64 ops, overflow and host
+   bytes 0 in every ``BatchMetrics``, the sink's deltas adding up to the
+   final counts. Per batch: latency, ``apply_batch``, the storage update's
+   and the megastep's seconds, the service's own host seconds, the
+   prediction, drift and peak; the batches' launches are
+   ``launches_by_path["service"]``. Then ``svc.audit()``: the host
+   ``DDSL`` at m = 4 on the committed graph, timed. ``service_small``: the
+   service on the example graph with ``audit_every=1`` and a
+   ``MatchDeltaSink`` on both patterns (materialize and removed rows on the
+   card): counts ``EXAMPLE_COUNTS`` at each update's watermark, each
+   batch's row deltas giving its rows, a snapshot after the second update
+   restored with ``backend="sharded"`` and ``backend="host"`` (each takes
+   the third update to ``EXAMPLE_COUNTS``), and a manual
+   ``PlanManager.reoptimize`` leaving the counts as they were.
 9. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
    plain version on their float64 accumulators, each case through its
    segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
@@ -200,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -235,6 +258,13 @@ EXAMPLE_COUNTS = {"q1_square": (1282, 1238, 1128, 1086), "q2_triangle": (188, 18
 WT_K5_COUNTS = (13_098, 12_437, 11_386, 11_191, 8_918)
 WT_K4_COUNTS = (15_320, 14_817, 14_074, 13_790, 12_341)
 WT_Q2_COUNTS = (12_691, 12_474, 12_191, 11_983, 11_544)
+# The same three batches split as the service commits them at 64 ops a batch:
+# the counts after each batch's 64 deletions alone (watermarks 64, 192, 320),
+# from the JAX package's host DDSL (repro.core.DDSL, m = 8, initial() then
+# apply() of each batch's deletions and then of its insertions) on the CPU;
+# at the insertions' watermarks it gives WT_COUNTS and WT_Q2_COUNTS.
+SERVICE_DELETE_COUNTS = {"q1_square": (385_386, 373_611, 365_792),
+                         "q2_triangle": (12_470, 12_187, 11_978)}
 # K5 / K4 on the planted near-clique graph (benchmarks/bench_wcoj.py), from
 # the host generic join; the tree executor's match_cap starts at 8,192 and
 # grows 4x until its listing is lossless, as bench_wcoj.py's does.
@@ -1251,6 +1281,244 @@ def backend_resize_phase() -> None:
           f"backend_resize: the strict backend did not abort and replay cleanly: {rec}")
     del be
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The streaming service's front door (repro_torch.stream.ListingService)
+# ---------------------------------------------------------------------------
+
+def free_device_memory() -> None:
+    """Collect reference cycles, then return the cached blocks to the card:
+    a backend's wrapped steps hold bound methods of it, so ``del`` alone
+    leaves its stores allocated until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def service_trace(svc, apply_s):
+    """Per committed batch: a ``CallbackSink`` recording the peak device
+    memory since the last batch and the scheduler's drift, and a wrapper of
+    the backend's ``apply_batch`` recording its seconds into ``apply_s``."""
+    from repro_torch.stream import CallbackSink
+
+    seen = {}
+
+    def on_event(ev):
+        if ev.batch_index not in seen:
+            seen[ev.batch_index] = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                    "drift": svc.scheduler.drift(),
+                                    "last_drift": svc.scheduler.last_drift}
+            torch.cuda.reset_peak_memory_stats()
+
+    apply_batch = svc.backend.apply_batch
+
+    def timed_apply(delta, want):
+        t0 = time.perf_counter()
+        out = apply_batch(delta, want)
+        apply_s.append(time.perf_counter() - t0)
+        return out
+
+    svc.backend.apply_batch = timed_apply
+    svc.subscribe(CallbackSink(on_event))
+    return seen
+
+
+def service_phase():
+    """``service``: the port's ``ListingService(graph, backend="sharded")``
+    over ``run.WT_MULTI_AUTO``'s deployment (WT~, m = 8, WT_Q1's caps, 64 +
+    64 updates, executor="auto", the kernels on), q1_square and q2_triangle
+    registered through the service, a ``BatchScheduler(min_ops=64,
+    max_ops=64)``, a ``CountDeltaSink`` and ``Observability.full()``. The
+    N_BATCHES updates of ``backend`` are ingested, then one ``advance()``
+    commits them as 6 batches of 64 deletions or 64 insertions. Counts at
+    watermarks 128, 256, 384 are ``WT_COUNTS`` / ``WT_Q2_COUNTS``, at 64,
+    192, 320 ``SERVICE_DELETE_COUNTS``; every batch has 64 ops and no
+    overflow or host bytes; the sink's deltas add up to the final counts.
+    Per batch: latency, the storage update's and the megastep's seconds,
+    the service's own host seconds (the batch's span less the backend's
+    ``apply_batch``), the prediction, drift and peak. Then ``svc.audit()``
+    (the host ``DDSL`` at m = 4 on the committed graph), timed. Returns the
+    DDSL kernels' launches over the advance."""
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.data.graphs import rmat_graph, sample_update
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observability
+    from repro_torch.run import WT_MULTI_AUTO as c
+    from repro_torch.stream import BatchScheduler, CountDeltaSink, ListingService
+
+    free_device_memory()   # backend_phase's TorchBackend: one deployment fits the card
+    allocated = torch.cuda.memory_allocated() / 2**30
+    t_phase = time.perf_counter()
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+
+    def stage1():
+        svc = ListingService(graph, backend="sharded", m=c.m, caps=config_caps(c),
+                             max_add=c.n_add, max_del=c.n_del, executor=c.executor,
+                             scheduler=BatchScheduler(min_ops=64, max_ops=64),
+                             obs=Observability.full())
+        for name in BACKEND_PATTERNS:
+            svc.register(name, PATTERN_LIBRARY[name])
+        return svc
+
+    svc, seconds, peak = timed_stage(stage1)
+    counts = svc.counts()
+    executors = {n: svc.backend.plan(n).executor for n in BACKEND_PATTERNS}
+    emit({"phase": "service", "stage": "stage1", "counts": counts, "seconds": seconds,
+          "peak_gib": peak, "allocated_gib_before": allocated, "executors": executors})
+    check(executors == {"q1_square": "tree", "q2_triangle": "wcoj"},
+          f"service: executors {executors}")
+    check((counts["q1_square"], counts["q2_triangle"]) == (WT_COUNTS[0], WT_Q2_COUNTS[0]),
+          f"service: stage-1 counts {counts}")
+    sink = svc.subscribe(CountDeltaSink())
+    apply_s = []
+    seen = service_trace(svc, apply_s)
+    for b in range(N_BATCHES):
+        svc.ingest(sample_update(svc.projected_graph(), c.n_del, c.n_add,
+                                 seed=c.update_seed + b))
+    svc.obs.tracer.drain()   # stage 1's spans
+    ops.reset_launch_counts()
+    (metrics, advance_s, _) = timed_stage(svc.advance)
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    roots = [sp for sp in svc.obs.tracer.drain() if sp.name == "batch"]
+    check(len(metrics) == 2 * N_BATCHES == len(roots) == len(apply_s),
+          f"service: {len(metrics)} batches, {len(roots)} batch spans")
+    running = dict(counts)
+    for i, (bm, root) in enumerate(zip(metrics, roots)):
+        took = {name: sum(sp.dur_s for sp in root.walk() if sp.name == name)
+                for name in ("shared_delta", "storage_update", "maintain_mega", "sinks")}
+        now = {n: r.count_after for n, r in bm.patterns.items()}
+        rec = {"phase": "service", "stage": "batch", "batch": i, "lo": bm.lo, "hi": bm.hi,
+               "n_ops": bm.n_ops, "net_add": bm.net_add, "net_delete": bm.net_delete,
+               "counts": now, "latency_s": bm.latency_s, "apply_batch_s": apply_s[i],
+               "storage_update_s": took["storage_update"],
+               "maintain_mega_s": took["maintain_mega"], "shared_delta_s": took["shared_delta"],
+               "sinks_s": took["sinks"], "batch_span_s": root.dur_s,
+               "service_host_s": root.dur_s - apply_s[i], "predicted_s": bm.predicted_s,
+               **seen.get(i, {}), "overflow": bm.overflow,
+               "storage_overflow": bm.storage_overflow, "host_bytes": bm.host_bytes,
+               "cand_vertices": bm.cand_vertices, "cand_edges": bm.cand_edges,
+               "invalidated_parts": bm.invalidated_parts}
+        emit(rec)
+        k = (i + 1) // 2
+        want = ((WT_COUNTS[k], WT_Q2_COUNTS[k]) if i % 2 else
+                (SERVICE_DELETE_COUNTS["q1_square"][k], SERVICE_DELETE_COUNTS["q2_triangle"][k]))
+        check((now["q1_square"], now["q2_triangle"]) == want,
+              f"service: counts {now} at watermark {bm.hi} != {want}")
+        check(bm.n_ops == 64 and bm.hi == 64 * (i + 1), f"service: batch {i} is {bm.lo}-{bm.hi}")
+        check(bm.overflow == bm.storage_overflow == bm.host_bytes == 0,
+              f"service: overflow or host bytes in batch {i}: {rec}")
+        check(all(r.count_before == running[n] for n, r in bm.patterns.items()),
+              f"service: batch {i} did not start at the last counts")
+        running = now
+    final = svc.counts()
+    check(all(counts[n] + sink.totals.get(n, 0) == final[n] for n in final),
+          f"service: sink deltas {sink.totals} do not add up to {final} from {counts}")
+    for k in DDSL_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the service path")
+    emit({"phase": "service", "launches": launches, "advance_seconds": advance_s,
+          "seconds": time.perf_counter() - t_phase})
+    t0 = time.perf_counter()
+    audit = svc.audit()
+    emit({"phase": "service", "stage": "audit", "audit": audit, "m": 4,
+          "seconds": time.perf_counter() - t0})
+    check(audit == {n: True for n in BACKEND_PATTERNS}, f"service: audit {audit}")
+    del svc
+    free_device_memory()
+    return launches
+
+
+def service_small_phase() -> None:
+    """``service_small``: the service on the example graph (``run.EXAMPLE_Q1``'s
+    graph and caps, 4 + 4 updates), q1_square and q2_triangle,
+    ``audit_every=1`` and a ``MatchDeltaSink`` on both patterns (so every
+    batch materializes on the card and reads the removed rows). Counts at
+    each update's watermark are ``EXAMPLE_COUNTS``; each batch's removed and
+    added rows, applied to the rows before it, give the rows after it. After
+    the second update a snapshot restores with ``backend="sharded"`` and
+    ``backend="host"``; each takes the third update to ``EXAMPLE_COUNTS``.
+    Last a manual ``PlanManager.reoptimize`` (verified by an audit after any
+    swap) leaves the counts as they were."""
+    import tempfile
+
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.data.graphs import rmat_graph, sample_update
+    from repro_torch.run import EXAMPLE_Q1 as c
+    from repro_torch.stream import (BatchScheduler, CallbackSink, ListingService,
+                                    MatchDeltaSink, PlanManager)
+
+    t_phase = time.perf_counter()
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+    kw = dict(m=c.m, caps=config_caps(c), max_add=c.n_add, max_del=c.n_del)
+
+    def scheduler():
+        return BatchScheduler(min_ops=c.n_del, max_ops=c.n_del)
+
+    svc = ListingService(graph, backend="sharded", scheduler=scheduler(), audit_every=1, **kw)
+    for name in BACKEND_PATTERNS:
+        svc.register(name, PATTERN_LIBRARY[name])
+
+    def rows(name):
+        return set(map(tuple, svc.backend.matches_plain(name).tolist()))
+
+    deltas = svc.subscribe(MatchDeltaSink(BACKEND_PATTERNS))
+    after = {}   # (pattern, hi) -> rows after the batch
+    svc.subscribe(CallbackSink(lambda ev: after.__setitem__((ev.pattern, ev.hi),
+                                                            rows(ev.pattern))))
+    before = {n: rows(n) for n in BACKEND_PATTERNS}
+    counts = [svc.counts()]
+    updates = []
+    snap_dir = tempfile.TemporaryDirectory(prefix="service_snapshot_")
+    snap = snap_dir.name
+    for u in range(N_BATCHES):
+        updates.append(sample_update(svc.projected_graph(), c.n_del, c.n_add,
+                                     seed=c.update_seed + u))
+        svc.ingest(updates[-1])
+        svc.advance()
+        counts.append(svc.counts())
+        if u == 1:
+            svc.snapshot(snap)
+    for i, want in enumerate(zip(EXAMPLE_COUNTS["q1_square"], EXAMPLE_COUNTS["q2_triangle"])):
+        got = (counts[i]["q1_square"], counts[i]["q2_triangle"])
+        check(got == want, f"service_small: counts {got} after update {i} != {want}")
+    consistent = True
+    for (name, hi), post in sorted(after.items(), key=lambda kv: kv[0][1]):
+        gone = {tuple(r) for p, h, rs in deltas.removed if (p, h) == (name, hi)
+                for r in rs.tolist()}
+        new = {tuple(r) for p, h, rs in deltas.added if (p, h) == (name, hi)
+               for r in rs.tolist()}
+        consistent &= gone <= before[name] and (before[name] - gone) | new == post
+        before[name] = post
+    check(consistent, "service_small: a batch's row deltas do not give its rows")
+    check(len(svc.audits) == len(svc.metrics) and all(ok for *_, ok in svc.audits),
+          f"service_small: audits {svc.audits}")
+    check(all(bm.overflow == 0 for bm in svc.metrics), "service_small: overflow")
+    restored = {}
+    for backend in ("sharded", "host"):
+        extra = kw if backend == "sharded" else {}
+        back = ListingService.restore(snap, backend=backend, scheduler=scheduler(), **extra)
+        check(back.counts() == counts[2], f"service_small: {backend} restore {back.counts()}")
+        back.ingest(updates[2])
+        back.advance()
+        restored[backend] = back.counts()
+        check(restored[backend] == counts[3] and all(back.audit().values()),
+              f"service_small: {backend} restore then update 3 gives {restored[backend]}")
+        del back
+    snap_dir.cleanup()
+    pm = PlanManager(verify=True)
+    events = pm.reoptimize(svc, trigger="manual")
+    check(svc.counts() == counts[3], f"service_small: counts after the plan manager "
+          f"{svc.counts()} != {counts[3]}")
+    emit({"phase": "service_small", "counts": counts, "batches": len(svc.metrics),
+          "audits": len(svc.audits),
+          "host_bytes": [bm.host_bytes for bm in svc.metrics],
+          "row_deltas_consistent": consistent, "restored": restored,
+          "plan_events": [{"pattern": e.pattern, "swapped": e.swapped,
+                           "incumbent_cost": e.incumbent_cost,
+                           "candidate_cost": e.candidate_cost, "count": e.count}
+                          for e in events],
+          "seconds": time.perf_counter() - t_phase})
+    del svc
+    free_device_memory()
 
 
 def steady(fn, reps: int = 3):
@@ -2614,6 +2882,11 @@ def main() -> None:
     backend_launches = backend_phase(auto_snaps, auto_recs)
     del auto_snaps
     backend_resize_phase()
+
+    # 8c. the service's front door on the card: ingest, journal, scheduler,
+    #     shared delta, the device backend, sinks, audits, snapshots, swaps
+    service_launches = service_phase()
+    service_small_phase()
     planted_launches, planted_cases = wcoj_vs_tree_phase()
     checks["member_probe"].extend(planted_cases)
 
@@ -2683,6 +2956,7 @@ def main() -> None:
             entry["launches_by_path"] = {
                 "wt_q1": launches[name], "wt_clique": wcoj_launches[name],
                 "wt_multi_auto": auto_launches[name], "backend": backend_launches[name],
+                "service": service_launches[name],
                 **{path: n[name] for path, n in planted_launches.items()}}
         kernels.append(entry)
     emit({"kernels": kernels})

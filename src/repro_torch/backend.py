@@ -1,8 +1,9 @@
 """`TorchBackend` — the streaming service's device backend on one card.
 
-Twin of ``ShardedBackend`` (``repro/stream/service.py``): the same
-``StreamBackend`` contract, fulfilled by duck typing, so a
-:class:`TorchBackend` plugs into a streaming service as its ``backend``
+Twin of ``ShardedBackend`` (``repro/stream/service.py``): a subclass of
+the port's :class:`~repro_torch.stream.service.StreamBackend`, which the
+port's ``ListingService(graph, backend="sharded")`` builds; by duck typing
+it plugs into the JAX package's service too
 (``ListingService(graph, backend=TorchBackend(graph, ...))``). Per batch it
 runs one candidate-restricted storage update
 (:func:`~repro_torch.sharded.make_storage_update_step`) and one fused
@@ -13,9 +14,9 @@ Running match sets stay on the device: a count-only batch pulls scalars,
 and tables reach the host only through :meth:`TorchBackend.materialize`
 (valid prefix only, byte-accounted through ``_pull``).
 
-Beside it: :class:`PatternMeta`, :class:`PatternReport`,
-:func:`_meta_from_plan` and :func:`_default_caps`, copies from the same
-module.
+Beside it: :func:`_default_caps`, a copy from the same module.
+:class:`PatternMeta` and :class:`PatternReport` are the port's service's
+(:mod:`repro_torch.stream.service`).
 
 Objects that a service built on another package hands in (a pattern, an
 update, a compressed table, graph statistics) are read through their
@@ -45,52 +46,20 @@ from . import sharded
 from .core.estimator import GraphStats
 from .core.graph import Graph, GraphUpdate
 from .core.incremental import removed_rows
-from .core.pattern import Pattern, R1Unit
+from .core.pattern import Pattern
 from .core.storage import build_np_storage
 from .core.vcbc import CompressedTable, Ragged, compress_table
 from .mesh import LocalMesh
-from .obs import Observability, ProfiledStep
+from .obs import ProfiledStep
 from .planner import CompileContext, CompiledPlan, calibrate_wcoj_caps, compile_plan
 from .planner.sizing import quantize_store_caps
 from .run import _require_device
 from .stream.scheduler import SharedDelta, probe_inc
+from .stream.service import PatternMeta, PatternReport, StreamBackend, _meta_from_plan
 
 __all__ = ["PatternMeta", "PatternReport", "TorchBackend"]
 
 _CAP_FIELDS = ("v_cap", "deg_cap", "e_cap", "match_cap", "group_cap", "set_cap", "pair_cap")
-
-
-@dataclasses.dataclass(frozen=True)
-class PatternMeta:
-    """Static per-pattern facts shared by backends, scheduler, audits.
-    ``cover`` / ``ord_`` / ``units`` are views into ``plan``."""
-
-    name: str
-    pattern: Pattern
-    cover: Tuple[int, ...]
-    ord_: Tuple[Tuple[int, int], ...]
-    units: Tuple[R1Unit, ...]
-    plan: Optional[CompiledPlan] = None
-
-
-@dataclasses.dataclass
-class PatternReport:
-    """One pattern's outcome for one committed micro-batch."""
-
-    name: str
-    count_before: int
-    count_after: int
-    latency_s: float
-    patch_groups: int = 0
-    removed_groups: int = 0
-    overflow: int = 0
-    added: Optional[np.ndarray] = None
-    removed: Optional[np.ndarray] = None
-
-
-def _meta_from_plan(name: str, plan: CompiledPlan) -> PatternMeta:
-    return PatternMeta(name=name, pattern=plan.pattern, cover=plan.cover,
-                       ord_=plan.ord, units=plan.units, plan=plan)
 
 
 def _default_caps(storage, graph: Graph, m: int, use_kernels: bool) -> je.EngineCaps:
@@ -168,7 +137,7 @@ class _TorchEntry:
     wcoj_level_caps: object = None  # calibrated per-level caps (wcoj mode)
 
 
-class TorchBackend:
+class TorchBackend(StreamBackend):
     """The streaming backend over the port's device steps.
 
     One storage update advances Φ(d') on the device once per batch; every
@@ -195,15 +164,6 @@ class TorchBackend:
 
     kind = "torch"
 
-    #: the owning service's observability object (assigned by the service
-    #: before any pattern registers; a standalone backend grows its own)
-    obs: Optional[Observability] = None
-    last_storage_overflow: int = 0
-    last_host_bytes: int = 0
-    total_host_bytes: int = 0
-    last_cache_hits: int = -1
-    last_cache_misses: int = -1
-    last_invalidated_parts: int = -1
     #: candidate-set sizes of the last batch's storage update (delta mode)
     last_cand_vertices: int = -1
     last_cand_edges: int = -1
@@ -274,18 +234,6 @@ class TorchBackend:
         self.total_host_bytes = 0
 
     # ------------------------------------------------------------ plumbing
-    def _obs(self) -> Observability:
-        o = self.obs
-        if o is None:
-            o = self.obs = Observability()
-        return o
-
-    def _jaxprof(self):
-        """Late-bound profiler resolver for :class:`ProfiledStep` (the
-        service attaches ``obs`` after the backend is built)."""
-        o = self.obs
-        return getattr(o, "jaxprof", None) if o is not None else None
-
     def _pull(self, arr) -> np.ndarray:
         """Device→host transfer with byte accounting."""
         a = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
@@ -334,10 +282,6 @@ class TorchBackend:
             store_headroom=self.store_headroom,
             executor=self.executor,
         ))
-
-    def plan(self, name: str) -> Optional[CompiledPlan]:
-        """The compiled plan the pattern is executing."""
-        return self.meta(name).plan
 
     def register(self, name: str, pattern, cover=None) -> int:
         if name in self.entries:
@@ -559,12 +503,6 @@ class TorchBackend:
 
     def count(self, name: str) -> int:
         return self._counts[name]
-
-    def _noop_reports(self) -> Dict[str, PatternReport]:
-        """Reports for a window that netted to the empty update."""
-        return {name: PatternReport(name=name, count_before=self.count(name),
-                                    count_after=self.count(name), latency_s=0.0)
-                for name in self.names()}
 
     @staticmethod
     def _storage_cover(e: _TorchEntry) -> Tuple[int, ...]:

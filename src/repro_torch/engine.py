@@ -846,10 +846,12 @@ def count_matches_dev(tc: CompTensors, skel_cols: Sequence[int], ord_) -> torch.
     scalar; callers sum over partitions).
 
     Per group, the number of injective compressed-vertex assignments that
-    satisfy the symmetry-breaking order. Two compressed vertices sum their
+    satisfy the symmetry-breaking order. Two compressed vertices count their
     pair mask; three or more contract the pair masks in float64 (exact for
     counts below 2**53, CUDA has no integer matmul). The group axis is
-    sliced to bound the intermediate.
+    sliced so that neither a ``[groups, width, width]`` pair mask nor the
+    contraction's ``[groups, width**(k-1)]`` intermediate passes
+    ``_SLICE_CELLS``.
     """
     ord_set = {(int(a), int(b)) for a, b in ord_}
     comp = sorted(int(v) for v in tc.sets)
@@ -872,7 +874,7 @@ def count_matches_dev(tc: CompTensors, skel_cols: Sequence[int], ord_) -> torch.
     letters = {v: "abcdefhijklmnopqrstuvwxyz"[i] for i, v in enumerate(comp)}
     G = tc.valid.shape[0]
     width = max(tc.sets[v].shape[1] for v in comp)
-    step = max(1, _SLICE_CELLS // (width ** (len(comp) - 1)))
+    step = max(1, _SLICE_CELLS // (width ** max(2, len(comp) - 1)))
     total = torch.zeros((), dtype=torch.int64, device=tc.valid.device)
     for s in range(0, G, step):
         operands, subs = [], []
@@ -888,7 +890,7 @@ def count_matches_dev(tc: CompTensors, skel_cols: Sequence[int], ord_) -> torch.
                 operands.append(ok)
                 subs.append(f"g{letters[u]}{letters[w]}")
         if len(comp) == 2:
-            total = total + operands[0].sum(dtype=torch.int64)
+            total = total + torch.count_nonzero(operands[0])
         else:
             per = torch.einsum(",".join(subs) + "->g",
                                *[op.to(torch.float64) for op in operands])

@@ -37,6 +37,29 @@ u = sample_update(g, 4, 4, seed=100)
 rep = be.apply_batch(SharedDelta(lo=0, hi=8, update=u, add_codes=u.add_codes(),
                                  delete_codes=u.delete_codes()), set())
 assert rep["sq"].count_after == 1238 and rep["sq"].overflow == 0, rep
+import tempfile
+from repro_torch.stream import BatchScheduler, CountDeltaSink, ListingService
+# the service's device backend with narrower listing caps, which keep its
+# CPU batches short: one 4 + 4 update a batch
+small = replace(caps, group_cap=1024, match_cap=2048, pair_cap=128)
+for kind, kw in (("host", {}), ("sharded", dict(m=8, caps=small, max_add=8, max_del=8,
+                                                 device="cpu"))):
+    svc = ListingService(g, backend=kind, scheduler=BatchScheduler(max_ops=8), **kw)
+    assert svc.register("sq", PATTERN_LIBRARY["q1_square"]) == 1282
+    sink = svc.subscribe(CountDeltaSink())
+    for b, want in ((0, 1238), (1, 1128)):
+        svc.ingest(sample_update(svc.projected_graph(), 4, 4, seed=100 + b))
+        svc.advance()
+        assert svc.counts() == {"sq": want} and svc.metrics[-1].overflow == 0, svc.metrics
+    assert svc.audit() == {"sq": True} and sink.totals == {"sq": 1128 - 1282}
+    with tempfile.TemporaryDirectory() as snap:
+        svc.ingest(sample_update(svc.projected_graph(), 4, 4, seed=102))
+        svc.snapshot(snap)
+        back = ListingService.restore(snap, backend=kind, scheduler=BatchScheduler(max_ops=8),
+                                      **kw)
+    assert back.committed_watermark == svc.committed_watermark and back.counts() == svc.counts()
+    back.advance()
+    assert back.counts() == {"sq": 1086} and back.audit() == {"sq": True}, back.counts()
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.data import build_graph_data
@@ -82,12 +105,17 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "torch_subgraph_service.py")
 
 
 def test_no_source_imports_jax_or_repro():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
     scanned = {os.path.relpath(p, PKG) for p in _sources()}
-    assert os.path.join("core", "match_engine.py") in scanned
+    for rel in (("core", "match_engine.py"), ("core", "ddsl.py"), ("core", "unit_cache.py"),
+                ("stream", "service.py"), ("stream", "plan_manager.py"),
+                ("stream", "journal.py"), ("stream", "sinks.py"),
+                ("..", "..", "examples", "torch_subgraph_service.py")):
+        assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
         with open(path) as fh:
