@@ -110,7 +110,15 @@ Prints one JSON object per line, in phases:
    final counts. Per batch: latency, ``apply_batch``, the storage update's
    and the megastep's seconds, the service's own host seconds, the
    prediction, drift and peak; the batches' launches are
-   ``launches_by_path["service"]``. Then ``svc.audit()``: the host
+   ``launches_by_path["service"]``. The ``profile`` line: the service's
+   own step profiler (``repro_torch.obs.StepProfiler``, CUDA events), per
+   step its warm-ups and their seconds, its steady calls, seconds and
+   median, memory (argument, output and alias bytes) and cost shares; the
+   steps must be the seven the deployment wraps, the megastep and storage
+   update booked 6 times each, the registry counters equal to the
+   records, the megastep's seconds within 5 % of its spans and its alias
+   bytes at least q1_square's store; with the warm-up cost (the first
+   call less the steady median). Then ``svc.audit()``: the host
    ``DDSL`` at m = 4 on the committed graph, timed. ``service_small``: the
    service on the example graph with ``audit_every=1`` and a
    ``MatchDeltaSink`` on both patterns (materialize and removed rows on the
@@ -118,7 +126,19 @@ Prints one JSON object per line, in phases:
    batch's row deltas giving its rows, a snapshot after the second update
    restored with ``backend="sharded"`` and ``backend="host"`` (each takes
    the third update to ``EXAMPLE_COUNTS``), and a manual
-   ``PlanManager.reoptimize`` leaving the counts as they were.
+   ``PlanManager.reoptimize`` leaving the counts as they were; its
+   ``capture`` line: the profiler's ``torch.profiler`` window armed on the
+   second batch wrote exactly one Chrome trace, holding kernel events of
+   ``member_probe`` and ``set_intersect``. ``rebalance``: the example
+   graph's NP storage at m = 8 rebalanced (half the centers of the
+   partition storing the most edges moved to the one storing the fewest,
+   ``repro_torch.dist``) and re-cut at m = 4, q1_square and q2_triangle
+   listed on each with the kernels: counts ``EXAMPLE_COUNTS[...][0]``,
+   equal to the unrebalanced storage's and the host ``DDSL``'s under the
+   rebalanced partition function; ``repartition_delta`` and the launches
+   (``launches_by_path["rebalance"]``); the widest edge probe and CC-join
+   of those listings, captured as they ran, against the plain versions
+   (``member_probe`` and ``set_intersect`` cases ``rebalance``).
 9. ``kernel_check`` (``segment_sum``) — the segment-sum kernel against its
    plain version on their float64 accumulators, each case through its
    segment plan: one gatedgcn edge slice ([2**24, 70] bf16, ids over
@@ -578,9 +598,6 @@ def set_intersect_case(name, g, ca, cb, kinds, pad=-1, offsets=(0, 0), fill=None
     ``narrow``: values in [-1, 3)); at 2**20 values of ``a`` or more, timed
     one call at a time and 20 in a row, beside the plain version, the
     library call and the byte bound."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.set_intersect import set_intersect_cuda, set_intersect_route
-
     if kinds == ("narrow",):
         a, b = (torch.randint(-1, 3, (g, c), generator=gen, dtype=torch.int32, device="cuda")
                 for c in (ca, cb))
@@ -599,6 +616,22 @@ def set_intersect_case(name, g, ca, cb, kinds, pad=-1, offsets=(0, 0), fill=None
             buf[off:] = t.reshape(-1)
             views.append(buf[off:].view(t.shape))
         a, b = views
+    rec = set_intersect_check(name, a, b, pad, timed=g * ca >= 1 << 20,
+                              offsets=list(offsets))
+    del a, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def set_intersect_check(name, a, b, pad, timed, **extra):
+    """``set_intersect`` on ``a`` and ``b``: the kernel twice (bitwise
+    equal) against its plain version; where ``timed``, timed one call at a
+    time and 20 in a row, beside the plain version, the library call and
+    the byte bound. ``extra`` joins the record."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.set_intersect import set_intersect_cuda, set_intersect_route
+
+    (g, ca), cb = a.shape, b.shape[1]
     got = set_intersect_cuda(a, b, pad)
     again = set_intersect_cuda(a, b, pad)
     want = ref.set_intersect_ref(a, b, pad)
@@ -606,12 +639,12 @@ def set_intersect_case(name, g, ca, cb, kinds, pad=-1, offsets=(0, 0), fill=None
     err = int((got != want).sum())
     check(err == 0, f"set_intersect {name}: {err} mismatches")
     check(torch.equal(got, again), f"set_intersect {name}: two launches differ")
-    rec = {"case": name, "g": g, "ca": ca, "cb": cb, "pad": pad, "offsets": list(offsets),
+    rec = {"case": name, "g": g, "ca": ca, "cb": cb, "pad": pad, **extra,
            "route": set_intersect_route(cb, a.device), "equal": True, "repeat_equal": True,
            "max_abs_err": max_abs_err(got, want), "hits": int(want.sum()),
            "mean_nonpad_a": float((a != pad).sum()) / g,
            "mean_nonpad_b": float((b != pad).sum()) / g}
-    if g * ca >= 1 << 20:
+    if timed:
         rec["ms"] = cuda_ms(lambda: set_intersect_cuda(a, b, pad))
         rec["ms_back_to_back"] = cuda_ms(lambda: set_intersect_cuda(a, b, pad), per=20)
         rec["plain_ms"] = cuda_ms(lambda: ref.set_intersect_ref(a, b, pad), reps=3)
@@ -620,8 +653,6 @@ def set_intersect_case(name, g, ca, cb, kinds, pad=-1, offsets=(0, 0), fill=None
         check(rec["library_equal"], f"set_intersect {name}: the library call differs")
         rec["library_ms"] = cuda_ms(lib, reps=3)
         rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * g * (ca + cb) + g * ca, g * (ca + cb))
-    del a, b, got, again, want
-    torch.cuda.empty_cache()
     return rec
 
 
@@ -858,6 +889,28 @@ def probe_spy(e_cap: int):
         yield widest
     finally:
         ops.member_probe = inner
+
+
+@contextlib.contextmanager
+def ccjoin_spy():
+    """Wraps ``ops.set_intersect`` while the block runs; the dict it yields
+    gets a copy of the inputs of its widest call (``a``'s values), a tree
+    listing's CC-join. The calls go on to the kernel and count as the
+    path's launches."""
+    from repro_torch.kernels import ops
+
+    inner, widest = ops.set_intersect, {}
+
+    def spy(a, b, *, pad, use_kernels):
+        if a.numel() > widest.get("n", -1):
+            widest.update(n=a.numel(), args=(a.contiguous().clone(), b.contiguous().clone(), pad))
+        return inner(a, b, pad=pad, use_kernels=use_kernels)
+
+    ops.set_intersect = spy
+    try:
+        yield widest
+    finally:
+        ops.set_intersect = inner
 
 
 def widest_probe(pipe):
@@ -1295,10 +1348,12 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def service_trace(svc, apply_s):
+def service_trace(svc, apply_s, step_log):
     """Per committed batch: a ``CallbackSink`` recording the peak device
-    memory since the last batch and the scheduler's drift, and a wrapper of
-    the backend's ``apply_batch`` recording its seconds into ``apply_s``."""
+    memory since the last batch and the scheduler's drift, and into
+    ``step_log[batch]`` each profiled step's ``(calls, last_execute_s)``;
+    and a wrapper of the backend's ``apply_batch`` recording its seconds
+    into ``apply_s``."""
     from repro_torch.stream import CallbackSink
 
     seen = {}
@@ -1308,6 +1363,8 @@ def service_trace(svc, apply_s):
             seen[ev.batch_index] = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                                     "drift": svc.scheduler.drift(),
                                     "last_drift": svc.scheduler.last_drift}
+            step_log[ev.batch_index] = {n: (r.calls, r.last_execute_s)
+                                        for n, r in svc.obs.jaxprof.steps.items()}
             torch.cuda.reset_peak_memory_stats()
 
     apply_batch = svc.backend.apply_batch
@@ -1370,8 +1427,8 @@ def service_phase():
     check((counts["q1_square"], counts["q2_triangle"]) == (WT_COUNTS[0], WT_Q2_COUNTS[0]),
           f"service: stage-1 counts {counts}")
     sink = svc.subscribe(CountDeltaSink())
-    apply_s = []
-    seen = service_trace(svc, apply_s)
+    apply_s, step_log = [], {}
+    seen = service_trace(svc, apply_s, step_log)
     for b in range(N_BATCHES):
         svc.ingest(sample_update(svc.projected_graph(), c.n_del, c.n_add,
                                  seed=c.update_seed + b))
@@ -1417,6 +1474,7 @@ def service_phase():
         check(launches[k] > 0, f"kernel {k} never launched on the service path")
     emit({"phase": "service", "launches": launches, "advance_seconds": advance_s,
           "seconds": time.perf_counter() - t_phase})
+    service_profile(svc, roots, step_log)
     t0 = time.perf_counter()
     audit = svc.audit()
     emit({"phase": "service", "stage": "audit", "audit": audit, "m": 4,
@@ -1425,6 +1483,91 @@ def service_phase():
     del svc
     free_device_memory()
     return launches
+
+
+def service_profile(svc, roots, step_log) -> None:
+    """The ``profile`` line of ``service``: the service's own step profiler
+    (``repro_torch.obs.StepProfiler``, on under ``Observability.full()``),
+    per step its warm-ups (``compiles``) and steady calls with their seconds
+    (CUDA events), the steady median a call (each batch's ``last_execute_s``
+    where the step ran once more), memory and cost shares. The recorded
+    steps must be the deployment's, the megastep and storage update booked
+    once a batch, the counters equal to the records, the megastep's seconds
+    within 5 % of its spans, and its alias bytes at least q1_square's
+    store."""
+    from repro_torch.obs.prof import tensor_bytes
+
+    prof = svc.obs.jaxprof
+    reg = svc.obs.metrics
+    names = set(prof.steps)
+    want = {"storage_update", "maintain_mega"} | {
+        f"{kind}:{n}" for n in BACKEND_PATTERNS for kind in ("list", "init_store")} | {
+        "unit_refresh:q1_square"}
+    check(names == want, f"service profile: steps {sorted(names)} != {sorted(want)}")
+    check(not any(n.startswith("maintain:") for n in names), "service profile: maintain:*")
+    steady = {n: [] for n in names}
+    for i in sorted(step_log):
+        before = step_log.get(i - 1, {})
+        for n, (calls, last) in step_log[i].items():
+            if calls == before.get(n, (0, 0.0))[0] + 1:
+                steady[n].append(last)
+    steps = {}
+    for n in sorted(names):
+        r = prof.steps[n]
+        check(reg.get("step_compiles_total").value_for(step=n) == r.compiles
+              and reg.get("step_execute_calls_total").value_for(step=n) == r.calls,
+              f"service profile: {n}'s counters differ from its record")
+        check(r.heuristic and r.cost is None, f"service profile: {n} {r}")
+        steps[n] = {"compiles": r.compiles, "compile_seconds": r.compile_seconds,
+                    "calls": r.calls, "execute_seconds": r.execute_seconds,
+                    "steady_median_s": statistics.median(steady[n]) if steady[n] else None,
+                    "steady_s": steady[n], "memory": r.memory, "subs": r.subs}
+    for n in ("maintain_mega", "storage_update"):
+        r = prof.steps[n]
+        check(r.compiles + r.calls == 2 * N_BATCHES == len(roots),
+              f"service profile: {n} booked {r.compiles} + {r.calls} calls")
+    mega = prof.steps["maintain_mega"]
+    check(set(mega.subs or {}) == set(BACKEND_PATTERNS)
+          and abs(sum(mega.subs.values()) - 1.0) < 1e-9,
+          f"service profile: maintain_mega subs {mega.subs}")
+    recorded = mega.compile_seconds + mega.execute_seconds
+    spans = sum(sp.dur_s for root in roots for sp in root.walk() if sp.name == "maintain_mega")
+    check(abs(recorded - spans) <= 0.05 * spans,
+          f"service profile: maintain_mega recorded {recorded} s against spans {spans} s")
+    store = tensor_bytes(svc.backend.entries["q1_square"].store)
+    check(mega.memory["alias_size_in_bytes"] >= store,
+          f"service profile: alias {mega.memory} below q1_square's store {store}")
+    warm = steps["maintain_mega"]
+    emit({"phase": "service", "stage": "profile", "steps": steps,
+          "maintain_mega_recorded_s": recorded, "maintain_mega_spans_s": spans,
+          "q1_square_store_bytes": store,
+          "maintain_mega_warmup_cost_s": warm["compile_seconds"] - warm["steady_median_s"],
+          "storage_update_warmup_cost_s": (steps["storage_update"]["compile_seconds"]
+                                           - steps["storage_update"]["steady_median_s"])})
+
+
+def service_capture(svc, trace_dir) -> None:
+    """``service_small``'s ``capture`` line: the window armed on the second
+    batch wrote exactly one Chrome trace, which holds kernel events of
+    ``member_probe`` and ``set_intersect``."""
+    prof = svc.obs.jaxprof
+    snap = prof.snapshot()
+    files = sorted(os.listdir(trace_dir.name))
+    check(snap["captured_dirs"] == [trace_dir.name] and len(files) == 1
+          and not snap["capture_failures"] and snap["capture_pending"] is None,
+          f"service_small: capture {snap['captured_dirs']} {files} "
+          f"{snap['capture_failures']} {snap['capture_pending']}")
+    path = os.path.join(trace_dir.name, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in DDSL_KERNELS}
+    emit({"phase": "service_small", "stage": "capture", "file": files[0],
+          "bytes": os.path.getsize(path), "events": len(events), "kernel_events": len(kernels),
+          "named_kernel_events": named, "batches": len(svc.metrics)})
+    for k in DDSL_KERNELS:
+        check(named[k] > 0, f"service_small: no {k} kernel event in the captured trace")
+    trace_dir.cleanup()
 
 
 def service_small_phase() -> None:
@@ -1456,6 +1599,10 @@ def service_small_phase() -> None:
     svc = ListingService(graph, backend="sharded", scheduler=scheduler(), audit_every=1, **kw)
     for name in BACKEND_PATTERNS:
         svc.register(name, PATTERN_LIBRARY[name])
+    # the service's own capture window over its second batch (no other
+    # torch.profiler session runs in this phase)
+    trace_dir = tempfile.TemporaryDirectory(prefix="service_capture_")
+    svc.obs.jaxprof.arm_capture(trace_dir.name, start_batch=1, n_batches=1)
 
     def rows(name):
         return set(map(tuple, svc.backend.matches_plain(name).tolist()))
@@ -1492,6 +1639,7 @@ def service_small_phase() -> None:
     check(len(svc.audits) == len(svc.metrics) and all(ok for *_, ok in svc.audits),
           f"service_small: audits {svc.audits}")
     check(all(bm.overflow == 0 for bm in svc.metrics), "service_small: overflow")
+    service_capture(svc, trace_dir)
     restored = {}
     for backend in ("sharded", "host"):
         extra = kw if backend == "sharded" else {}
@@ -1519,6 +1667,102 @@ def service_small_phase() -> None:
           "seconds": time.perf_counter() - t_phase})
     del svc
     free_device_memory()
+
+
+def rebalance_phase():
+    """``rebalance``: the NP storage of ``run.EXAMPLE_Q1``'s graph at m = 8,
+    half the centers of the partition storing the most edges moved to the
+    one storing the fewest (``repro_torch.dist.rebalance_plan`` and
+    ``apply_rebalance``), padded at caps holding every partition (any cap
+    raised above EXAMPLE_Q1's is named) and listed on the card with the
+    kernels (q1_square and q2_triangle by their join trees: list + init
+    store); then the storage re-cut at m = 4 (``repartition_storage``) and
+    listed on ``LocalMesh(4)``. Each count must equal the unrebalanced
+    storage's, ``EXAMPLE_COUNTS``' first and the host ``DDSL``'s under the
+    rebalanced partition function (Lemma 3.1). The launches are those of
+    the rebalanced and re-cut listings; the widest edge probe and CC-join
+    they made are held against the plain versions on the same inputs."""
+    from repro_torch import sharded
+    from repro_torch.core import DDSL
+    from repro_torch.core.estimator import GraphStats
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.core.storage import build_np_storage
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.dist import (apply_rebalance, rebalance_plan, repartition_delta,
+                                  repartition_storage)
+    from repro_torch.engine import EngineCaps
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import LocalMesh
+    from repro_torch.run import EXAMPLE_Q1 as c
+    from repro_torch.run import plan_pattern
+
+    t_phase = time.perf_counter()
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+    stats = GraphStats.of(graph)
+    base = build_np_storage(graph, c.m)
+    edges = [p.num_edges for p in base.parts]
+    slow, fast = int(np.argmax(edges)), int(np.argmin(edges))
+    plan = rebalance_plan(base, slow=[slow], fast=[fast], fraction=0.5)
+    moved = apply_rebalance(base, plan)
+    recut = repartition_storage(moved, 4)
+    storages = {"m8": base, "m8_rebalanced": moved, "m4_recut": recut}
+    need = {"v_cap": max(p.vertices.shape[0] for st in storages.values() for p in st.parts),
+            "e_cap": max(p.num_edges for st in storages.values() for p in st.parts),
+            "deg_cap": max(int(np.diff(p.indptr).max(initial=0))
+                           for st in storages.values() for p in st.parts)}
+    caps = EngineCaps(**{f: max(getattr(c, f), need.get(f, 0)) for f in CAP_FIELDS})
+    raised = {f: [getattr(c, f), getattr(caps, f)] for f in CAP_FIELDS
+              if getattr(caps, f) != getattr(c, f)}
+
+    def listed(storage):
+        mesh = LocalMesh(storage.m)
+        pt = sharded.stack_partitions(storage, caps, "cuda")
+        out = {}
+        for name in BACKEND_PATTERNS:
+            p = plan_pattern(name, stats, storage, caps, mesh)
+            root, ldiag = p.list_step(pt)
+            _, idiag = p.init_step(root)
+            out[name] = {"count": int(idiag["count"]),
+                         "overflow": int(ldiag["overflow"]) + int(idiag["overflow"])}
+        return out
+
+    counts = {"m8": listed(base)}
+    ops.reset_launch_counts()
+    with probe_spy(caps.e_cap) as probe, ccjoin_spy() as ccjoin:
+        counts["m8_rebalanced"] = listed(moved)
+        counts["m4_recut"] = listed(recut)
+    torch.cuda.synchronize()
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    host = {}
+    for name in BACKEND_PATTERNS:
+        eng = DDSL(graph, PATTERN_LIBRARY[name], m=c.m, h=moved.h)
+        eng.initial()
+        host[name] = eng.count()
+    emit({"phase": "rebalance", "slow": slow, "fast": fast, "moved_centers": len(plan),
+          "edges_by_partition": {k: [p.num_edges for p in st.parts]
+                                 for k, st in storages.items()},
+          "caps_needed": need, "caps_raised": raised, "counts": counts, "host_ddsl": host,
+          "repartition_delta": repartition_delta(moved, 4),
+          "repartition_delta_unbalanced": repartition_delta(base, 4),
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    for name in BACKEND_PATTERNS:
+        want = EXAMPLE_COUNTS[name][0]
+        got = {k: v[name] for k, v in counts.items()}
+        check(all(v == {"count": want, "overflow": 0} for v in got.values())
+              and host[name] == want,
+              f"rebalance: {name} counts {got}, host {host[name]}, want {want}")
+    check(launches["member_probe"] > 0 and launches["set_intersect"] > 0,
+          f"rebalance: launches {launches}")
+    check("args" in probe and "args" in ccjoin, "rebalance: no edge probe or CC-join captured")
+    cases = {"member_probe": level_probe_case(
+                 "rebalance", probe["args"], launches_rebalance=launches["member_probe"]),
+             "set_intersect": set_intersect_check(
+                 "rebalance", *ccjoin["args"], timed=True,
+                 launches_rebalance=launches["set_intersect"])}
+    del probe, ccjoin
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_check", **{k: [v] for k, v in cases.items()}})
+    return launches, cases
 
 
 def steady(fn, reps: int = 3):
@@ -2887,6 +3131,9 @@ def main() -> None:
     #     shared delta, the device backend, sinks, audits, snapshots, swaps
     service_launches = service_phase()
     service_small_phase()
+    rebalance_launches, rebalance_cases = rebalance_phase()
+    for name, case in rebalance_cases.items():
+        checks[name].append(case)
     planted_launches, planted_cases = wcoj_vs_tree_phase()
     checks["member_probe"].extend(planted_cases)
 
@@ -2956,7 +3203,7 @@ def main() -> None:
             entry["launches_by_path"] = {
                 "wt_q1": launches[name], "wt_clique": wcoj_launches[name],
                 "wt_multi_auto": auto_launches[name], "backend": backend_launches[name],
-                "service": service_launches[name],
+                "service": service_launches[name], "rebalance": rebalance_launches[name],
                 **{path: n[name] for path, n in planted_launches.items()}}
         kernels.append(entry)
     emit({"kernels": kernels})

@@ -6,11 +6,15 @@ defines them.
   Prometheus-text and JSON exposition (copy of ``repro/obs/metrics.py``);
 - :mod:`repro_torch.obs.trace` — the hierarchical span tracer, with JSONL
   and Chrome trace-event export (copy of ``repro/obs/trace.py``);
-- :mod:`repro_torch.obs.prof` — :class:`ProfiledStep` and its profiler.
+- :mod:`repro_torch.obs.prof` — step profiling (twin of
+  ``repro/obs/jaxprof.py``): the first call of each wrapped device step
+  apart from its steady calls, CUDA-event step times on the card, argument /
+  output / alias bytes, optional ``torch.profiler`` windows.
 
-One :class:`Observability` per service; the default has the registry on
-and span tracing off. The profiler keeps the attribute name ``jaxprof``
-that the service contract reads (``obs.jaxprof.on_batch_start``).
+One :class:`Observability` per service; the default has the registry and
+the step profiler on and span tracing off. The profiler keeps the attribute
+name ``jaxprof`` that the service contract reads
+(``obs.jaxprof.on_batch_start``).
 """
 
 from __future__ import annotations
@@ -21,12 +25,12 @@ from typing import Dict, Optional
 
 from .metrics import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge, Histogram, MetricsRegistry,
                       ProbeView)
-from .prof import ProfiledStep, StepProfiler
+from .prof import ProfiledStep, StepProfile, StepProfiler
 from .trace import NULL_SPAN, Span, Tracer
 
 __all__ = ["Observability", "MetricsRegistry", "Counter", "Gauge", "Histogram", "ProbeView",
            "DEFAULT_LATENCY_BUCKETS", "Tracer", "Span", "NULL_SPAN", "StepProfiler",
-           "ProfiledStep"]
+           "ProfiledStep", "StepProfile"]
 
 
 class Observability:
@@ -65,7 +69,8 @@ class Observability:
         """Write every artifact into ``dir_path``; returns name → path: the
         metrics as JSON and Prometheus text always, the spans (JSONL and
         Chrome trace-event JSON) when any were recorded, the step profile
-        when it holds any step, and the plan dumps."""
+        (``{prefix}_prof.json``) once any step ran profiled, and the plan
+        dumps."""
         os.makedirs(dir_path, exist_ok=True)
         out: Dict[str, str] = {}
         p = os.path.join(dir_path, f"{prefix}_metrics.json")

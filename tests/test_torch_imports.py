@@ -60,6 +60,20 @@ for kind, kw in (("host", {}), ("sharded", dict(m=8, caps=small, max_add=8, max_
     assert back.committed_watermark == svc.committed_watermark and back.counts() == svc.counts()
     back.advance()
     assert back.counts() == {"sq": 1086} and back.audit() == {"sq": True}, back.counts()
+# the sharded service's default profiler booked every step it ran: each
+# wrapper's first call as its warm-up, the second batch's steps as steady calls
+prof = svc.obs.jaxprof.steps
+assert set(prof) == {"storage_update", "maintain_mega", "list:sq", "init_store:sq",
+                     "unit_refresh:sq"}, sorted(prof)
+for name in ("storage_update", "maintain_mega"):
+    assert (prof[name].compiles, prof[name].calls) == (1, 1) and prof[name].heuristic, prof[name]
+    assert prof[name].execute_seconds > 0 and prof[name].memory["output_size_in_bytes"] > 0
+assert prof["maintain_mega"].memory["alias_size_in_bytes"] > 0 and prof["maintain_mega"].subs == {"sq": 1.0}
+from repro_torch.core.storage import build_np_storage
+from repro_torch.dist import apply_rebalance, rebalance_plan, repartition_delta
+st = build_np_storage(g, 8)
+assert apply_rebalance(st, rebalance_plan(st, slow=[0], fast=[1])).m == 8
+assert repartition_delta(st, 4)["new_m"] == 4
 import torch
 from repro_torch.configs import get_arch
 from repro_torch.data import build_graph_data
@@ -113,7 +127,8 @@ def test_no_source_imports_jax_or_repro():
     scanned = {os.path.relpath(p, PKG) for p in _sources()}
     for rel in (("core", "match_engine.py"), ("core", "ddsl.py"), ("core", "unit_cache.py"),
                 ("stream", "service.py"), ("stream", "plan_manager.py"),
-                ("stream", "journal.py"), ("stream", "sinks.py"),
+                ("stream", "journal.py"), ("stream", "sinks.py"), ("obs", "prof.py"),
+                ("dist", "__init__.py"), ("dist", "straggler.py"), ("dist", "elastic.py"),
                 ("..", "..", "examples", "torch_subgraph_service.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
