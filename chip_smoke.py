@@ -145,7 +145,10 @@ Prints one JSON object per line, in phases:
    2,449,029 nodes with 1 % set to n and 0.5 % to -1), the same rows with
    ids sorted over one slice's 332,108 nodes as the forward feeds them,
    and with half of them in one id (``heavy_segment``), the meshgraphnet
-   and graphsage widths, a ones column (exact), and edge cases; max
+   and graphsage widths, EquiformerV2's molecule message block ([16,384,
+   6,272] float32, ``eqv2_messages``) and softmax denominators ([16,384,
+   8], ``eqv2_den``) over 3,840 sorted ids, a ones column (exact), and edge
+   cases; max
    |kernel - plain| <= 1e-5 * max(1, max |plain|), with the kernel's, the
    plan build's, the plain version's and ``index_add_``'s median ms beside
    the byte bound (data and ids once, the touched float32 rows once);
@@ -165,7 +168,28 @@ Prints one JSON object per line, in phases:
    and meshgraphnet (bf16, 3e-2) at their full configs on
    ``full_graph_sm`` (2,708 nodes, 21,112 directed edges, d_feat 1,433),
    kernel against plain, after one warm-up forward.
-12. ``kernel_check`` (``flash_attention``) — the three attention kernels
+12. ``eqv2_plan`` / ``eqv2_serve`` — equiformer-v2 inference at its full
+   config (12 layers, d_hidden 128, l_max 6, m_max 2, 8 heads, bf16; the
+   rotations, SO(2) products, attention and messages in float32, TF32 off)
+   through ``gnn.forward``: four ``molecule`` requests (3,840 nodes, 16,384
+   directed edges, d_feat 16, ``build_graph_data`` seeds 0-3, positions
+   synthesized) and one ``full_graph_sm`` request, each once with the
+   kernels and once plain after one warm-up forward of its shape. Per
+   request: seconds, peak, finite output, ``segment_sum`` launches (12 x (1
+   + chunks) = 24; plain 0; no other kernel), the JAX package's model FLOP
+   (``launch.steps.gnn_flops``), the FLOP the forward executes over the
+   seconds, and the float32 bound: the FLOP the function needs (the
+   block-diagonal rotations counted by degree) / 67 TFLOP/s, with the
+   executed FLOP's (dense rotations) beside it.
+   ``eqv2_chunked``: molecule seed 0 at ``edge_chunk`` 4,096 (4 chunks, 60
+   launches), within 3e-2 * max of the one-chunk forward. ``eqv2_profile``:
+   one more kernel forward under ``torch.profiler`` (``segment_sum``'s share
+   of the device time). ``eqv2_equal``: kernel against plain within 3e-2 *
+   max |plain| at every request, the share of equal outputs, the profiled
+   forward equal to the first bit for bit, and, reported, the output's
+   change under a rotation of the positions about z by 1.1 rad and under a
+   general rotation, over max |output|.
+13. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
    at offset 4,096 on the tensor-core kernel; decode at offsets 8,192 and
@@ -180,7 +204,7 @@ Prints one JSON object per line, in phases:
    median ms beside the bound (and, under 1 ms, the kernel's and SDPA's
    time over 20 calls in a row). ``flash_kernels``: each kernel's
    registers, shared and spill bytes, and the decode grid.
-13. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
+14. ``lm_plan`` / ``lm_serve`` — phi4-mini-3.8b serving at full width
    (32 layers, d_model 3,072, 24/8 heads of 128, d_ff 8,192, vocab
    200,064, bf16, random weights from seed 0) through
    ``repro_torch.launch.serve.serve``: 4 prompts of 8,192 tokens, prefill
@@ -197,7 +221,7 @@ Prints one JSON object per line, in phases:
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
-14. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
+15. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
    its plain version on a ``[26,000,000, 64]`` float32 table (the 26
    stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
    ``serve_p99`` (13,312) must be equal; ``multi_hot`` (batch 4,096 with
@@ -212,7 +236,7 @@ Prints one JSON object per line, in phases:
    and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
    serve_bulk's lookups folded into the table's first GiB (a TLB limit
    would show as a gap), with the library call beside it too.
-15. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
+16. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
    ``repro_torch.launch.serve.serve_recsys``: 8 ``serve_p99`` requests
@@ -226,7 +250,9 @@ Prints one JSON object per line, in phases:
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
-summary, and last
+summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
+the molecule and full_graph_sm kernel requests and the chunked forward,
+each counted from 0), and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
 
@@ -303,6 +329,16 @@ DDSL_KERNELS = ("member_probe", "set_intersect")
 # a full-graph run doubles the undirected edges, launch/steps.py).
 GNN_ARCH, GNN_SHAPE = "gatedgcn", "ogb_products"
 GNN_SMALL = (("graphsage-reddit", 1e-4), ("meshgraphnet", 3e-2))
+# The EquiformerV2 slice: equiformer-v2 at its full config (configs/equiformer_v2.py
+# _FULL: 12 layers, d 128, l_max 6, m_max 2, 8 heads, bf16) on four molecule
+# requests (128 graphs x 30 nodes, 64 x 2 directed edges each: 3,840 nodes, 16,384
+# edges, as launch/steps.py _gnn_counts sizes them) and one full_graph_sm request,
+# positions synthesized (build_graph_data geometric=True); EQV2_CHUNK cuts a
+# molecule graph into 4 edge chunks. Nothing is cut.
+EQV2_ARCH = "equiformer-v2"
+EQV2_MOLECULE_SEEDS = (0, 1, 2, 3)
+EQV2_CHUNK = 4096
+EQV2_TOL = 3e-2
 # The LM slice: phi4-mini-3.8b serving (configs/phi4_mini_3_8b.py _FULL).
 # The repo's prefill_32k shape (32 x 32,768 tokens) needs a 137 GB cache:
 # cut to 4 prompts of 8,192 tokens and 16 generated tokens each.
@@ -2023,6 +2059,8 @@ def segment_sum_phase():
         return torch.randn((e, d), generator=gen, device="cuda").to(dtype)
 
     slice_rows = rows(big_e, 70, bf16)
+    mol_ids = torch.sort(torch.randint(0, 3840, (16_384,), generator=gen, dtype=torch.int32,
+                                       device="cuda")).values
     cases = {
         # one gatedgcn edge slice (msg / eta) at full width, ids unsorted
         "gatedgcn_slice": (slice_rows, segment_ids(big_e, big_n, gen), big_n),
@@ -2039,6 +2077,11 @@ def segment_sum_phase():
         # on full_graph_sm
         "meshgraphnet": (rows(21_112, 128, bf16), segment_ids(21_112, 2708, gen), 2708),
         "graphsage_l0": (rows(21_112, 1433, f32), segment_ids(21_112, 2708, gen), 2708),
+        # EquiformerV2 on molecule: one chunk's messages [16,384, 49 x 128] float32 and
+        # the softmax denominators [16,384, 8] float32, ids sorted over 3,840 nodes as
+        # the forward feeds them
+        "eqv2_messages": (rows(16_384, 49 * 128, f32), mol_ids, 3840),
+        "eqv2_den": (rows(16_384, 8, f32), mol_ids, 3840),
         # edge cases
         "empty": (rows(0, 70, bf16), segment_ids(0, 10, gen), 10),
         "all_out_of_range": (rows(5000, 70, bf16),
@@ -2048,7 +2091,7 @@ def segment_sum_phase():
                                 torch.randint(-2, 9, (3001,), generator=gen, dtype=torch.int32,
                                               device="cuda"), 7),
     }
-    del slice_rows
+    del slice_rows, mol_ids
     out = []
     for name in list(cases):
         data, seg, n = cases.pop(name)
@@ -2069,7 +2112,7 @@ def segment_sum_phase():
                "max_abs_err": err, "max_abs_ref": top, "limit": limit,
                "sorted": plan.order is None, "segments": plan.hi - plan.lo,
                "heavy_segments": plan.heavy.shape[0], "heavy_parts": plan.n_parts}
-        if e * d >= 1 << 20:
+        if e * d >= 1 << 20 or name.startswith("eqv2"):
             keep = (seg >= 0) & (seg < n)
             src = torch.where(keep[:, None], data.float(), 0.0)
             idx = seg.clamp(0, n - 1)
@@ -2245,6 +2288,166 @@ def gnn_small_phase():
               "kernel_seconds": rec_k["seconds"], "plain_seconds": rec_p["seconds"],
               "sort_plan_seconds": sort["sort_plan_seconds"],
               **compare_outputs(arch, out_k, out_p, tol)})
+
+
+# ---------------------------------------------------------------------------
+# EquiformerV2 inference
+# ---------------------------------------------------------------------------
+
+def eqv2_flops(cfg, nodes: int, edges: int, dense_rotation: bool = True) -> float:
+    """FLOP of the port's EquiformerV2 forward, 2 a multiply-add: per edge
+    and layer, pass 1 rotates the m = 0 rows and takes the first d columns
+    of their product and the logit MLP; pass 2 rotates the rows with |m| <=
+    m_max in and back, mixes them (one product for m = 0, four for each m >
+    0), weights and sums the messages; per node and layer, the update MLP
+    and the gates; once, the edge rotations, the embedding and the readout.
+    ``dense_rotation``: the rotations as the forward executes them, each
+    row against all (l_max + 1)**2 coefficients; else only the 2l + 1 of
+    its own degree l (the rotation is block-diagonal by l), the FLOP the
+    function needs."""
+    from repro_torch.models import gnn
+
+    d, dim = cfg.d_hidden, (cfg.l_max + 1) ** 2
+    groups = gnn._eqv2_m_indices(cfg.l_max, cfg.m_max)
+    n0, rows = len(groups[0]), sum(len(v) for v in groups.values())
+    if dense_rotation:
+        nnz0, nnz = n0 * dim, rows * dim
+    else:
+        nnz0 = dim  # the m = 0 row of degree l has 2l + 1 entries
+        nnz = sum(min(2 * l + 1, 2 * cfg.m_max + 1) * (2 * l + 1) for l in range(cfg.l_max + 1))
+    so2 = 2 * (n0 * d) ** 2 + sum(8 * (len(groups[m]) * d) ** 2 for m in groups if m > 0)
+    pass1 = 2 * nnz0 * d + 2 * n0 * d * d + 2 * d * d + 2 * d * cfg.n_heads
+    pass2 = 2 * (2 * nnz * d) + so2 + 2 * dim * d
+    per_node = 2 * 2 * d * d + 2 * d * cfg.l_max
+    rotation = sum(6 * (2 * l + 1) ** 3 for l in range(cfg.l_max + 1))
+    return float(cfg.n_layers * (edges * (pass1 + pass2) + nodes * per_node)
+                 + edges * rotation + 2 * nodes * d * (cfg.d_in + cfg.d_out))
+
+
+def eqv2_graphs():
+    """The EquiformerV2 requests: (shape, seed, nodes, edges, d_feat)."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(EQV2_ARCH)
+    mol, sm = spec.shape("molecule"), spec.shape("full_graph_sm")
+    reqs = [("molecule", s, mol.batch_graphs * mol.n_nodes,
+             2 * mol.batch_graphs * mol.n_edges, mol.d_feat) for s in EQV2_MOLECULE_SEEDS]
+    return reqs + [("full_graph_sm", 0, sm.n_nodes, 2 * sm.n_edges, sm.d_feat)]
+
+
+def eqv2_phase():
+    """EquiformerV2 at full width: four molecule requests and one
+    full_graph_sm request, kernels then plain after a warm-up each; the
+    chunked forward; the repeat and the rotation gaps; one profiled
+    forward. Returns the segment-sum launches by path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import graph_from_numpy
+    from repro_torch.data import build_graph_data
+    from repro_torch.launch.steps import gnn_flops
+    from repro_torch.models import gnn
+
+    spec = get_arch(EQV2_ARCH)
+    params, plan, by_path = {}, [], {"eqv2_molecule": 0, "eqv2_full_graph_sm": 0}
+    for shape, seed, nodes, edges, d_feat in eqv2_graphs():
+        cfg = dataclasses.replace(spec.config, d_in=d_feat)
+        chunks = gnn.eqv2_chunks(edges, cfg.edge_chunk)
+        if shape not in params:
+            params[shape] = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                                            "cuda")
+            executed = eqv2_flops(cfg, nodes, edges)
+            needed = eqv2_flops(cfg, nodes, edges, dense_rotation=False)
+            plan.append({"shape": shape, "nodes": nodes, "edges": edges, "d_in": d_feat,
+                         "chunks": chunks, "edge_chunk": cfg.edge_chunk,
+                         "params": sum(p.numel() for p in params[shape].values()),
+                         "model_flops": gnn_flops(cfg, nodes, edges)["model_flops"],
+                         "executed_flops": executed, "needed_flops": needed,
+                         "executed_bound_ms": bound_ms(0, executed)[0],
+                         "bound_ms": bound_ms(0, needed)[0],
+                         "predicted_segment_sum_launches": cfg.n_layers * (1 + chunks)})
+    emit({"phase": "eqv2_plan", "arch": EQV2_ARCH, "layers": spec.config.n_layers,
+          "d_hidden": spec.config.d_hidden, "l_max": spec.config.l_max,
+          "m_max": spec.config.m_max, "heads": spec.config.n_heads, "dtype": spec.config.dtype,
+          "shapes": plan, "tf32": torch.backends.cuda.matmul.allow_tf32})
+    info = {r["shape"]: r for r in plan}
+
+    outs, ratios, warm = {}, [], set()
+    for shape, seed, nodes, edges, d_feat in eqv2_graphs():
+        cfg = dataclasses.replace(spec.config, d_in=d_feat)
+        t0 = time.perf_counter()
+        g = graph_from_numpy(build_graph_data(nodes, edges, d_feat, seed=seed, geometric=True),
+                             "cuda")
+        data_s = time.perf_counter() - t0
+        if shape not in warm:  # warm-up: first-use costs
+            gnn.forward(params[shape], g, cfg, use_kernels=True)
+            warm.add(shape)
+        pair = {}
+        for use_kernels, label in ((True, "kernels"), (False, "plain")):
+            rec, out, counts = gnn_forward(params[shape], g, cfg, use_kernels, label)
+            want = info[shape]["predicted_segment_sum_launches"] if use_kernels else 0
+            check(rec["segment_sum_launches"] == want,
+                  f"{shape} {seed} {label}: {rec['segment_sum_launches']} segment_sum launches,"
+                  f" predicted {want}")
+            check(not any(v for k, v in counts.items() if k != "segment_sum"),
+                  f"{shape} {seed} {label}: other kernels launched: {counts}")
+            rec.update(phase="eqv2_serve", shape=shape, seed=seed, data_seconds=data_s,
+                       model_flops=info[shape]["model_flops"],
+                       executed_flops=info[shape]["executed_flops"],
+                       executed_tflops_per_s=info[shape]["executed_flops"] / rec["seconds"] / 1e12,
+                       needed_flops=info[shape]["needed_flops"],
+                       executed_bound_ms=info[shape]["executed_bound_ms"],
+                       bound_ms=info[shape]["bound_ms"])
+            emit(rec)
+            pair[label] = out
+            if use_kernels:
+                by_path[f"eqv2_{shape}"] += counts["segment_sum"]
+        ratios.append({"shape": shape, "seed": seed,
+                       **compare_outputs(EQV2_ARCH, pair["kernels"], pair["plain"], EQV2_TOL)})
+        outs[shape, seed] = (g, pair["kernels"])
+
+    # the chunked forward: molecule seed 0 in EQV2_CHUNK-edge chunks
+    g, out_k = outs["molecule", 0]
+    mol = info["molecule"]
+    ccfg = dataclasses.replace(spec.config, d_in=mol["d_in"], edge_chunk=EQV2_CHUNK)
+    chunks = gnn.eqv2_chunks(mol["edges"], EQV2_CHUNK)
+    rec, out_c, counts = gnn_forward(params["molecule"], g, ccfg, True, "kernels")
+    by_path["eqv2_chunked"] = counts["segment_sum"]
+    check(counts["segment_sum"] == ccfg.n_layers * (1 + chunks),
+          f"chunked: {counts['segment_sum']} segment_sum launches for {chunks} chunks")
+    emit({"phase": "eqv2_chunked", "edge_chunk": EQV2_CHUNK, "chunks": chunks,
+          "segment_sum_launches": counts["segment_sum"], "seconds": rec["seconds"],
+          "peak_gib": rec["peak_gib"], "finite": rec["finite"],
+          **compare_outputs("equiformer-v2 chunked", out_c, out_k, EQV2_TOL)})
+    del out_c
+
+    # a second kernel forward (profiled) repeats the first bit for bit; the
+    # rotation gaps of the bf16 stack are reported
+    cfg = dataclasses.replace(spec.config, d_in=mol["d_in"])
+    out_r, prof = profiled(lambda: gnn.forward(params["molecule"], g, cfg, use_kernels=True),
+                           kernels=("segment_sum",))
+    seg = prof["named_kernels"]["segment_sum"]
+    emit({"phase": "eqv2_profile", "arch": EQV2_ARCH, "shape": "molecule",
+          "segment_sum_share": seg["s"] / prof["device_s"] if prof["device_s"] else None,
+          **prof})
+    repeat = float((out_r.float() - out_k.float()).abs().max())
+    check(repeat == 0, f"two EquiformerV2 kernel forwards differ by {repeat}")
+    th = 1.1
+    rot_z = torch.tensor([[math.cos(th), -math.sin(th), 0.0], [math.sin(th), math.cos(th), 0.0],
+                          [0.0, 0.0, 1.0]])
+    q, _ = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(5),
+                                       dtype=torch.float64))
+    rot_g = (q * torch.sign(torch.linalg.det(q))).float()
+    top = float(out_k.float().abs().max())
+    gaps = {}
+    for name, rot in (("z_1.1", rot_z), ("general", rot_g)):
+        g_rot = dataclasses.replace(g, positions=g.positions @ rot.T.to(g.positions))
+        out_t = gnn.forward(params["molecule"], g_rot, cfg, use_kernels=True)
+        gaps[name] = float((out_t.float() - out_k.float()).abs().max()) / top
+    emit({"phase": "eqv2_equal", "limit_ratio": EQV2_TOL, "requests": ratios,
+          "max_ratio": max(r["ratio"] for r in ratios),
+          "kernel_repeat_max_abs_diff": repeat, "rotation_gap": gaps})
+    del outs, g, out_k, out_r, params
+    torch.cuda.empty_cache()
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -3147,13 +3350,16 @@ def main() -> None:
     # 11. the two other architectures at full width on the small graph
     gnn_small_phase()
 
-    # 12. flash_attention against its plain version at the serving shapes
+    # 12. EquiformerV2 at full width
+    segment_paths = {"gatedgcn": launches["segment_sum"], **eqv2_phase()}
+
+    # 13. flash_attention against its plain version at the serving shapes
     checks["flash_attention"] = flash_attention_phase()
     emit({"phase": "kernel_check", "flash_attention": checks["flash_attention"]})
 
     emit(flash_kernels_line())
 
-    # 13. phi4-mini-3.8b serving; launches counted over the kernel serve (the
+    # 14. phi4-mini-3.8b serving; launches counted over the kernel serve (the
     #     float32 gate's for the CUDA-core kernel, which bf16 serving skips)
     lm_counts, f32_counts = lm_phase()
     launches["flash_attention"] = lm_counts["flash_attention_tc"]
@@ -3162,11 +3368,11 @@ def main() -> None:
                                         - f32_counts["flash_attention_tc"])
     checks["flash_decode"] = checks["flash_attention_simt"] = checks["flash_attention"]
 
-    # 14. embedding_bag against its plain version at the DLRM shapes
+    # 15. embedding_bag against its plain version at the DLRM shapes
     checks["embedding_bag"] = embedding_bag_phase()
     emit({"phase": "kernel_check", "embedding_bag": checks["embedding_bag"]})
 
-    # 15. dlrm-rm2 serving; launches counted over the kernel serve
+    # 16. dlrm-rm2 serving; launches counted over the kernel serve
     launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
 
     # summary lines
@@ -3205,6 +3411,8 @@ def main() -> None:
                 "wt_multi_auto": auto_launches[name], "backend": backend_launches[name],
                 "service": service_launches[name], "rebalance": rebalance_launches[name],
                 **{path: n[name] for path, n in planted_launches.items()}}
+        elif name == "segment_sum":
+            entry["launches_by_path"] = segment_paths
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES``,
 ``GNN_SHAPES`` and ``RECSYS_SHAPES`` from ``repro/configs/registry.py``,
-restricted to the architectures the port runs: gatedgcn, graphsage-reddit
-and meshgraphnet (GNN full-graph inference), phi4-mini-3.8b (LM serving)
+restricted to the architectures the port runs: gatedgcn, graphsage-reddit,
+meshgraphnet and equiformer-v2 (GNN full-graph inference), phi4-mini-3.8b (LM serving)
 and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
 registry's ``train_batch``, since the port does not train DLRM).
 """
@@ -51,7 +51,8 @@ class ArchSpec:
         raise KeyError(f"{self.name}: unknown shape {name}")
 
 
-_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet", "dlrm_rm2"]
+_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet", "equiformer_v2",
+            "dlrm_rm2"]
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 

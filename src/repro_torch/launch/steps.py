@@ -1,8 +1,9 @@
-"""DLRM serving steps, their FLOP count and their requests.
+"""DLRM serving steps, their FLOP count and their requests; the GNN FLOP count.
 
 Twins of the ``recsys_serve`` and ``retrieval`` branches of
-``repro/launch/steps.py`` (``_dlrm_cell``) and of its ``_dlrm_flops`` for
-serving; the training branch is not ported.
+``repro/launch/steps.py`` (``_dlrm_cell``), of its ``_dlrm_flops`` for
+serving and of its ``_gnn_flops`` for inference; the training branches
+are not ported.
 """
 
 from __future__ import annotations
@@ -11,10 +12,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ..models import dlrm
+from ..models import dlrm, gnn
 
-__all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "recsys_requests",
-           "retrieval_candidates"]
+__all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "gnn_flops",
+           "recsys_requests", "retrieval_candidates"]
 
 
 def dlrm_serve_step(params, dense, sparse, cfg: dlrm.DLRMConfig, *, use_kernels: bool):
@@ -42,6 +43,30 @@ def dlrm_flops(cfg: dlrm.DLRMConfig, batch: int) -> Dict[str, float]:
     params = cfg.n_sparse * cfg.rows_per_table * cfg.embed_dim
     return {"model_flops": float(batch * (mlp + inter)), "params": float(params),
             "active_params": float(params)}
+
+
+def gnn_flops(cfg: gnn.GNNConfig, nodes: int, edges: int) -> Dict[str, float]:
+    """Model FLOP of one full-graph forward (copy of ``_gnn_flops`` with
+    ``train=False``): the JAX package's per-edge and per-node product
+    counts, 2 FLOP a multiply-add. For EquiformerV2 it counts the full
+    rotation and three SO(2) products of every m block per edge, about
+    twice what the forward executes."""
+    d = cfg.d_hidden
+    if cfg.arch == "equiformer_v2":
+        dim = (cfg.l_max + 1) ** 2
+        per_edge = 2 * dim * dim * d + 2 * 3 * (cfg.m_max * 2 + 1) * d * d * dim
+        per_node = 2 * d * d * 2
+    elif cfg.arch == "meshgraphnet":
+        per_edge = 2 * (3 * d) * d + 2 * d * d
+        per_node = 2 * (2 * d) * d + 2 * d * d
+    elif cfg.arch == "gatedgcn":
+        per_edge = 2 * 3 * d * d
+        per_node = 2 * 2 * d * d
+    else:  # graphsage
+        per_edge = 2 * d
+        per_node = 2 * 2 * d * d
+    fwd = cfg.n_layers * (edges * per_edge + nodes * per_node)
+    return {"model_flops": float(fwd), "params": 0.0, "active_params": 0.0}
 
 
 def recsys_requests(cfg: dlrm.DLRMConfig, batch: int,

@@ -1,33 +1,44 @@
-"""GNN full-graph inference: GatedGCN, GraphSAGE, MeshGraphNet.
+"""GNN full-graph inference: GatedGCN, GraphSAGE, MeshGraphNet, EquiformerV2.
 
-Single-device port of ``repro/models/gnn.py``. Message passing is a row
-gather (``index_select``) plus :func:`repro_torch.kernels.ops.segment_sum`
-over a padded edge list: a padded edge's destination becomes the id
-``n``, which the segment sum drops. Each forward first sorts its edge list
-by that id (:func:`sort_edges`) and builds the segment plans once, so every
-segment sum of the forward reads its rows in order; node outputs do not
-depend on the order of the edges. Parameters are a plain dict keyed by
-the JAX names (``"l3_A"``, ``"p0_edge_w1"``, …), so the JAX package's
-parameters carry across unchanged (``convert.gnn_params_from_numpy``).
+Port of ``repro/models/gnn.py``. Message passing is a row gather
+(``index_select``) plus :func:`repro_torch.kernels.ops.segment_sum` over a
+padded edge list: a padded edge's destination becomes the id ``n``, which
+the segment sum drops. Each forward first sorts its edge list by that id
+(:func:`sort_edges`) and builds the segment plans once, so every segment
+sum of the forward reads its rows in order; node outputs do not depend on
+the order of the edges. Parameters are a plain dict keyed by the JAX
+names (``"l3_A"``, ``"p0_edge_w1"``, ``"l0_so2_m1_i"``, …), so the JAX
+package's parameters carry across unchanged
+(``convert.gnn_params_from_numpy``).
 
 Inference only: every forward runs under ``torch.inference_mode()``, and
 the gatedgcn forward updates its edge state in place. Its edge work runs
 over slices of at most :data:`EDGE_SLICE` edges, summing into float64
 node accumulators, so that an ``ogb_products``-sized graph (123.7 M
 directed edges, a 17.3 GB bf16 edge state) fits one 80 GB card.
+
+EquiformerV2 streams its edges in chunks by the JAX chunk rule
+(``edge_chunk``): each chunk's source features are gathered when the
+chunk is processed, and the chunks' message sums add into one float64
+accumulator, cast to the model's type once a layer (JAX adds each chunk
+into the model's type). The chunks are cut from the sorted edge list,
+so which edges share a chunk differs from JAX; the sums do not depend on
+it beyond rounding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ..kernels import ops
+from . import wigner
 
 __all__ = ["EDGE_SLICE", "GraphData", "GNNConfig", "SortedEdges", "sort_edges", "param_shapes",
-           "init_params", "forward", "sage_minibatch_forward"]
+           "init_params", "forward", "sage_minibatch_forward", "eqv2_chunks"]
 
 # Edges per slice of the gatedgcn layer: its [slice, d_hidden] temporaries
 # (gathered rows, gate, message) stay near 2.35 GB each at d_hidden = 70.
@@ -54,11 +65,11 @@ class GraphData:
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    """Twin of ``repro.models.gnn.GNNConfig``, with the fields the three
-    ported architectures read."""
+    """Twin of ``repro.models.gnn.GNNConfig``, less ``remat`` (a training
+    setting)."""
 
     name: str
-    arch: str              # gatedgcn | graphsage | meshgraphnet
+    arch: str              # gatedgcn | graphsage | meshgraphnet | equiformer_v2
     n_layers: int
     d_hidden: int
     d_in: int
@@ -67,7 +78,12 @@ class GNNConfig:
     aggregator: str = "mean"
     fanouts: Tuple[int, ...] = ()     # graphsage sampled mode
     mlp_layers: int = 2               # meshgraphnet
+    l_max: int = 6                    # equiformer
+    m_max: int = 2
+    n_heads: int = 8
     dtype: str = "float32"
+    edge_chunk: int = 32768           # equiformer: bound per-chunk rotation/
+                                      # message working set
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -264,16 +280,181 @@ def _mgn_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
     return _mlp_apply(params, "dec", h, 2)
 
 
+# ---------------------------------------------------------------------------
+# EquiformerV2 (eSCN SO(2) convolutions)  [arXiv:2306.12059]
+# ---------------------------------------------------------------------------
+
+def _eqv2_m_indices(l_max: int, m_max: int):
+    """Coefficient indices with |m| ≤ m_max, grouped by m."""
+    groups = {}
+    off = 0
+    for l in range(l_max + 1):
+        for m in range(-l, l + 1):
+            if abs(m) <= m_max:
+                groups.setdefault(m, []).append(off + m + l)
+        off += 2 * l + 1
+    return groups
+
+
+def _eqv2_shapes(c: GNNConfig) -> Dict:
+    d = c.d_hidden
+    groups = _eqv2_m_indices(c.l_max, c.m_max)
+    shapes = {
+        "embed_w": (c.d_in, d), "embed_b": (d,),
+        "out_w": (d, c.d_out), "out_b": (c.d_out,),
+    }
+    for i in range(c.n_layers):
+        for m, idxs in groups.items():
+            if m < 0:
+                continue
+            nl = len(idxs)
+            # SO(2) linear: mixes l-channels within fixed m (+ pairs for m>0)
+            shapes[f"l{i}_so2_m{m}_r"] = (nl * d, nl * d)
+            if m > 0:
+                shapes[f"l{i}_so2_m{m}_i"] = (nl * d, nl * d)
+        shapes.update(_mlp_shapes([d, d, c.n_heads], f"l{i}_alpha"))
+        shapes.update(_mlp_shapes([d, d, d], f"l{i}_update"))
+        shapes[f"l{i}_gate_w"] = (d, c.l_max)
+        shapes[f"l{i}_gate_b"] = (c.l_max,)
+    return shapes
+
+
+def _so2_rows(groups) -> List[int]:
+    """The coefficient rows the SO(2) mixing reads and writes, in its order:
+    m = 0, then +m and −m for each m > 0 (each group by ascending l)."""
+    rows = list(groups[0])
+    for m in range(1, max(groups) + 1):
+        rows += groups[m] + groups[-m]
+    return rows
+
+
+def _so2_mix(params, i, x, groups, d):
+    """SO(2)-restricted linear mixing per |m| (the eSCN O(L³) trick) of
+    ``x [E, R, d]``, the rotated features' rows in :func:`_so2_rows` order;
+    the output has the same rows. The rows with |m| > m_max, which the
+    original writes as zeros, are never formed."""
+    e = x.shape[0]
+    outs, off = [], 0
+    for m in range(0, max(groups) + 1):
+        nl = len(groups[m])
+        wr = params[f"l{i}_so2_m{m}_r"]
+        xp = x[:, off:off + nl, :].reshape(e, -1)
+        off += nl
+        if m == 0:
+            outs.append(xp @ wr)
+        else:
+            wi = params[f"l{i}_so2_m{m}_i"]
+            xm = x[:, off:off + nl, :].reshape(e, -1)
+            off += nl
+            outs += [xp @ wr - xm @ wi, xp @ wi + xm @ wr]
+    return torch.cat(outs, 1).reshape(e, off, d)
+
+
+def eqv2_chunks(n_edges: int, edge_chunk: int) -> int:
+    """The JAX chunk rule on one device: halve the edge list while both
+    halves divide evenly and hold at least ``edge_chunk`` edges."""
+    n_chunks = 1
+    while n_edges % (n_chunks * 2) == 0 and n_edges // (n_chunks * 2) >= edge_chunk:
+        n_chunks *= 2
+    return n_chunks
+
+
+def _eqv2_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
+    """Structurally-faithful eSCN stack, chunked over edges.
+
+    Per layer (each pass streams edge chunks of ``ck`` edges):
+      pass 1: attention logits from the invariant channel of the SO(2)
+              conv (only the m = 0 rows of the rotated features and the
+              first ``d`` columns of their product are needed);
+      softmax normalization per destination (segment max / sum);
+      pass 2: SO(2) messages, rotated back, weighted, the chunks' segment
+              sums added into one float64 accumulator.
+    As in JAX, the rotation and everything it touches run in float32
+    (``rot`` times the model's features promotes); the embedding, the
+    update MLP, the gates and ``feat`` stay in the config's type.
+    """
+    n, dt, d = g.n, c.tdtype, c.d_hidden
+    dim = wigner.sh_basis_size(c.l_max)
+    groups = _eqv2_m_indices(c.l_max, c.m_max)
+    n0 = len(groups[0])
+    e_total = g.src.shape[0]
+    ck = e_total // eqv2_chunks(e_total, c.edge_chunk)
+    ed = sort_edges(g, ck)            # one segment plan per chunk
+    src, dst, seg = ed.src, ed.dst, ed.seg
+    mask = seg < n
+    den_plan = ed.plans[0] if len(ed.plans) == 1 else ops.segment_plan(seg, n)
+    f32 = {k: v.float() for k, v in params.items() if "_so2_" in k or "_alpha_" in k}
+
+    h0 = g.x.to(dt) @ params["embed_w"] + params["embed_b"]  # invariant
+    feat = torch.zeros((n, dim, d), dtype=h0.dtype, device=h0.device)
+    feat[:, 0, :] = h0
+    del h0
+
+    pos = g.positions.to(torch.float32)
+    rot = wigner.edge_rotation(c.l_max, pos.index_select(0, dst) - pos.index_select(0, src))
+    # the rows the SO(2) mixing reads (m = 0 first): [E, R, dim]
+    rot = rot[:, _so2_rows(groups), :]
+    seg_heads = seg.long()[:, None].expand(-1, c.n_heads)
+    # the degree-l gate of each coefficient row l ≥ 1
+    degree = torch.arange(1, c.l_max + 1, device=feat.device).repeat_interleave(
+        torch.arange(1, c.l_max + 1, device=feat.device) * 2 + 1) - 1
+
+    for i in range(c.n_layers):
+        # ---- pass 1: attention logits (m=0 rows only) --------------------
+        w0 = f32[f"l{i}_so2_m0_r"][:, :d]
+        alpha = torch.empty((e_total, c.n_heads), dtype=torch.float32, device=feat.device)
+        for s in range(0, e_total, ck):
+            sl = slice(s, s + ck)
+            src_f = feat.index_select(0, src[sl]).float()                      # [ck, dim, d]
+            ef0 = torch.bmm(rot[sl, :n0], src_f)                               # m=0 rows
+            alpha[sl] = _mlp_apply(f32, f"l{i}_alpha", ef0.reshape(ck, -1) @ w0, 2)
+        logits = torch.where(mask[:, None], alpha, -math.inf)
+        amax = torch.full((n + 1, c.n_heads), -math.inf, dtype=torch.float32,
+                          device=feat.device).scatter_reduce_(0, seg_heads, logits, "amax")
+        alpha -= amax.index_select(0, dst)
+        w = torch.exp(torch.where(mask[:, None], alpha, -math.inf))
+        den = ops.segment_sum(w, seg, n, use_kernels=use_kernels, plan=den_plan)
+        w /= den.index_select(0, dst).clamp_min(1e-9)
+        wh = w.mean(-1)               # head-avg gate; 0 on padding, so no mask is applied
+        del alpha, logits, amax, w, den
+
+        # ---- pass 2: chunked messages, float64 partial segment sums -------
+        agg = torch.zeros((n, dim * d), dtype=ops.ACC_DTYPE, device=feat.device)
+        for s, plan in zip(range(0, e_total, ck), ed.plans):
+            sl = slice(s, s + ck)
+            src_f = feat.index_select(0, src[sl]).float()
+            edge_f = torch.bmm(rot[sl], src_f)                                 # [ck, R, d]
+            out_f = _so2_mix(f32, i, edge_f, groups, d)
+            msg = torch.bmm(rot[sl].transpose(1, 2), out_f)                    # back to global
+            msg *= wh[sl, None, None]
+            del src_f, edge_f, out_f
+            ops.segment_sum(msg.reshape(ck, -1), seg[sl], n, use_kernels=use_kernels, acc=agg,
+                            plan=plan)
+            del msg
+        agg = agg.to(dt).reshape(n, dim, d)
+
+        # ---- gated update --------------------------------------------------
+        inv = agg[:, 0, :]
+        upd = _mlp_apply(params, f"l{i}_update", inv, 2)
+        gates = torch.sigmoid(inv @ params[f"l{i}_gate_w"] + params[f"l{i}_gate_b"])
+        feat[:, 0, :] += upd
+        feat[:, 1:, :] += agg[:, 1:, :] * gates.index_select(1, degree)[:, :, None]
+        del agg, inv, upd, gates
+    return feat[:, 0, :] @ params["out_w"] + params["out_b"]
+
+
 _SHAPES = {
     "gatedgcn": _gatedgcn_shapes,
     "graphsage": _graphsage_shapes,
     "meshgraphnet": _mgn_shapes,
+    "equiformer_v2": _eqv2_shapes,
 }
 
 _FORWARD = {
     "gatedgcn": _gatedgcn_forward,
     "graphsage": _graphsage_forward,
     "meshgraphnet": _mgn_forward,
+    "equiformer_v2": _eqv2_forward,
 }
 
 

@@ -84,6 +84,11 @@ params = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 out = gnn.forward(params, graph_from_numpy(build_graph_data(32, 96, cfg.d_in), "cpu"), cfg,
                   use_kernels=False)
 assert out.shape == (32, cfg.d_out) and bool(torch.isfinite(out).all()), out
+eq = get_arch("equiformer-v2").smoke
+eq_g = graph_from_numpy(build_graph_data(32, 96, eq.d_in, geometric=True), "cpu")
+eq_params = gnn.init_params(eq, torch.Generator().manual_seed(0), "cpu")
+eq_out = gnn.forward(eq_params, eq_g, eq, use_kernels=False)
+assert eq_out.shape == (32, eq.d_out) and bool(torch.isfinite(eq_out).all()), eq_out
 from repro_torch.models import transformer as tf
 lm = get_arch("phi4-mini-3.8b").smoke
 lm_params = tf.init_params(lm, torch.Generator().manual_seed(0), "cpu")
