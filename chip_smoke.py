@@ -189,6 +189,31 @@ Prints one JSON object per line, in phases:
    forward equal to the first bit for bit, and, reported, the output's
    change under a rotation of the positions about z by 1.1 rad and under a
    general rotation, over max |output|.
+12b. ``gnn_train_plan`` / ``gnn_train_check`` / ``gnn_train`` — GNN
+   training at full width through ``launch.steps.gnn_train_step`` (the
+   loss of ``_gnn_cell``'s step, its gradient with each layer
+   recomputed in the backward, AdamW at 1e-3): equiformer-v2 and gatedgcn
+   on ``molecule`` (3,840 nodes, 16,384 edges), graphsage-reddit on
+   ``minibatch_lg`` (169,984 nodes, 168,960 edges, d_feat 602) and
+   meshgraphnet on ``full_graph_sm``, as ``gnn_counts`` sizes them;
+   parameters from seed 4, labels the degree bucket. ``gnn_train_check``,
+   from one parameter draw after a warm-up: the kernel path's loss and
+   every gradient within 3e-2 * max |plain| of the plain path's (each
+   gradient's limit plus 1e-6 of the largest), two kernel steps bit for
+   bit equal, remat off against on within 1e-6 * max (EquiformerV2 and
+   gatedgcn; peak GiB of both), the training forward against the
+   inference forward within the forward's gate; segment_sum launches a
+   step, no other kernel. ``gnn_train``: 10 steps on the kernel path, each
+   loss and global norm (all finite, the last loss below the first), CUDA
+   event seconds a step and their median, peak GiB, segment_sum launches
+   (10 times a step's); for EquiformerV2 the step's executed FLOP over
+   its median (``eqv2_train_flops``) beside JAX's ``_gnn_flops(train=True)``
+   count, the float32 bound of the FLOP the step needs (rotations counted
+   by degree; the executed count's bound beside it) and its share of the
+   median, and one more step under ``torch.profiler``. Then a
+   ``kernel_check`` line: ``segment_sum`` at each path's two training
+   shapes, the source-id transposes of its gathers (unsorted; padded edges
+   dropped) and its widest destination-id sum, timed as in 9.
 13. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
@@ -251,8 +276,8 @@ Prints one JSON object per line, in phases:
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
-the molecule and full_graph_sm kernel requests and the chunked forward,
-each counted from 0), and last
+the molecule and full_graph_sm kernel requests, the chunked forward and
+the four training paths' 10 steps, each counted from 0), and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
 
@@ -339,6 +364,17 @@ EQV2_ARCH = "equiformer-v2"
 EQV2_MOLECULE_SEEDS = (0, 1, 2, 3)
 EQV2_CHUNK = 4096
 EQV2_TOL = 3e-2
+# The GNN training slice: each architecture at its _FULL width on a shape its
+# users train on, sized as launch/steps.py _gnn_counts sizes it on one device
+# (gnn_counts); the forward's gate against its plain version beside each.
+# ogb_products is left out: with remat gatedgcn keeps each layer's
+# [123,718,280, 70] bf16 edge state, 17.3 GB, 277 GB over 16 layers.
+TRAIN_CELLS = (("equiformer-v2", "molecule", EQV2_TOL), ("gatedgcn", "molecule", 3e-2),
+               ("graphsage-reddit", "minibatch_lg", 1e-4),
+               ("meshgraphnet", "full_graph_sm", 3e-2))
+TRAIN_STEPS, TRAIN_LR = 10, 1e-3
+TRAIN_GRAD_TOL, REMAT_TOL = 3e-2, 1e-6
+REMAT_CHECKED = ("equiformer-v2", "gatedgcn")
 # The LM slice: phi4-mini-3.8b serving (configs/phi4_mini_3_8b.py _FULL).
 # The repo's prefill_32k shape (32 x 32,768 tokens) needs a 137 GB cache:
 # cut to 4 prompts of 8,192 tokens and 16 generated tokens each.
@@ -2045,8 +2081,7 @@ def segment_sum_phase():
     accumulator is float32: the kernel's float64 traffic shows as distance
     from the bound."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+    from repro_torch.kernels.segment_sum import segment_plan
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     big_n, big_e = 2_449_029, 1 << 24
@@ -2095,49 +2130,58 @@ def segment_sum_phase():
     out = []
     for name in list(cases):
         data, seg, n = cases.pop(name)
-        e, d = data.shape
-        zeros = lambda: torch.zeros((n, d), dtype=ref.ACC_DTYPE, device="cuda")  # noqa: E731
-        plan = segment_plan(seg, n)
-        got = segment_sum_cuda(data, plan, zeros())
-        want = ref.segment_sum_ref(data, seg, n, zeros())
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        top = float(want.abs().max()) if want.numel() else 0.0
-        limit = 0.0 if name in ("ones_column", "empty", "all_out_of_range") else \
-            1e-5 * max(1.0, top)
-        check(err <= limit, f"segment_sum {name}: max |kernel - plain| {err} > {limit}")
-        if name == "all_out_of_range":
-            check(not got.any(), "segment_sum: out-of-range ids were added")
-        rec = {"case": name, "rows": e, "d": d, "n": n, "dtype": str(data.dtype).split(".")[-1],
-               "max_abs_err": err, "max_abs_ref": top, "limit": limit,
-               "sorted": plan.order is None, "segments": plan.hi - plan.lo,
-               "heavy_segments": plan.heavy.shape[0], "heavy_parts": plan.n_parts}
-        if e * d >= 1 << 20 or name.startswith("eqv2"):
-            keep = (seg >= 0) & (seg < n)
-            src = torch.where(keep[:, None], data.float(), 0.0)
-            idx = seg.clamp(0, n - 1)
-            acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
-            touched = int(torch.unique(seg[keep]).numel())
-            rec["ms"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got))
-            rec["plan_ms"] = cuda_ms(lambda: segment_plan(seg, n), reps=3)
-            rec["plain_ms"] = cuda_ms(lambda: ref.segment_sum_ref(data, seg, n, want), reps=3)
-            rec["library_ms"] = cuda_ms(lambda: acc.index_add_(0, idx, src))
-            if rec["ms"] < 1:  # the card's time alone, the host's hidden
-                rec["ms_back_to_back"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got),
-                                                 per=20)
-                rec["library_ms_back_to_back"] = cuda_ms(lambda: acc.index_add_(0, idx, src),
-                                                         per=20)
-            # the function's bytes: data and ids read once, the float32 rows
-            # of the touched segments written once; e * d float32 adds
-            n_bytes = e * d * data.element_size() + 4 * e + 4 * touched * d
-            rec["touched_segments"] = touched
-            rec["bytes"] = n_bytes
-            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, e * d)
-            del keep, src, idx, acc
-        out.append(rec)
-        del data, seg, got, want, plan
+        timed = data.shape[0] * data.shape[1] >= 1 << 20 or name.startswith("eqv2")
+        out.append(segment_sum_case(name, data, seg, n, segment_plan(seg, n), timed))
+        del data, seg
     torch.cuda.empty_cache()
     return out
+
+
+def segment_sum_case(name, data, seg, n, plan, timed: bool):
+    """One ``segment_sum`` case: the kernel through ``plan``, the segment
+    plan of ``seg``, against the plain version from the ids, within 1e-5
+    of max |plain| (exact for the integer-valued cases). When ``timed``:
+    the kernel, the plan, the plain version and ``index_add_`` into
+    float32, and the function's byte bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum_cuda
+
+    e, d = data.shape
+    zeros = lambda: torch.zeros((n, d), dtype=ref.ACC_DTYPE, device="cuda")  # noqa: E731
+    got = segment_sum_cuda(data, plan, zeros())
+    want = ref.segment_sum_ref(data, seg, n, zeros())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    top = float(want.abs().max()) if want.numel() else 0.0
+    limit = 0.0 if name in ("ones_column", "empty", "all_out_of_range") else 1e-5 * max(1.0, top)
+    check(err <= limit, f"segment_sum {name}: max |kernel - plain| {err} > {limit}")
+    if name == "all_out_of_range":
+        check(not got.any(), "segment_sum: out-of-range ids were added")
+    rec = {"case": name, "rows": e, "d": d, "n": n, "dtype": str(data.dtype).split(".")[-1],
+           "max_abs_err": err, "max_abs_ref": top, "limit": limit,
+           "sorted": plan.order is None, "segments": plan.hi - plan.lo,
+           "heavy_segments": plan.heavy.shape[0], "heavy_parts": plan.n_parts}
+    if timed:
+        keep = (seg >= 0) & (seg < n)
+        src = torch.where(keep[:, None], data.float(), 0.0)
+        idx = seg.clamp(0, n - 1)
+        acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+        touched = int(torch.unique(seg[keep]).numel())
+        rec["ms"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got))
+        rec["plan_ms"] = cuda_ms(lambda: segment_plan(seg, n), reps=3)
+        rec["plain_ms"] = cuda_ms(lambda: ref.segment_sum_ref(data, seg, n, want), reps=3)
+        rec["library_ms"] = cuda_ms(lambda: acc.index_add_(0, idx, src))
+        if rec["ms"] < 1:  # the card's time alone, the host's hidden
+            rec["ms_back_to_back"] = cuda_ms(lambda: segment_sum_cuda(data, plan, got), per=20)
+            rec["library_ms_back_to_back"] = cuda_ms(lambda: acc.index_add_(0, idx, src),
+                                                     per=20)
+        # the function's bytes: data and ids read once, the float32 rows
+        # of the touched segments written once; e * d float32 adds
+        n_bytes = e * d * data.element_size() + 4 * e + 4 * touched * d
+        rec["touched_segments"] = touched
+        rec["bytes"] = n_bytes
+        rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, e * d)
+    return rec
 
 
 def sort_and_plan(g, slice_rows=None):
@@ -2294,13 +2338,14 @@ def gnn_small_phase():
 # EquiformerV2 inference
 # ---------------------------------------------------------------------------
 
-def eqv2_flops(cfg, nodes: int, edges: int, dense_rotation: bool = True) -> float:
-    """FLOP of the port's EquiformerV2 forward, 2 a multiply-add: per edge
-    and layer, pass 1 rotates the m = 0 rows and takes the first d columns
-    of their product and the logit MLP; pass 2 rotates the rows with |m| <=
-    m_max in and back, mixes them (one product for m = 0, four for each m >
-    0), weights and sums the messages; per node and layer, the update MLP
-    and the gates; once, the edge rotations, the embedding and the readout.
+def eqv2_terms(cfg, dense_rotation: bool = True):
+    """FLOP of the port's EquiformerV2 forward by kind, 2 a multiply-add:
+    (per edge and layer, the rotations in pass 1 (the m = 0 rows) and pass
+    2 (the rows with |m| <= m_max in and back) and the messages'
+    weighting; per edge and layer, the products of a weight: the first d
+    columns of the attention's m = 0 product, the logit MLP and the SO(2)
+    mixing (one product for m = 0, four for each m > 0); per node and
+    layer, the update MLP and the gates; per edge, building the rotations).
     ``dense_rotation``: the rotations as the forward executes them, each
     row against all (l_max + 1)**2 coefficients; else only the 2l + 1 of
     its own degree l (the rotation is block-diagonal by l), the FLOP the
@@ -2316,12 +2361,19 @@ def eqv2_flops(cfg, nodes: int, edges: int, dense_rotation: bool = True) -> floa
         nnz0 = dim  # the m = 0 row of degree l has 2l + 1 entries
         nnz = sum(min(2 * l + 1, 2 * cfg.m_max + 1) * (2 * l + 1) for l in range(cfg.l_max + 1))
     so2 = 2 * (n0 * d) ** 2 + sum(8 * (len(groups[m]) * d) ** 2 for m in groups if m > 0)
-    pass1 = 2 * nnz0 * d + 2 * n0 * d * d + 2 * d * d + 2 * d * cfg.n_heads
-    pass2 = 2 * (2 * nnz * d) + so2 + 2 * dim * d
+    rotate = 2 * nnz0 * d + 2 * (2 * nnz * d) + 2 * dim * d
+    weights = 2 * n0 * d * d + 2 * d * d + 2 * d * cfg.n_heads + so2
     per_node = 2 * 2 * d * d + 2 * d * cfg.l_max
-    rotation = sum(6 * (2 * l + 1) ** 3 for l in range(cfg.l_max + 1))
-    return float(cfg.n_layers * (edges * (pass1 + pass2) + nodes * per_node)
-                 + edges * rotation + 2 * nodes * d * (cfg.d_in + cfg.d_out))
+    build = sum(6 * (2 * l + 1) ** 3 for l in range(cfg.l_max + 1))
+    return rotate, weights, per_node, build
+
+
+def eqv2_flops(cfg, nodes: int, edges: int, dense_rotation: bool = True) -> float:
+    """FLOP of the port's EquiformerV2 forward (:func:`eqv2_terms`): the
+    layers, the edge rotations, the embedding and the readout."""
+    rotate, weights, per_node, build = eqv2_terms(cfg, dense_rotation)
+    return float(cfg.n_layers * (edges * (rotate + weights) + nodes * per_node)
+                 + edges * build + 2 * nodes * cfg.d_hidden * (cfg.d_in + cfg.d_out))
 
 
 def eqv2_graphs():
@@ -2448,6 +2500,218 @@ def eqv2_phase():
     del outs, g, out_k, out_r, params
     torch.cuda.empty_cache()
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# GNN training
+# ---------------------------------------------------------------------------
+
+def eqv2_train_flops(cfg, nodes: int, edges: int, dense_rotation: bool = True) -> float:
+    """FLOP of one EquiformerV2 training step (:func:`eqv2_terms`, with
+    ``dense_rotation`` as the port executes the rotations, else as the
+    function needs them): the layers' forward, again in the backward's
+    recompute (``remat``), and their backward: twice the forward for every
+    product of a weight (the gradients of its input and of the weight),
+    once for the rotations and the messages' weighting (the rotations take
+    no gradient); the edge rotations built once; the embedding's weight
+    gradient and the readout's two."""
+    rotate, weights, per_node, build = eqv2_terms(cfg, dense_rotation)
+    d = cfg.d_hidden
+    fwd = cfg.n_layers * (edges * (rotate + weights) + nodes * per_node)
+    bwd = cfg.n_layers * (edges * (rotate + 2 * weights) + nodes * 2 * per_node)
+    io = 2 * nodes * d * cfg.d_in * 2 + 2 * nodes * d * cfg.d_out * 3
+    return float(fwd * (2 if cfg.remat else 1) + bwd + edges * build + io)
+
+
+def train_grads(params, tg, labels, cfg, use_kernels: bool):
+    """One loss and gradient (``gnn_value_and_grad``), synchronized:
+    (loss, grads, seconds, peak GiB, launch counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import gnn_value_and_grad
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = gnn_value_and_grad(params, tg, labels, cfg, use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    return (loss, grads, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30,
+            ops.launch_counts())
+
+
+def grad_gap(got, want, share: float):
+    """The largest |got - want| of each gradient over ``share`` times its
+    largest |want| plus 1e-6 of the model's largest (a gradient that is
+    zero in exact arithmetic is rounding noise in both): the worst such
+    ratio (<= 1 passes), and whether every gradient is bit-equal."""
+    top = max(float(v.float().abs().max()) for v in want.values())
+    worst, equal = 0.0, True
+    for k, w in want.items():
+        diff = float((got[k].float() - w.float()).abs().max())
+        equal = equal and torch.equal(got[k], w)
+        limit = share * float(w.float().abs().max()) + 1e-6 * top
+        worst = max(worst, diff / limit if limit else (0.0 if diff == 0 else math.inf))
+    return worst, equal
+
+
+def train_cell(arch: str, shape_name: str, gate: float):
+    """One architecture's training cell: the checks from one parameter
+    draw, then TRAIN_STEPS steps on the kernel path; returns (the
+    segment_sum launches of the steps, the kernel_check cases at the
+    training shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import graph_from_numpy
+    from repro_torch.data import build_graph_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import gnn_counts, gnn_flops, gnn_train_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw_init
+
+    spec = get_arch(arch)
+    shape = spec.shape(shape_name)
+    cfg = dataclasses.replace(spec.config, d_in=shape.d_feat)
+    eqv2 = cfg.arch == "equiformer_v2"
+    nodes, edges = gnn_counts(shape)
+    t0 = time.perf_counter()
+    raw = build_graph_data(nodes, edges, shape.d_feat, d_edge=cfg.d_edge_in, seed=0,
+                           geometric=eqv2)
+    g = graph_from_numpy(raw, "cuda")
+    deg = np.bincount(raw["dst"][raw["edge_mask"]], minlength=nodes)
+    labels = torch.from_numpy((np.minimum(deg, cfg.d_out - 1) if cfg.d_out > 1 else deg)
+                              .astype(np.int32)).cuda()
+    del raw
+    params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tg = gnn.train_graph(g, cfg)
+    torch.cuda.synchronize()
+    plan = {"phase": "gnn_train_plan", "arch": arch, "shape": shape_name, "nodes": nodes,
+            "edges": edges, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden, "d_out": cfg.d_out,
+            "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": cfg.remat,
+            "params": sum(p.numel() for p in params.values()), "data_seconds": data_s,
+            "plan_seconds": time.perf_counter() - t0, "edge_chunks": len(tg.ed.plans),
+            "model_flops": gnn_flops(cfg, nodes, edges, train=True)["model_flops"]}
+    if eqv2:
+        plan["executed_flops"] = eqv2_train_flops(cfg, nodes, edges)
+        plan["needed_flops"] = eqv2_train_flops(cfg, nodes, edges, dense_rotation=False)
+        plan["executed_bound_ms"] = bound_ms(0, plan["executed_flops"])[0]
+        plan["bound_ms"] = bound_ms(0, plan["needed_flops"])[0]
+    emit(plan)
+
+    # ---- checks from one parameter draw -------------------------------------
+    train_grads(params, tg, labels, cfg, True)  # warm-up: first-use costs
+    loss_k, g_k, sec_k, peak_k, cnt_k = train_grads(params, tg, labels, cfg, True)
+    loss_r, g_r, _, _, _ = train_grads(params, tg, labels, cfg, True)
+    loss_p, g_p, sec_p, peak_p, cnt_p = train_grads(params, tg, labels, cfg, False)
+    check(not any(cnt_p.values()), f"{arch}: the plain step launched kernels: {cnt_p}")
+    check(cnt_k["segment_sum"] > 0, f"{arch}: segment_sum never launched in a step")
+    check(not any(v for k, v in cnt_k.items() if k != "segment_sum"),
+          f"{arch}: other kernels launched: {cnt_k}")
+    finite = all(bool(torch.isfinite(v).all()) for v in (*g_k.values(), loss_k))
+    check(finite, f"{arch}: a gradient or the loss is not finite")
+    loss_ratio = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_ratio, grad_equal = grad_gap(g_k, g_p, TRAIN_GRAD_TOL)
+    check(loss_ratio <= TRAIN_GRAD_TOL and grad_ratio <= 1,
+          f"{arch}: kernel vs plain: loss {loss_ratio}, gradients {grad_ratio} of the limit")
+    repeat = torch.equal(loss_k, loss_r) and all(torch.equal(g_k[k], g_r[k]) for k in g_k)
+    check(repeat, f"{arch}: two kernel steps differ")
+    rec = {"phase": "gnn_train_check", "arch": arch, "shape": shape_name,
+           "loss_kernels": float(loss_k), "loss_plain": float(loss_p), "loss_ratio": loss_ratio,
+           "grad_limit": TRAIN_GRAD_TOL, "grad_worst_over_limit": grad_ratio,
+           "grads_bitwise_plain": grad_equal, "repeat_bitwise": repeat,
+           "grad_seconds": sec_k, "plain_grad_seconds": sec_p, "peak_gib": peak_k,
+           "plain_peak_gib": peak_p, "segment_sum_launches": cnt_k["segment_sum"]}
+    del g_r, g_p
+    if arch in REMAT_CHECKED:
+        loss_o, g_o, sec_o, peak_o, cnt_o = train_grads(
+            params, tg, labels, dataclasses.replace(cfg, remat=False), True)
+        top = max(float(v.float().abs().max()) for v in g_k.values())
+        gap = max(float((g_o[k].float() - g_k[k].float()).abs().max()) for k in g_k)
+        check(gap <= REMAT_TOL * top and float(loss_o) == float(loss_k),
+              f"{arch}: remat off differs from on by {gap} (limit {REMAT_TOL} * {top})")
+        rec.update(remat_off_max_abs_diff=gap, remat_limit=REMAT_TOL * top,
+                   remat_off_bitwise=all(torch.equal(g_o[k], g_k[k]) for k in g_k),
+                   remat_off_peak_gib=peak_o, remat_off_seconds=sec_o,
+                   remat_off_segment_sum_launches=cnt_o["segment_sum"])
+        del g_o
+    del g_k
+    free_device_memory()
+    out_t = gnn.train_forward(params, tg, cfg, use_kernels=True)
+    out_i = gnn.forward(params, g, cfg, use_kernels=True)
+    fwd = compare_outputs(f"{arch} training forward", out_t.detach(), out_i, gate)
+    rec.update(forward_gate=gate, forward_ratio=fwd["ratio"],
+               forward_equal_share=fwd["equal_share"])
+    emit(rec)
+    del out_t, out_i
+
+    # ---- training: TRAIN_STEPS steps on the kernel path ---------------------
+    opt = adamw_init(params)
+    losses, norms, times, peak = [], [], [], 0.0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt, loss, gnorm = gnn_train_step(params, opt, tg, labels, cfg, lr=TRAIN_LR,
+                                                  use_kernels=True)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    counts = ops.launch_counts()
+    check(all(math.isfinite(v) for v in losses + norms), f"{arch}: a loss or norm is not finite")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
+    check(counts["segment_sum"] == TRAIN_STEPS * cnt_k["segment_sum"],
+          f"{arch}: {counts['segment_sum']} segment_sum launches in {TRAIN_STEPS} steps, "
+          f"{cnt_k['segment_sum']} a step before")
+    rec = {"phase": "gnn_train", "arch": arch, "shape": shape_name, "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR, "losses": losses, "gnorms": norms, "step_seconds": times,
+           "median_step_seconds": statistics.median(times), "peak_gib": peak,
+           "segment_sum_launches": counts["segment_sum"],
+           "segment_sum_launches_per_step": counts["segment_sum"] // TRAIN_STEPS}
+    if eqv2:
+        rec["executed_tflops_per_s"] = plan["executed_flops"] / rec["median_step_seconds"] / 1e12
+        rec["bound_share"] = plan["bound_ms"] / 1e3 / rec["median_step_seconds"]
+        rec["model_flops"] = plan["model_flops"]
+        _, prof = profiled(lambda: gnn_train_step(params, opt, tg, labels, cfg, lr=TRAIN_LR,
+                                                  use_kernels=True), kernels=("segment_sum",))
+        seg = prof["named_kernels"]["segment_sum"]
+        rec["profile"] = {"segment_sum_share": seg["s"] / prof["device_s"]
+                          if prof["device_s"] else None, **prof}
+    emit(rec)
+
+    # ---- segment_sum at the training shapes ----------------------------------
+    ed, n = tg.ed, g.n
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = (cfg.l_max + 1) ** 2 * cfg.d_hidden  # EquiformerV2's [E, dim, d] features
+    width = {"equiformer_v2": (rows, rows),
+             "graphsage": (cfg.d_hidden, cfg.d_in)}.get(cfg.arch, (cfg.d_hidden, cfg.d_hidden))
+    kind = torch.float32 if eqv2 else cfg.tdtype
+    src_ids = torch.where(ed.seg < n, ed.src, n).to(torch.int32)
+    cases = []
+    for name, ids, tplan, d in ((f"{arch}_train_src", src_ids, tg.src_plan, width[0]),
+                                (f"{arch}_train_dst", ed.seg, tg.seg_plan, width[1])):
+        data = torch.randn((edges, d), generator=gen, device="cuda").to(kind)
+        cases.append(segment_sum_case(name, data, ids, n, tplan, True))
+        del data
+    del tg, g, params, opt
+    free_device_memory()
+    return counts["segment_sum"], cases
+
+
+def gnn_train_phase():
+    """GNN training at full width: the four TRAIN_CELLS. Returns the
+    segment_sum launches by training path and the kernel_check cases."""
+    by_path, cases = {}, []
+    for arch, shape_name, gate in TRAIN_CELLS:
+        by_path[f"train_{arch}_{shape_name}"], more = train_cell(arch, shape_name, gate)
+        cases += more
+    emit({"phase": "kernel_check", "segment_sum": cases})
+    return by_path, cases
 
 
 # ---------------------------------------------------------------------------
@@ -3352,6 +3616,11 @@ def main() -> None:
 
     # 12. EquiformerV2 at full width
     segment_paths = {"gatedgcn": launches["segment_sum"], **eqv2_phase()}
+
+    # 12b. GNN training at full width: the four GNNs, 10 steps each
+    train_paths, train_cases = gnn_train_phase()
+    segment_paths.update(train_paths)
+    checks["segment_sum"] += train_cases
 
     # 13. flash_attention against its plain version at the serving shapes
     checks["flash_attention"] = flash_attention_phase()

@@ -3,7 +3,7 @@
 Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES``,
 ``GNN_SHAPES`` and ``RECSYS_SHAPES`` from ``repro/configs/registry.py``,
 restricted to the architectures the port runs: gatedgcn, graphsage-reddit,
-meshgraphnet and equiformer-v2 (GNN full-graph inference), phi4-mini-3.8b (LM serving)
+meshgraphnet and equiformer-v2 (GNN full-graph inference and training), phi4-mini-3.8b (LM serving)
 and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
 registry's ``train_batch``, since the port does not train DLRM).
 """

@@ -8,7 +8,9 @@ arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
 :func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
 parameters and a ``build_graph_data`` dict across, :func:`dlrm_params_from_numpy`
 the DLRM parameters, :func:`lm_params_from_numpy` the transformer's nested
-parameter dict.
+parameter dict. :func:`adamw_state_from_numpy` carries a JAX
+``AdamWState`` across, so that a JAX run's optimizer state continues in
+the port.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import numpy as np
 import torch
 
 from .engine import CompTensors, PaddedPartition, map_tensors
+from .optim import AdamWState
 from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
            "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "dlrm_params_from_numpy",
-           "lm_params_from_numpy", "graph_from_numpy"]
+           "lm_params_from_numpy", "graph_from_numpy", "adamw_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -100,3 +103,17 @@ def graph_from_numpy(raw, device="cuda"):
 
     return GraphData(**{k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
                         for k in GraphData.__dataclass_fields__})
+
+
+def adamw_state_from_numpy(state, device="cuda") -> AdamWState:
+    """A port ``AdamWState`` from a JAX one (``step``, and ``mu`` / ``nu``
+    dicts by parameter name, NumPy-convertible): an int32 0-d step and
+    float32 moments."""
+    def moments(tree):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")).to(device)
+                for k, v in sorted(tree.items())}
+
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=device),
+                      mu=moments(state.mu), nu=moments(state.nu))
+

@@ -4,6 +4,9 @@ The path follows the tensor's device: a CUDA tensor with
 ``use_kernels=True`` launches the hand-written kernel; ``use_kernels=False``
 runs the plain version (on either device); ``use_kernels=True`` on a CPU
 tensor raises. A failed build or launch raises — nothing falls back.
+:func:`segment_sum` and :func:`gather_rows` are differentiable; the
+gather's backward is a segment sum, so on the card it launches the kernel
+too.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from .member_probe import member_probe_cuda
 from .segment_sum import SegmentPlan, segment_plan, segment_sum_cuda
 from .set_intersect import set_intersect_cuda
 
-__all__ = ["set_intersect", "member_probe", "segment_sum", "segment_plan", "SegmentPlan",
-           "embedding_bag", "flash_attention", "ACC_DTYPE", "launch_counts",
+__all__ = ["set_intersect", "member_probe", "segment_sum", "gather_rows", "segment_plan",
+           "SegmentPlan", "embedding_bag", "flash_attention", "ACC_DTYPE", "launch_counts",
            "reset_launch_counts"]
 
 # kernel name: (wrapper, its attribute that counts the kernel's launches).
@@ -63,33 +66,110 @@ def member_probe(q_hi: torch.Tensor, q_lo: torch.Tensor, t_hi: torch.Tensor,
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int, *, use_kernels: bool,
-                acc: Optional[torch.Tensor] = None,
-                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+                acc: Optional[torch.Tensor] = None, plan: Optional[SegmentPlan] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``out[s, :] = Σ_{i : seg[i] = s} data[i, :]``; ids outside ``[0, n)``
     are dropped and need not be sorted.
 
     Sums in ``ACC_DTYPE`` (float64). Without ``acc`` it returns
-    ``[n, D]`` in ``data.dtype``; with ``acc`` (``ACC_DTYPE`` ``[n, D]``)
-    it adds into that buffer and returns it, so a caller can sum over
-    slices of the rows. ``plan``, the :func:`segment_plan` of ``seg``, lets
-    a caller that sums by the same ids again build it once; without one the
-    kernel path builds it for this call (building a plan is not a launch).
+    ``[n, D]`` in ``dtype`` (default ``data.dtype``; ``ACC_DTYPE`` keeps
+    the float64 sum); with ``acc`` (``ACC_DTYPE`` ``[n, D]``) it adds into
+    that buffer and returns it, so a caller can sum over slices of the
+    rows. ``plan``, the :func:`segment_plan` of ``seg``, lets a caller that
+    sums by the same ids again build it once; without one the kernel path
+    builds it for this call (building a plan is not a launch).
+
+    Without ``acc``, with grad mode on and ``data`` requiring grad, the
+    sum is differentiable (:class:`_SegmentSum`): the gradient of
+    ``data`` is the gather ``grad[seg]``, zero for dropped ids, in
+    ``data``'s type, the transpose ``jax.ops.segment_sum`` has.
     """
     if acc is not None and (acc.dtype != ACC_DTYPE or tuple(acc.shape) != (n, data.shape[1])):
         raise ValueError(f"segment_sum: acc must be {ACC_DTYPE} [{n}, {data.shape[1]}], "
                          f"got {acc.dtype} {tuple(acc.shape)}")
     if plan is not None:
         plan.check(seg.shape[0], n, seg.device)
-    if not _use_kernel(data, use_kernels, "segment_sum"):
-        if plan is None:
-            return ref.segment_sum_ref(data, seg, n, acc)
-        return ref.segment_sum_plan_ref(data, plan, n, acc)
-    if plan is None:
-        plan = segment_plan(seg, n)
+    if acc is None and torch.is_grad_enabled() and data.requires_grad:
+        out = _SegmentSum.apply(data, seg, n, plan, use_kernels)
+    else:
+        out = _sum64(data, seg, n, use_kernels, acc, plan)
+        if acc is not None:
+            return out
+    return out.to(dtype or data.dtype)
+
+
+def _sum64(data, seg, n, use_kernels, acc, plan) -> torch.Tensor:
+    """The float64 sums added into ``acc`` (zeros when None)."""
     out = acc if acc is not None else torch.zeros((n, data.shape[1]), dtype=ACC_DTYPE,
                                                   device=data.device)
-    segment_sum_cuda(data.contiguous(), plan, out)
-    return out if acc is not None else out.to(data.dtype)
+    if not _use_kernel(data, use_kernels, "segment_sum"):
+        if plan is None:
+            return ref.segment_sum_ref(data, seg, n, out)
+        return ref.segment_sum_plan_ref(data, plan, n, out)
+    segment_sum_cuda(data.contiguous(), plan if plan is not None else segment_plan(seg, n), out)
+    return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    """:func:`segment_sum` as a function of ``data``: the float64 sums;
+    backward, the gather of the gradient (cast to ``data``'s type first)
+    by the ids, through a zero row for the dropped ones."""
+
+    @staticmethod
+    def forward(ctx, data, seg, n, plan, use_kernels):
+        ctx.save_for_backward(seg)
+        ctx.n, ctx.dtype, ctx.use_kernels = n, data.dtype, use_kernels
+        return _sum64(data, seg, n, use_kernels, None, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg,) = ctx.saved_tensors
+        _use_kernel(grad, ctx.use_kernels, "segment_sum")
+        n = ctx.n
+        padded = torch.cat([grad.to(ctx.dtype),
+                            grad.new_zeros((1, grad.shape[1]), dtype=ctx.dtype)])
+        rows = padded.index_select(0, torch.where((seg >= 0) & (seg < n), seg, n))
+        return rows, None, None, None, None
+
+
+def gather_rows(h: torch.Tensor, idx: torch.Tensor, *, use_kernels: bool,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """``h[idx]`` along the first axis (``idx`` int32 in ``[0, len(h))``).
+
+    With grad mode on and ``h`` requiring grad it is differentiable
+    (:class:`_GatherRows`), and its transpose is a segment sum of the rows'
+    gradients onto ``h``'s rows through :func:`segment_sum`: the CUDA
+    kernel for ``use_kernels=True``, deterministic and summed in float64,
+    where autograd's own ``index_select`` backward adds with float
+    atomics in ``h``'s type. ``plan`` is the segment plan of the ids that
+    sum: those of ``idx``, or of ``idx`` with the rows whose gradient is
+    known to be zero set to ``len(h)``, which drops them; without one the
+    backward builds the plan of ``idx``. ``use_kernels=True`` on a CPU
+    tensor raises here too, as in the backward.
+    """
+    _use_kernel(h, use_kernels, "gather_rows")
+    if plan is not None:
+        plan.check(idx.shape[0], h.shape[0], h.device)
+    if torch.is_grad_enabled() and h.requires_grad:
+        return _GatherRows.apply(h, idx, plan, use_kernels)
+    return h.index_select(0, idx)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows` as a function of ``h``."""
+
+    @staticmethod
+    def forward(ctx, h, idx, plan, use_kernels):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.plan, ctx.use_kernels = h.shape[0], plan, use_kernels
+        return h.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        rows = grad.reshape(grad.shape[0], -1)
+        out = segment_sum(rows, idx, ctx.n, use_kernels=ctx.use_kernels, plan=ctx.plan)
+        return out.reshape((ctx.n,) + tuple(grad.shape[1:])), None, None, None
 
 
 def sort_by_bag(indices: torch.Tensor,

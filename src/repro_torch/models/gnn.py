@@ -1,4 +1,5 @@
-"""GNN full-graph inference: GatedGCN, GraphSAGE, MeshGraphNet, EquiformerV2.
+"""GNN full-graph inference and training: GatedGCN, GraphSAGE, MeshGraphNet,
+EquiformerV2.
 
 Port of ``repro/models/gnn.py``. Message passing is a row gather
 (``index_select``) plus :func:`repro_torch.kernels.ops.segment_sum` over a
@@ -11,34 +12,49 @@ names (``"l3_A"``, ``"p0_edge_w1"``, ``"l0_so2_m1_i"``, …), so the JAX
 package's parameters carry across unchanged
 (``convert.gnn_params_from_numpy``).
 
-Inference only: every forward runs under ``torch.inference_mode()``, and
-the gatedgcn forward updates its edge state in place. Its edge work runs
-over slices of at most :data:`EDGE_SLICE` edges, summing into float64
-node accumulators, so that an ``ogb_products``-sized graph (123.7 M
-directed edges, a 17.3 GB bf16 edge state) fits one 80 GB card.
+:func:`forward`, the inference entry, runs under
+``torch.inference_mode()``. The gatedgcn forward there is its own: it
+updates its edge state in place and runs its edge work over slices of at
+most :data:`EDGE_SLICE` edges, summing into float64 node accumulators,
+so that an ``ogb_products``-sized graph (123.7 M directed edges, a
+17.3 GB bf16 edge state) fits one 80 GB card. The other three
+architectures have one forward each, which :func:`forward` runs without
+a backward.
 
-EquiformerV2 streams its edges in chunks by the JAX chunk rule
-(``edge_chunk``): each chunk's source features are gathered when the
-chunk is processed, and the chunks' message sums add into one float64
-accumulator, cast to the model's type once a layer (JAX adds each chunk
-into the model's type). The chunks are cut from the sorted edge list,
-so which edges share a chunk differs from JAX; the sums do not depend on
-it beyond rounding.
+:func:`train_forward`, the training entry, runs the four models with
+autograd on, written functionally: no in-place update of a tensor
+autograd saves, no edge slices. Every node-to-edge gather is
+:func:`repro_torch.kernels.ops.gather_rows`, whose backward is a segment
+sum (the CUDA kernel on the card), and every segment sum is
+differentiable. With ``GNNConfig.remat`` each layer is checkpointed and
+recomputed in the backward, as JAX's ``jax.checkpoint`` does. The sorted
+edge list and its plans are built once per graph (:func:`train_graph`)
+and reused by every step.
+
+EquiformerV2 cuts its sorted edge list into chunks by the JAX chunk
+rule (``edge_chunk``), which bounds the rotated and mixed rows a chunk
+holds; the chunks' message sums add in float64 and are cast to the
+model's type once a layer (JAX adds each chunk into the model's type).
+Which edges share a chunk differs from JAX; the sums do not depend on it
+beyond rounding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from . import wigner
 
 __all__ = ["EDGE_SLICE", "GraphData", "GNNConfig", "SortedEdges", "sort_edges", "param_shapes",
-           "init_params", "forward", "sage_minibatch_forward", "eqv2_chunks"]
+           "init_params", "forward", "sage_minibatch_forward", "eqv2_chunks", "TrainGraph",
+           "train_graph", "train_forward"]
 
 # Edges per slice of the gatedgcn layer: its [slice, d_hidden] temporaries
 # (gathered rows, gate, message) stay near 2.35 GB each at d_hidden = 70.
@@ -65,8 +81,8 @@ class GraphData:
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
-    """Twin of ``repro.models.gnn.GNNConfig``, less ``remat`` (a training
-    setting)."""
+    """Twin of ``repro.models.gnn.GNNConfig``. ``remat`` checkpoints each
+    layer of :func:`train_forward`; the inference forward ignores it."""
 
     name: str
     arch: str              # gatedgcn | graphsage | meshgraphnet | equiformer_v2
@@ -82,6 +98,7 @@ class GNNConfig:
     m_max: int = 2
     n_heads: int = 8
     dtype: str = "float32"
+    remat: bool = True                # checkpoint each layer (bwd recompute)
     edge_chunk: int = 32768           # equiformer: bound per-chunk rotation/
                                       # message working set
 
@@ -215,18 +232,6 @@ def _sage_normalize(h):
     return h / (torch.linalg.vector_norm(h, dim=-1, keepdim=True) + 1e-6)
 
 
-def _graphsage_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
-    n = g.n
-    h = g.x.to(c.tdtype)
-    ed = sort_edges(g)
-    for i in range(c.n_layers):
-        agg = _segment_mean(h.index_select(0, ed.src), ed.seg, n, use_kernels, ed.plans[0])
-        h = h @ params[f"l{i}_self"] + agg @ params[f"l{i}_neigh"] + params[f"l{i}_b"]
-        if i < c.n_layers - 1:
-            h = _sage_normalize(h)
-    return h
-
-
 def sage_minibatch_forward(params, feats: Sequence[torch.Tensor], c: GNNConfig):
     """Sampled-neighbourhood forward (fixed fanouts → dense reshape-mean).
 
@@ -263,21 +268,6 @@ def _mgn_shapes(c: GNNConfig) -> Dict:
         shapes.update(_mlp_shapes([2 * d, d, d], f"p{i}_node"))
     shapes.update(_mlp_shapes([d, d, c.d_out], "dec"))
     return shapes
-
-
-def _mgn_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
-    n, dt = g.n, c.tdtype
-    ed = sort_edges(g, with_attr=bool(c.d_edge_in))
-    h = _mlp_apply(params, "enc_n", g.x.to(dt), 2, norm=True)
-    ea = (ed.edge_attr.to(dt) if c.d_edge_in
-          else torch.ones((g.src.shape[0], 1), dtype=dt, device=h.device))
-    e = _mlp_apply(params, "enc_e", ea, 2, norm=True)
-    for i in range(c.n_layers):
-        edge_in = torch.cat([e, h.index_select(0, ed.src), h.index_select(0, ed.dst)], -1)
-        e = e + _mlp_apply(params, f"p{i}_edge", edge_in, 2, norm=True)
-        agg = ops.segment_sum(e, ed.seg, n, use_kernels=use_kernels, plan=ed.plans[0])
-        h = h + _mlp_apply(params, f"p{i}_node", torch.cat([h, agg], -1), 2, norm=True)
-    return _mlp_apply(params, "dec", h, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -359,87 +349,178 @@ def eqv2_chunks(n_edges: int, edge_chunk: int) -> int:
     return n_chunks
 
 
-def _eqv2_forward(params, g: GraphData, c: GNNConfig, use_kernels: bool):
-    """Structurally-faithful eSCN stack, chunked over edges.
+# ---------------------------------------------------------------------------
+# Forwards over a sorted, planned graph (training, and inference but gatedgcn's)
+# ---------------------------------------------------------------------------
 
-    Per layer (each pass streams edge chunks of ``ck`` edges):
-      pass 1: attention logits from the invariant channel of the SO(2)
-              conv (only the m = 0 rows of the rotated features and the
-              first ``d`` columns of their product are needed);
-      softmax normalization per destination (segment max / sum);
-      pass 2: SO(2) messages, rotated back, weighted, the chunks' segment
-              sums added into one float64 accumulator.
-    As in JAX, the rotation and everything it touches run in float32
-    (``rot`` times the model's features promotes); the embedding, the
-    update MLP, the gates and ``feat`` stay in the config's type.
-    """
-    n, dt, d = g.n, c.tdtype, c.d_hidden
+@dataclasses.dataclass
+class TrainGraph:
+    """A graph with what each forward over it reuses: its edges sorted by
+    destination (``ed``: one segment plan per EquiformerV2 edge chunk,
+    else one), ``seg_plan`` (the whole list's, for sums over every edge,
+    and the transpose of every gather by destination), and ``src_plan``,
+    the transpose of every gather by source (None where no backward
+    runs). Padded edges send their messages to the dropped id ``n``, so
+    they carry zero gradient: both transposes drop them (the source ids
+    of padded edges are set to ``n``; the destination ids already are)."""
+
+    g: GraphData
+    ed: SortedEdges
+    seg_plan: ops.SegmentPlan
+    src_plan: Optional[ops.SegmentPlan]
+
+
+def train_graph(g: GraphData, c: GNNConfig, backward: bool = True) -> TrainGraph:
+    """Sort ``g``'s edges and build the plans of a forward, once per graph
+    (a training run reuses them on every step): EquiformerV2's edge list
+    is cut into chunks by the JAX chunk rule. Without ``backward`` the
+    source plan, which only a gather's transpose reads, is not built."""
+    n, n_edges = g.n, g.src.shape[0]
+    ck = n_edges // eqv2_chunks(n_edges, c.edge_chunk) if c.arch == "equiformer_v2" else None
+    ed = sort_edges(g, ck, with_attr=bool(c.d_edge_in))
+    seg_plan = ed.plans[0] if len(ed.plans) == 1 else ops.segment_plan(ed.seg, n)
+    src_plan = (ops.segment_plan(torch.where(ed.seg < n, ed.src, n).to(torch.int32), n)
+                if backward else None)
+    return TrainGraph(g, ed, seg_plan, src_plan)
+
+
+def _layers(c: GNNConfig, layer, *state):
+    """``state = layer(i, *state)`` for each layer, each checkpointed
+    (its activations recomputed in the backward) when ``c.remat`` and
+    grad mode is on. The layers draw no random numbers, so no RNG state
+    is stashed."""
+    remat = c.remat and torch.is_grad_enabled()
+    for i in range(c.n_layers):
+        fn = functools.partial(layer, i)
+        state = (checkpoint(fn, *state, use_reentrant=False, preserve_rng_state=False)
+                 if remat else fn(*state))
+    return state
+
+
+def _gatedgcn_train(params, tg: TrainGraph, c: GNNConfig, use_kernels: bool):
+    g, ed, n, dt = tg.g, tg.ed, tg.g.n, c.tdtype
+    h = g.x.to(dt) @ params["embed_w"] + params["embed_b"]
+    e = (ed.edge_attr.to(dt) @ params["eembed_w"] + params["eembed_b"] if c.d_edge_in
+         else torch.zeros((ed.src.shape[0], c.d_hidden), dtype=h.dtype, device=h.device))
+
+    def layer(i, h, e):
+        A, B, C, U, V = (params[f"l{i}_{nm}"] for nm in ("A", "B", "C", "U", "V"))
+        hs = ops.gather_rows(h, ed.src, plan=tg.src_plan, use_kernels=use_kernels)
+        hd = ops.gather_rows(h, ed.dst, plan=tg.seg_plan, use_kernels=use_kernels)
+        e_new = hd @ A + hs @ B + e @ C
+        eta = torch.sigmoid(e_new)
+        msg = eta * (hs @ V)
+        agg = ops.segment_sum(msg, ed.seg, n, use_kernels=use_kernels, plan=tg.seg_plan)
+        den = ops.segment_sum(eta, ed.seg, n, use_kernels=use_kernels, plan=tg.seg_plan)
+        h_new = h @ U + agg / (den + 1e-6)
+        return h + torch.relu(h_new), e + torch.relu(e_new)
+
+    h, _ = _layers(c, layer, h, e)
+    return h @ params["out_w"] + params["out_b"]
+
+
+def _graphsage_forward(params, tg: TrainGraph, c: GNNConfig, use_kernels: bool):
+    ed, n = tg.ed, tg.g.n
+
+    def layer(i, h):
+        hs = ops.gather_rows(h, ed.src, plan=tg.src_plan, use_kernels=use_kernels)
+        agg = _segment_mean(hs, ed.seg, n, use_kernels, tg.seg_plan)
+        h = h @ params[f"l{i}_self"] + agg @ params[f"l{i}_neigh"] + params[f"l{i}_b"]
+        return (_sage_normalize(h) if i < c.n_layers - 1 else h,)
+
+    (h,) = _layers(c, layer, tg.g.x.to(c.tdtype))
+    return h
+
+
+def _mgn_forward(params, tg: TrainGraph, c: GNNConfig, use_kernels: bool):
+    g, ed, n, dt = tg.g, tg.ed, tg.g.n, c.tdtype
+    h = _mlp_apply(params, "enc_n", g.x.to(dt), 2, norm=True)
+    ea = (ed.edge_attr.to(dt) if c.d_edge_in
+          else torch.ones((ed.src.shape[0], 1), dtype=dt, device=h.device))
+    e = _mlp_apply(params, "enc_e", ea, 2, norm=True)
+
+    def layer(i, h, e):
+        hs = ops.gather_rows(h, ed.src, plan=tg.src_plan, use_kernels=use_kernels)
+        hd = ops.gather_rows(h, ed.dst, plan=tg.seg_plan, use_kernels=use_kernels)
+        e = e + _mlp_apply(params, f"p{i}_edge", torch.cat([e, hs, hd], -1), 2, norm=True)
+        agg = ops.segment_sum(e, ed.seg, n, use_kernels=use_kernels, plan=tg.seg_plan)
+        return h + _mlp_apply(params, f"p{i}_node", torch.cat([h, agg], -1), 2, norm=True), e
+
+    h, _ = _layers(c, layer, h, e)
+    return _mlp_apply(params, "dec", h, 2)
+
+
+def _eqv2_forward(params, tg: TrainGraph, c: GNNConfig, use_kernels: bool):
+    """Structurally-faithful eSCN stack, its edges in chunks.
+
+    Per layer: the source features gathered once (as JAX does) in
+    float32, so their transpose sums float32 rows; pass 1, the attention
+    logits from the invariant channel of the SO(2) conv (only the m = 0
+    rows of the rotated features and the first ``d`` columns of their
+    product), each chunk's concatenated; the softmax per destination, out
+    of place; pass 2, each chunk's SO(2) messages rotated back, weighted
+    and summed in float64, the chunks' sums added and cast once a layer;
+    the gated update a new tensor. As in JAX, the rotation and everything
+    it touches run in float32 (``rot`` times the model's features
+    promotes); the embedding, the update MLP, the gates and ``feat`` stay
+    in the config's type. The edge rotations depend only on the
+    positions, which take no gradient: built once a forward, outside the
+    checkpointed layers. The segment max is taken on detached logits: the
+    softmax does not depend on the shift, so its gradient through the max
+    is zero in exact arithmetic."""
+    g, ed, n, dt, d = tg.g, tg.ed, tg.g.n, c.tdtype, c.d_hidden
     dim = wigner.sh_basis_size(c.l_max)
     groups = _eqv2_m_indices(c.l_max, c.m_max)
-    n0 = len(groups[0])
-    e_total = g.src.shape[0]
-    ck = e_total // eqv2_chunks(e_total, c.edge_chunk)
-    ed = sort_edges(g, ck)            # one segment plan per chunk
-    src, dst, seg = ed.src, ed.dst, ed.seg
-    mask = seg < n
-    den_plan = ed.plans[0] if len(ed.plans) == 1 else ops.segment_plan(seg, n)
-    f32 = {k: v.float() for k, v in params.items() if "_so2_" in k or "_alpha_" in k}
+    n0, ck = len(groups[0]), ed.slice_rows
+    mask = (ed.seg < n)[:, None]
+    seg_heads = ed.seg.long()[:, None].expand(-1, c.n_heads)
 
     h0 = g.x.to(dt) @ params["embed_w"] + params["embed_b"]  # invariant
-    feat = torch.zeros((n, dim, d), dtype=h0.dtype, device=h0.device)
-    feat[:, 0, :] = h0
-    del h0
+    feat = torch.cat([h0[:, None, :], h0.new_zeros((n, dim - 1, d))], 1)
+    with torch.no_grad():
+        pos = g.positions.to(torch.float32)
+        rot = wigner.edge_rotation(c.l_max,
+                                   pos.index_select(0, ed.dst) - pos.index_select(0, ed.src))
+        rots = rot[:, _so2_rows(groups), :].split(ck)  # [ck, R, dim] each
+    del rot
 
-    pos = g.positions.to(torch.float32)
-    rot = wigner.edge_rotation(c.l_max, pos.index_select(0, dst) - pos.index_select(0, src))
-    # the rows the SO(2) mixing reads (m = 0 first): [E, R, dim]
-    rot = rot[:, _so2_rows(groups), :]
-    seg_heads = seg.long()[:, None].expand(-1, c.n_heads)
-    # the degree-l gate of each coefficient row l ≥ 1
-    degree = torch.arange(1, c.l_max + 1, device=feat.device).repeat_interleave(
-        torch.arange(1, c.l_max + 1, device=feat.device) * 2 + 1) - 1
-
-    for i in range(c.n_layers):
-        # ---- pass 1: attention logits (m=0 rows only) --------------------
+    def layer(i, feat):
+        f32 = {k: v.float() for k, v in params.items()
+               if k.startswith((f"l{i}_so2_", f"l{i}_alpha_"))}
         w0 = f32[f"l{i}_so2_m0_r"][:, :d]
-        alpha = torch.empty((e_total, c.n_heads), dtype=torch.float32, device=feat.device)
-        for s in range(0, e_total, ck):
-            sl = slice(s, s + ck)
-            src_f = feat.index_select(0, src[sl]).float()                      # [ck, dim, d]
-            ef0 = torch.bmm(rot[sl, :n0], src_f)                               # m=0 rows
-            alpha[sl] = _mlp_apply(f32, f"l{i}_alpha", ef0.reshape(ck, -1) @ w0, 2)
-        logits = torch.where(mask[:, None], alpha, -math.inf)
+        src_f = ops.gather_rows(feat.float(), ed.src, plan=tg.src_plan,
+                                use_kernels=use_kernels).split(ck)           # [ck, dim, d] each
+        # ---- pass 1: attention logits (m=0 rows only), softmax per destination
+        alpha = torch.cat([_mlp_apply(f32, f"l{i}_alpha",
+                                      torch.bmm(r[:, :n0], s).reshape(s.shape[0], -1) @ w0, 2)
+                           for r, s in zip(rots, src_f)])
         amax = torch.full((n + 1, c.n_heads), -math.inf, dtype=torch.float32,
-                          device=feat.device).scatter_reduce_(0, seg_heads, logits, "amax")
-        alpha -= amax.index_select(0, dst)
-        w = torch.exp(torch.where(mask[:, None], alpha, -math.inf))
-        den = ops.segment_sum(w, seg, n, use_kernels=use_kernels, plan=den_plan)
-        w /= den.index_select(0, dst).clamp_min(1e-9)
-        wh = w.mean(-1)               # head-avg gate; 0 on padding, so no mask is applied
-        del alpha, logits, amax, w, den
-
-        # ---- pass 2: chunked messages, float64 partial segment sums -------
-        agg = torch.zeros((n, dim * d), dtype=ops.ACC_DTYPE, device=feat.device)
-        for s, plan in zip(range(0, e_total, ck), ed.plans):
-            sl = slice(s, s + ck)
-            src_f = feat.index_select(0, src[sl]).float()
-            edge_f = torch.bmm(rot[sl], src_f)                                 # [ck, R, d]
-            out_f = _so2_mix(f32, i, edge_f, groups, d)
-            msg = torch.bmm(rot[sl].transpose(1, 2), out_f)                    # back to global
-            msg *= wh[sl, None, None]
-            del src_f, edge_f, out_f
-            ops.segment_sum(msg.reshape(ck, -1), seg[sl], n, use_kernels=use_kernels, acc=agg,
-                            plan=plan)
-            del msg
+                          device=feat.device).scatter_reduce_(
+            0, seg_heads, torch.where(mask, alpha.detach(), -math.inf), "amax")[:n]
+        shifted = alpha - ops.gather_rows(amax, ed.dst, plan=tg.seg_plan, use_kernels=use_kernels)
+        w = torch.exp(torch.where(mask, shifted, -math.inf))  # the mask before exp
+        den = ops.segment_sum(w, ed.seg, n, use_kernels=use_kernels, plan=tg.seg_plan)
+        w = w / ops.gather_rows(den, ed.dst, plan=tg.seg_plan,
+                                use_kernels=use_kernels).clamp_min(1e-9)
+        wh = w.mean(-1).split(ck)     # head-avg gate; 0 on padding
+        # ---- pass 2: chunked messages, float64 segment sums --------------
+        agg = None
+        for r, s, w_c, seg_c, plan in zip(rots, src_f, wh, ed.seg.split(ck), ed.plans):
+            out_f = _so2_mix(f32, i, torch.bmm(r, s), groups, d)
+            msg = torch.bmm(r.transpose(1, 2), out_f) * w_c[:, None, None]  # back to global
+            part = ops.segment_sum(msg.reshape(msg.shape[0], -1), seg_c, n,
+                                   use_kernels=use_kernels, plan=plan, dtype=ops.ACC_DTYPE)
+            agg = part if agg is None else agg + part
         agg = agg.to(dt).reshape(n, dim, d)
-
-        # ---- gated update --------------------------------------------------
+        # ---- gated update: a degree-l gate on each row of degree l -------
         inv = agg[:, 0, :]
         upd = _mlp_apply(params, f"l{i}_update", inv, 2)
         gates = torch.sigmoid(inv @ params[f"l{i}_gate_w"] + params[f"l{i}_gate_b"])
-        feat[:, 0, :] += upd
-        feat[:, 1:, :] += agg[:, 1:, :] * gates.index_select(1, degree)[:, :, None]
-        del agg, inv, upd, gates
+        gate_rows = torch.cat([gates[:, l - 1:l, None].expand(-1, 2 * l + 1, 1)
+                               for l in range(1, c.l_max + 1)], 1)
+        return (torch.cat([feat[:, :1] + upd[:, None], feat[:, 1:] + agg[:, 1:] * gate_rows], 1),)
+
+    (feat,) = _layers(c, layer, feat)
     return feat[:, 0, :] @ params["out_w"] + params["out_b"]
 
 
@@ -450,8 +531,8 @@ _SHAPES = {
     "equiformer_v2": _eqv2_shapes,
 }
 
-_FORWARD = {
-    "gatedgcn": _gatedgcn_forward,
+_TRAIN = {
+    "gatedgcn": _gatedgcn_train,
     "graphsage": _graphsage_forward,
     "meshgraphnet": _mgn_forward,
     "equiformer_v2": _eqv2_forward,
@@ -478,7 +559,20 @@ def init_params(c: GNNConfig, generator: torch.Generator, device="cuda") -> Dict
 
 
 def forward(params, g: GraphData, c: GNNConfig, *, use_kernels: bool) -> torch.Tensor:
-    """Full-graph node outputs ``[N, d_out]``. ``use_kernels=True`` needs
-    CUDA tensors and sends every segment sum through the CUDA kernel."""
+    """Full-graph node outputs ``[N, d_out]``, under inference mode.
+    ``use_kernels=True`` needs CUDA tensors and sends every segment sum
+    through the CUDA kernel. gatedgcn runs its edge-sliced in-place
+    forward; the other three their training forward without a backward."""
     with torch.inference_mode():
-        return _FORWARD[c.arch](params, g, c, use_kernels)
+        if c.arch == "gatedgcn":
+            return _gatedgcn_forward(params, g, c, use_kernels)
+        return _TRAIN[c.arch](params, train_graph(g, c, backward=False), c, use_kernels)
+
+
+def train_forward(params, tg: TrainGraph, c: GNNConfig, *, use_kernels: bool) -> torch.Tensor:
+    """Full-graph node outputs ``[N, d_out]`` of ``tg`` (:func:`train_graph`,
+    built once and reused by every step) with autograd on, for training.
+    ``use_kernels=True`` needs CUDA tensors and sends every segment sum
+    and every gather's backward through the CUDA kernel."""
+    with torch.enable_grad():
+        return _TRAIN[c.arch](params, tg, c, use_kernels)

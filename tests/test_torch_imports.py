@@ -89,6 +89,13 @@ eq_g = graph_from_numpy(build_graph_data(32, 96, eq.d_in, geometric=True), "cpu"
 eq_params = gnn.init_params(eq, torch.Generator().manual_seed(0), "cpu")
 eq_out = gnn.forward(eq_params, eq_g, eq, use_kernels=False)
 assert eq_out.shape == (32, eq.d_out) and bool(torch.isfinite(eq_out).all()), eq_out
+from repro_torch.launch.steps import gnn_train_step
+from repro_torch.optim import adamw_init
+tr_g = gnn.train_graph(eq_g, eq)
+tr_p, tr_o, tr_loss, tr_norm = gnn_train_step(eq_params, adamw_init(eq_params), tr_g,
+                                              torch.arange(32) % 3, eq, use_kernels=False)
+assert int(tr_o.step) == 1 and bool(torch.isfinite(tr_loss)) and float(tr_norm) > 0
+assert sorted(tr_p) == sorted(eq_params) and not torch.equal(tr_p["out_b"], eq_params["out_b"])
 from repro_torch.models import transformer as tf
 lm = get_arch("phi4-mini-3.8b").smoke
 lm_params = tf.init_params(lm, torch.Generator().manual_seed(0), "cpu")
@@ -125,6 +132,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "examples", "torch_subgraph_service.py")
+    yield os.path.join(REPO, "examples", "torch_train_gnn.py")
 
 
 def test_no_source_imports_jax_or_repro():
@@ -134,7 +142,9 @@ def test_no_source_imports_jax_or_repro():
                 ("stream", "service.py"), ("stream", "plan_manager.py"),
                 ("stream", "journal.py"), ("stream", "sinks.py"), ("obs", "prof.py"),
                 ("dist", "__init__.py"), ("dist", "straggler.py"), ("dist", "elastic.py"),
-                ("..", "..", "examples", "torch_subgraph_service.py")):
+                ("optim", "__init__.py"), ("optim", "adamw.py"), ("launch", "steps.py"),
+                ("..", "..", "examples", "torch_subgraph_service.py"),
+                ("..", "..", "examples", "torch_train_gnn.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
