@@ -3,7 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times SRC
 
-Prints one JSON object per line, in phases:
+Prints one JSON object per line, in phases, each with ``t_s``, the seconds
+since the script started (all but the last line):
 
 1. ``build``   — compiles ``src/repro_torch/kernels/csrc/*.cu`` (sm_90a).
 2. ``kernel_check`` — each kernel against its plain PyTorch version at the
@@ -219,9 +220,19 @@ Prints one JSON object per line, in phases:
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
    at offset 4,096 on the tensor-core kernel; decode at offsets 8,192 and
    8,206 and with command-r's 64 / 8 heads on the split-K decode kernel;
-   a Dh 64 bf16 prefill) and at edge cases (float32 and bf16; Dh 8, 20, 64,
-   128, 256; MHA; Lq 1; q_offset + Lq = Lk; non-causal; Lk not a multiple
-   of the tile; a bf16 Dh 20 must raise), each with the route it took.
+   a Dh 64 bf16 prefill), at MLA's (``mla_minicpm3_prefill`` q [4, 40,
+   4096, 96] and ``mla_deepseek_prefill`` q [4, 16, 4096, 192] over 4,112
+   keys on the CUDA-core kernel, and both at decode, Lq 1, offset 4,096,
+   group 1; V zero-padded from 64 / 128 columns as the model pads it, the
+   padded columns' outputs zero, the bound counted from the function's own
+   widths with the padded call's bytes and FLOP beside it), at granite's
+   and command-r's (``granite_prefill`` q [4, 24, 8192, 64] over [4, 8,
+   8208, 64] and ``command_r_prefill`` q [2, 64, 4096, 128] over [2, 8,
+   4112, 128] on the tensor-core kernel, and both at decode, Lq 1, offsets
+   8,192 and 4,096) and at edge cases
+   (float32 and bf16; Dh 8, 20, 64, 128, 256; MHA; Lq 1; q_offset + Lq =
+   Lk; non-causal; Lk not a multiple of the tile; a bf16 Dh 20 must raise),
+   each with the route it took.
    Each output element is held to the plain version on the inputs in
    float32 (see ``attention_limits``): within 1e-5 * sum_j p_j |v_j| in
    float32, and within one bf16 rounding of that in bf16. With the
@@ -246,6 +257,29 @@ Prints one JSON object per line, in phases:
    plain within 1e-3 * max |plain| of the logits at every step; and,
    reported, the bf16 run's largest logit difference and its share of
    equal greedy tokens.
+14b. ``mla_serve`` (minicpm3-4b, MLA, 4 x 4,096 prompt tokens),
+   ``moe_serve`` (deepseek-v2-lite-16b, MLA + MoE, 4 x 4,096;
+   granite-moe-3b-a800m, GQA + MoE, 4 x 8,192) and ``lm_large``
+   (command-r-35b, 2 x 4,096), 16 generated tokens each (``LM_CELLS``): each
+   config at full width, random weights from seed 0 drawn on the card a
+   layer at a time, through ``serve``. Per model a ``plan`` record
+   (widths, parameters, active parameters, cache GiB, the prefill's
+   product FLOP, predicted launches); the kernel run (prefill seconds and
+   TFLOP/s, decode ms a step, tokens a second, peak and resident GiB,
+   ``flash_attention`` launches one a layer, on the tensor cores for
+   granite and command-r and on the CUDA cores for MLA, ``flash_decode``
+   one a layer a step, checked; with MoE the expert loop's routed rows and
+   experts run a layer and its host seconds); the plain run, teacher-forced
+   on the kernel run's tokens, with MoE on its routing decisions
+   (``Routing``: its own choice where it differs is counted as a flip, with
+   its probability gap); for MLA the absorbed decode (``decode_absorbed``,
+   no decode kernel) within ``ABSORBED_LIMIT`` of the materialized decode's
+   logits at every step; a profiled prefill and decode step (the attention
+   kernel's share of the device time, the expert loop's host share); and
+   the float32 gate (kernel against plain within 1e-3 * max |plain| at every
+   step; minicpm3 2 x 1,024, deepseek 2 x 512, granite 2 x 1,024, 8 tokens;
+   none for command-r, whose float32 weights would take 130 GB: its bf16
+   ratio is reported).
 15. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
    its plain version on a ``[26,000,000, 64]`` float32 table (the 26
    stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
@@ -277,7 +311,11 @@ Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
 the molecule and full_graph_sm kernel requests, the chunked forward and
-the four training paths' 10 steps, each counted from 0), and last
+the four training paths' 10 steps, each counted from 0; the three
+attention kernels' ``launches_by_path``: the five LM kernel serves, phi4,
+minicpm3, deepseek, granite and command_r, and the four float32 gates'
+kernel serves, ``<path>_f32_gate`` (none for command_r), their sum in
+``launches``), and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
 
@@ -392,8 +430,12 @@ MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 
                    1, 1)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with ``t_s``: seconds since the script started."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - _START}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2718,14 +2760,16 @@ def gnn_train_phase():
 # LM slice: flash_attention and phi4-mini-3.8b serving
 # ---------------------------------------------------------------------------
 
-def attention_work(b, hq, hkv, lq, lk, dh, off, causal, elem):
+def attention_work(b, hq, hkv, lq, lk, dh, off, causal, elem, dv=None):
     """The function's keys admitted per query row, operations and bytes:
-    4 * b * hq * dh FLOP per admitted (query, key) pair; q and out once, and
-    the admitted key/value rows of each KV head once."""
+    2 * b * hq * (dh + dv) FLOP per admitted (query, key) pair (4 * dh when
+    the value width ``dv`` is dh); q (dh) and out (dv) once, and the
+    admitted key (dh) and value (dv) rows of each KV head once."""
+    dv = dh if dv is None else dv
     admitted = off + lq if causal else lk
     pairs = lq * off + lq * (lq + 1) // 2 if causal else lq * lk
-    flops = 4 * b * hq * dh * pairs
-    n_bytes = elem * (2 * b * hq * lq * dh + 2 * b * hkv * admitted * dh)
+    flops = 2 * b * hq * (dh + dv) * pairs
+    n_bytes = elem * (b * hq * lq * (dh + dv) + b * hkv * admitted * (dh + dv))
     return admitted, flops, n_bytes
 
 
@@ -2774,7 +2818,7 @@ def flash_attention_phase():
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     mx = LM_PROMPT + LM_GEN
-    # name: (b, hq, hkv, lq, lk, dh, q_offset, causal, dtypes)
+    # name: (b, hq, hkv, lq, lk, dh, q_offset, causal, dtypes[, dv])
     cases = {
         "prefill": (LM_BATCH, 24, 8, LM_PROMPT, mx, 128, 0, True, (bf16,)),
         "chunk_2": (LM_BATCH, 24, 8, LM_CHUNK, mx, 128, LM_CHUNK, True, (bf16,)),
@@ -2796,6 +2840,20 @@ def flash_attention_phase():
         # Dh 20: five 16-byte float32 chunks, a partial column block
         "dh20": (2, 4, 2, 50, 77, 20, 27, True, (f32,)),
         "dh20_lq3": (2, 4, 2, 3, 77, 20, 74, True, (f32,)),
+        # MLA (LM_CELLS' shapes): q and k of qk_nope + qk_rope columns, v of
+        # v_head columns zero-padded to that width, as models/transformer.py
+        # _mla_attention calls the kernels; prefill on the CUDA-core kernel,
+        # decode at group 1; the last field is the function's own value width
+        "mla_minicpm3_prefill": (4, 40, 40, 4096, 4112, 96, 0, True, (bf16,), 64),
+        "mla_deepseek_prefill": (4, 16, 16, 4096, 4112, 192, 0, True, (bf16,), 128),
+        "mla_minicpm3_decode": (4, 40, 40, 1, 4112, 96, 4096, True, (bf16,), 64),
+        "mla_deepseek_decode": (4, 16, 16, 1, 4112, 192, 4096, True, (bf16,), 128),
+        # granite-moe-3b-a800m (Dh 64, 24 query heads over 8) and command-r-35b
+        # (Dh 128, 64 over 8) at LM_CELLS' shapes: prefill on the tensor cores
+        "granite_prefill": (4, 24, 8, 8192, 8208, 64, 0, True, (bf16,)),
+        "granite_decode": (4, 24, 8, 1, 8208, 64, 8192, True, (bf16,)),
+        "command_r_prefill": (2, 64, 8, 4096, 4112, 128, 0, True, (bf16,)),
+        "command_r_decode": (2, 64, 8, 1, 4112, 128, 4096, True, (bf16,)),
     }
     # Dh 20 in bf16 is not a whole number of 16-byte chunks: refused
     q, k = (torch.zeros(s, device="cuda", dtype=bf16) for s in ((1, 2, 3, 20), (1, 2, 9, 20)))
@@ -2805,19 +2863,25 @@ def flash_attention_phase():
     except ValueError:
         pass
     out = []
-    for name, (b, hq, hkv, lq, lk, dh, off, causal, dtypes) in cases.items():
+    for name, (b, hq, hkv, lq, lk, dh, off, causal, dtypes, *rest) in cases.items():
+        dv = rest[0] if rest else dh
         for dtype in dtypes:
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                        for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)))
+            v[..., dv:] = 0
             got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
             want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
             want32, limit = attention_limits(q, k, v, off, causal)
             dev = (got.float() - want32).abs()
-            worst = float((dev / limit).max())
+            # the padded value columns are held to exactly zero below; their
+            # limit is zero
+            worst = float((dev[..., :dv] / limit[..., :dv]).max())
             err = float((got.float() - want.float()).abs().max())
             tag = str(dtype).split(".")[-1]
             check(worst <= 1.0, f"flash_attention {name} {tag}: |kernel - plain in float32| "
                                 f"reaches {worst} of its limit")
+            check(not got[..., dv:].any(), f"flash_attention {name}: the zero value columns "
+                                           "gave nonzero outputs")
             rec = {"case": name, "dtype": tag, "route": route(lq, dtype, dh), "b": b, "hq": hq,
                    "hkv": hkv, "lq": lq, "lk": lk, "dh": dh, "q_offset": off, "causal": causal,
                    "max_abs_err": err,
@@ -2825,7 +2889,11 @@ def flash_attention_phase():
                    "max_abs_err_f32_plain": float(dev.max()), "max_err_over_limit": worst}
             del want32, limit, dev
             admitted, flops, n_bytes = attention_work(b, hq, hkv, lq, lk, dh, off, causal,
-                                                      q.element_size())
+                                                      q.element_size(), dv)
+            if dv != dh:   # the padded call's own work, beside the function's
+                rec["dv"] = dv
+                _, rec["padded_flops"], rec["padded_bytes"] = attention_work(
+                    b, hq, hkv, lq, lk, dh, off, causal, q.element_size())
             rec["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
                                                              q_offset=off))
             rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
@@ -2861,7 +2929,11 @@ def flash_kernels_line():
              "tc_dh64": fa.kernel_attributes("tc", bf16, 64),
              "decode_rows3": fa.kernel_attributes("decode", bf16, 128, 3),
              "decode_rows8": fa.kernel_attributes("decode", bf16, 128, 8),
-             "simt_f32": fa.kernel_attributes("simt", f32, 128)}
+             "simt_f32": fa.kernel_attributes("simt", f32, 128),
+             "simt_bf16_dh96": fa.kernel_attributes("simt", bf16, 96),
+             "simt_bf16_dh192": fa.kernel_attributes("simt", bf16, 192),
+             "decode_rows1_dh96": fa.kernel_attributes("decode", bf16, 96, 1),
+             "decode_rows1_dh192": fa.kernel_attributes("decode", bf16, 192, 1)}
     rows, chunks, _ = fa.decode_rows(24, 8, 1)
     slots = fa.decode_slots(torch.device("cuda", torch.cuda.current_device()), 1, 128, rows)
     heads = LM_BATCH * 8 * chunks
@@ -2872,7 +2944,8 @@ def flash_kernels_line():
                             "keys_per_split": kps, "blocks": heads * splits}}
 
 
-def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=None):
+def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=None,
+           phase: str = "lm_serve"):
     """One ``serve`` call (prefill + gen - 1 decode steps); its record,
     result and launch counts, the counts taken over exactly this call."""
     from repro_torch.kernels import ops
@@ -2890,7 +2963,7 @@ def lm_run(cfg, params, prompt, gen: int, use_kernels: bool, label: str, forced=
     b = prompt.shape[0]
     prefill_s = res.records[0]["seconds"]
     decode = [r["seconds"] for r in res.records[1:]]
-    rec = {"phase": "lm_serve", "arch": cfg.name, "run": label, "dtype": cfg.dtype, "batch": b,
+    rec = {"phase": phase, "arch": cfg.name, "run": label, "dtype": cfg.dtype, "batch": b,
            "prompt_len": prompt.shape[1], "gen": gen, "teacher_forced": forced is not None,
            "prefill_seconds": prefill_s, "decode_seconds": sum(decode),
            "decode_ms_per_step": 1e3 * sum(decode) / len(decode),
@@ -3044,6 +3117,327 @@ def lm_phase():
                                f"{max(ratios)} > 1e-3")
     del params32, res_k, res_p
     torch.cuda.empty_cache()
+    return counts, c32
+
+
+# ---------------------------------------------------------------------------
+# LM slice, the other four configurations: MLA, MoE and command-r-35b
+# ---------------------------------------------------------------------------
+
+# phase, arch, prompts, prompt tokens, generated tokens, the prefill's route,
+# the float32 gate's (prompts, prompt tokens, generated tokens) or None.
+# Each at its _FULL config with random weights from seed 0. prefill_32k
+# (32 x 32,768) is cut as phi4-mini's is; decode_32k and long_500k are left
+# out. command-r-35b has no float32 gate: its weights would take 130 GB.
+LM_CELLS = (("mla_serve", "minicpm3-4b", 4, 4096, 16, "simt", (2, 1024, 8)),
+            ("moe_serve", "deepseek-v2-lite-16b", 4, 4096, 16, "simt", (2, 512, 8)),
+            ("moe_serve", "granite-moe-3b-a800m", 4, 8192, 16, "tc", (2, 1024, 8)),
+            ("lm_large", "command-r-35b", 2, 4096, 16, "tc", None))
+LM_PATHS = {"phi4-mini-3.8b": "phi4", "minicpm3-4b": "minicpm3",
+            "deepseek-v2-lite-16b": "deepseek", "granite-moe-3b-a800m": "granite",
+            "command-r-35b": "command_r"}
+# The absorbed MLA decode against the materialized one on the same bf16
+# weights, cache and tokens: max |absorbed - materialized| / max
+# |materialized| of each decode step's logits. The two forms round at
+# different points (the latent query in bf16, against the expanded keys and
+# values in bf16), and bf16 spacing is 2**-8 of a value: a few spacings
+# carried through the layers.
+ABSORBED_LIMIT = 5e-2
+ATTN_KERNELS = ("flash_attention_kernel", "flash_attention_tc_kernel", "flash_decode_kernel")
+
+
+class Routing:
+    """The MoE layers' routing decisions of one serve run, in call order
+    (``record``), and a later run made to take them (``replay``): each of
+    its ``_moe_route`` calls returns the recorded experts, weighted by its
+    own router probabilities of them and renormalized as ``_moe_route``
+    does. Where its own top-k set differs (a flip), the row is counted with
+    the probability gap between its own k-th choice and the recorded expert
+    it ranks lowest. With no flip the replaying run computes what it would
+    compute alone. The counts stay on the card until ``replay`` ends."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.models import transformer as tf
+
+        inner = tf._moe_route
+        self.calls = []
+
+        def spy(lp, x, c):
+            w, sel = inner(lp, x, c)
+            self.calls.append(sel)
+            return w, sel
+
+        tf._moe_route = spy
+        try:
+            yield self
+        finally:
+            tf._moe_route = inner
+
+    @contextlib.contextmanager
+    def replay(self):
+        from repro_torch.models import transformer as tf
+
+        inner, queue = tf._moe_route, iter(self.calls)
+        acc, stats = [], {"moe_calls": len(self.calls)}
+
+        def forced(lp, x, c):
+            sel = next(queue)
+            probs = tf._router_probs(lp, x)
+            own = tf._top_experts(probs, c.top_k)
+            differ = (own.sort(-1).values != sel.sort(-1).values).any(-1)
+            kth = probs.gather(-1, own[:, -1:])[:, 0]
+            gap = torch.where(differ, kth - probs.gather(-1, sel).min(-1).values, 0.0)
+            acc.append((differ.numel(), differ.sum(), gap.max(), (gap / kth).max()))
+            return tf._route_weights(probs, sel), sel
+
+        tf._moe_route = forced
+        try:
+            yield stats
+        finally:
+            tf._moe_route = inner
+        check(next(queue, None) is None, "a replaying run made fewer MoE calls than recorded")
+        stats.update(rows=sum(a[0] for a in acc), flips=sum(int(a[1]) for a in acc),
+                     max_prob_gap=max((float(a[2]) for a in acc), default=0.0),
+                     max_rel_prob_gap=max((float(a[3]) for a in acc), default=0.0))
+
+
+class ExpertLoop:
+    """While ``watch`` is on, per call of the MoE expert loop
+    (``transformer._moe_experts``): the rows routed, the experts run, the
+    loop's host seconds and those blocked in its one read of the per-expert
+    row counts (``_expert_rows``)."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def watch(self):
+        from repro_torch.models import transformer as tf
+
+        loop, rows = tf._moe_experts, tf._expert_rows
+        self.calls, cur = [], {}
+
+        def timed_rows(experts, n):
+            t0 = time.perf_counter()
+            out = rows(experts, n)
+            cur.update(read_s=time.perf_counter() - t0, rows=sum(out),
+                       experts=sum(1 for r in out if r))
+            return out
+
+        def timed_loop(lp, x, w, sel, c):
+            t0 = time.perf_counter()
+            out = loop(lp, x, w, sel, c)
+            self.calls.append({**cur, "loop_s": time.perf_counter() - t0})
+            return out
+
+        tf._moe_experts, tf._expert_rows = timed_loop, timed_rows
+        try:
+            yield self
+        finally:
+            tf._moe_experts, tf._expert_rows = loop, rows
+
+    def summary(self, layers: int) -> dict:
+        """The first ``layers`` calls (a prefill's) and the rest (decode
+        steps'), each: calls, routed rows and experts run a layer (mean),
+        the loop's host seconds and the blocking reads' seconds (sums)."""
+        def part(cs):
+            if not cs:
+                return None
+            return {"calls": len(cs),
+                    "routed_rows_per_layer": statistics.mean(c["rows"] for c in cs),
+                    "experts_run_per_layer": statistics.mean(c["experts"] for c in cs),
+                    "loop_host_s": sum(c["loop_s"] for c in cs),
+                    "count_read_s": sum(c["read_s"] for c in cs)}
+        return {"prefill": part(self.calls[:layers]), "decode": part(self.calls[layers:])}
+
+
+def lm_prefill_flops(cfg, b: int, s: int, max_len: int) -> int:
+    """The products' FLOP of one prefill of ``b`` prompts of ``s`` tokens
+    over a cache of ``max_len`` positions: 2 per weight a token reads in each
+    layer (MoE: the router, its top_k experts and the shared ones), for MLA
+    K and V expanded from the whole latent cache once a layer, the
+    attention's 2 * (Dqk + Dv) per admitted (query, key) pair and head, and
+    the last position's lm_head."""
+    from repro_torch.models import transformer as tf
+
+    t, d = b * s, cfg.d_model
+    pairs = b * s * (s + 1) // 2
+    attn = tf._attn_shapes(cfg)
+    if cfg.attn == "mla":
+        per_token = sum(math.prod(attn[n]) for n in ("wq", "wq_a", "wq_b", "wkv_a", "wo")
+                        if n in attn)
+        expand = 2 * b * max_len * (math.prod(attn["wk_b"]) + math.prod(attn["wv_b"]))
+        attention = 2 * cfg.n_heads * (cfg.qk_nope + cfg.qk_rope + cfg.v_head) * pairs
+    else:
+        per_token = sum(math.prod(attn[n]) for n in ("wq", "wk", "wv", "wo"))
+        expand = 0
+        attention = 4 * cfg.n_heads * cfg.d_head * pairs
+    dense_ffn = 3 * d * cfg.d_ff
+    moe_ffn = d * cfg.n_experts + 3 * d * cfg.d_expert * (cfg.top_k + cfg.n_shared)
+    layers = ((2 * t * per_token + expand + attention) * cfg.n_layers
+              + 2 * t * (dense_ffn * cfg.n_dense_layers + moe_ffn * cfg.n_moe_layers))
+    return layers + 2 * b * d * cfg.vocab
+
+
+def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, route: str, gate):
+    """One configuration of ``LM_CELLS`` served at full width through
+    ``serve``: a ``plan`` record, the kernel run, the plain run
+    (teacher-forced on the kernel run's tokens, MoE routing replayed),
+    for MLA the absorbed decode, profiled prefill and decode steps, and the
+    float32 gate. Returns the kernel run's launches and the gate's kernel
+    run's (None without a gate)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(arch).config
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    resident = torch.cuda.memory_allocated() / 2**30
+    max_len = prompt_len + gen
+    cache_gib = sum(t.numel() * t.element_size()
+                    for g in tf.init_cache(cfg, batch, max_len, "meta").values()
+                    for t in g) / 2**30
+    prompt = torch.from_numpy(prompt_tokens(cfg.vocab, batch, prompt_len, 0)).cuda()
+    n = cfg.n_layers
+    predicted = {"flash_attention": n, "flash_attention_tc": n if route == "tc" else 0,
+                 "flash_decode": n * (gen - 1)}
+    flops = lm_prefill_flops(cfg, batch, prompt_len, max_len)
+    emit({"phase": phase, "record": "plan", "arch": cfg.name, "attn": cfg.attn, "moe": cfg.moe,
+          "layers": n, "dense_layers": cfg.n_dense_layers, "moe_layers": cfg.n_moe_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "d_head": cfg.d_head, "kv_lora": cfg.kv_lora, "qk": cfg.qk_nope + cfg.qk_rope,
+          "v_head": cfg.v_head, "experts": cfg.n_experts,
+          "experts_padded": cfg.n_experts_padded if cfg.moe else 0, "top_k": cfg.top_k,
+          "shared": cfg.n_shared, "d_ff": cfg.d_ff, "d_expert": cfg.d_expert,
+          "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(), "batch": batch,
+          "prompt_len": prompt_len, "gen": gen, "max_len": max_len, "prefill_route": route,
+          "predicted_launches": predicted, "prefill_flops": flops, "init_seconds": init_s,
+          "init_peak_gib": init_peak, "resident_gib": resident, "cache_gib": cache_gib})
+
+    routing, loop = Routing(), ExpertLoop()
+    with routing.record(), loop.watch():
+        rec, res_k, counts = lm_run(cfg, params, prompt, gen, True, "kernels", phase=phase)
+    rec.update(resident_gib=resident, prefill_tokens_per_s=batch * prompt_len
+               / rec["prefill_seconds"], prefill_tflop_per_s=flops / rec["prefill_seconds"] / 1e12)
+    if cfg.moe:
+        rec["expert_loop"] = loop.summary(cfg.n_moe_layers)
+    emit(rec)
+    for name, want in predicted.items():
+        check(counts[name] == want, f"{cfg.name}: {name} launched {counts[name]} times, "
+                                    f"predicted {want}")
+    others = {k: c for k, c in counts.items() if k not in predicted and c}
+    check(not others, f"other kernels launched on the {cfg.name} path: {others}")
+
+    with routing.replay() as replayed:
+        rec_p, res_p, plain_counts = lm_run(cfg, params, prompt, gen, False, "plain",
+                                            forced=res_k.ids, phase=phase)
+    rec_p["resident_gib"] = resident
+    if cfg.moe:
+        rec_p["routing"] = replayed
+    emit(rec_p)
+    check(not any(plain_counts.values()), f"the plain serve launched kernels: {plain_counts}")
+    ratios = step_ratios(res_k, res_p)
+    bf16_equal = {"dtype": cfg.dtype, "max_ratio": max(ratios), "step_ratios": ratios,
+                  "equal_token_share": float((res_k.ids == res_p.ids).float().mean())}
+    if cfg.moe:
+        bf16_equal["routing"] = replayed
+    del res_p
+    free_device_memory()
+
+    if cfg.attn == "mla":
+        # the absorbed decode on the same prefill, tokens and routing
+        with routing.replay() as replayed:
+            rec_a, res_a, ca = lm_run(dataclasses.replace(cfg, decode_absorbed=True), params,
+                                      prompt, gen, True, "absorbed", forced=res_k.ids,
+                                      phase=phase)
+        want = dict(predicted, flash_decode=0)
+        check(all(ca[k] == v for k, v in want.items()),
+              f"{cfg.name} absorbed run launched {ca}, predicted {want}")
+        ar = step_ratios(res_a, res_k)[1:]
+        rec_a["absorbed_vs_materialized"] = {
+            "limit_ratio": ABSORBED_LIMIT, "max_ratio": max(ar), "step_ratios": ar,
+            "prefill_logits_equal": bool(torch.equal(res_a.logits[:, 0], res_k.logits[:, 0])),
+            "equal_token_share": float((res_a.ids[:, 1:] == res_k.ids[:, 1:]).float().mean())}
+        if cfg.moe:
+            rec_a["routing"] = replayed
+        rec_a["decode_ms_per_step_materialized"] = rec["decode_ms_per_step"]
+        emit(rec_a)
+        check(max(ar) <= ABSORBED_LIMIT, f"{cfg.name} absorbed decode: max |absorbed - "
+                                         f"materialized| / max {max(ar)} > {ABSORBED_LIMIT}")
+        del res_a
+    del res_k
+    free_device_memory()
+
+    # where a prefill's and a decode step's device time goes
+    cache = tf.init_cache(cfg, batch, max_len)
+    kernel = "flash_attention_tc_kernel" if route == "tc" else "flash_attention_kernel"
+    with loop.watch():
+        (logits, _), prof = profiled(lambda: tf.prefill(params, prompt, cache, cfg,
+                                                        use_kernels=True), ATTN_KERNELS)
+    extra = {}
+    if cfg.moe:
+        extra = {"expert_loop": loop.summary(cfg.n_moe_layers)["prefill"]}
+        extra["expert_loop_host_share"] = extra["expert_loop"]["loop_host_s"] / prof["wall_s"]
+    emit({"phase": phase, "record": "profile", "arch": cfg.name, "stage": "prefill",
+          "attention_kernel": kernel, "attention_share":
+          prof["named_kernels"][kernel]["s"] / prof["device_s"], **extra, **prof})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    with loop.watch():
+        _, prof = profiled(lambda: tf.decode_step(params, tok, cache, prompt_len, cfg,
+                                                  use_kernels=True), ATTN_KERNELS)
+    if cfg.moe:
+        extra = {"expert_loop": loop.summary(0)["decode"]}
+        extra["expert_loop_host_share"] = extra["expert_loop"]["loop_host_s"] / prof["wall_s"]
+    emit({"phase": phase, "record": "profile", "arch": cfg.name, "stage": "decode",
+          "pos": prompt_len, "attention_share": prof["named_kernels"]["flash_decode_kernel"]["s"]
+          / prof["device_s"], **extra, **prof})
+    del cache, logits, params
+    free_device_memory()
+
+    equal = {"phase": phase, "record": "equal", "arch": cfg.name, "reported": bf16_equal}
+    if gate is None:
+        emit(equal)
+        return counts, None
+    # the gate: the same model in float32, kernels against plain
+    eb, ep, eg = gate
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tf.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt32 = torch.from_numpy(prompt_tokens(cfg.vocab, eb, ep, 1)).cuda()
+    with routing.record():
+        rec_k, res_k, c32 = lm_run(cfg32, params32, prompt32, eg, True, "kernels", phase=phase)
+    with routing.replay() as replayed:
+        rec_p, res_p, _ = lm_run(cfg32, params32, prompt32, eg, False, "plain",
+                                 forced=res_k.ids, phase=phase)
+    want = {"flash_attention": n, "flash_attention_tc": 0, "flash_decode": n * (eg - 1)}
+    check(all(c32[k] == v for k, v in want.items()),
+          f"{cfg.name} float32 run launched {c32}, predicted {want}")
+    ratios = step_ratios(res_k, res_p)
+    equal["gate"] = {"dtype": "float32", "batch": eb, "prompt_len": ep, "gen": eg,
+                     "limit_ratio": 1e-3, "max_ratio": max(ratios), "step_ratios": ratios,
+                     "equal_token_share": float((res_k.ids == res_p.ids).float().mean()),
+                     "peak_gib": rec_k["peak_gib"],
+                     "kernel_prefill_seconds": rec_k["prefill_seconds"],
+                     "plain_prefill_seconds": rec_p["prefill_seconds"],
+                     "kernel_decode_ms_per_step": rec_k["decode_ms_per_step"],
+                     "plain_decode_ms_per_step": rec_p["decode_ms_per_step"]}
+    if cfg.moe:
+        equal["gate"]["routing"] = replayed
+    emit(equal)
+    check(max(ratios) <= 1e-3, f"{cfg.name} float32 logits: max |kernel - plain| / max |plain| "
+                               f"{max(ratios)} > 1e-3")
+    del params32, res_k, res_p
+    free_device_memory()
     return counts, c32
 
 
@@ -3631,10 +4025,24 @@ def main() -> None:
     # 14. phi4-mini-3.8b serving; launches counted over the kernel serve (the
     #     float32 gate's for the CUDA-core kernel, which bf16 serving skips)
     lm_counts, f32_counts = lm_phase()
-    launches["flash_attention"] = lm_counts["flash_attention_tc"]
-    launches["flash_decode"] = lm_counts["flash_decode"]
-    launches["flash_attention_simt"] = (f32_counts["flash_attention"]
-                                        - f32_counts["flash_attention_tc"])
+
+    # 14b. minicpm3-4b (MLA), deepseek-v2-lite-16b (MLA + MoE),
+    #      granite-moe-3b-a800m (MoE) and command-r-35b serving; launches
+    #      counted over each kernel serve and each float32 gate's kernel
+    #      serve (``<path>_f32_gate``)
+    lm_paths = {"phi4": lm_counts, "phi4_f32_gate": f32_counts}
+    for cell in LM_CELLS:
+        path = LM_PATHS[cell[1]]
+        lm_paths[path], gate_counts = lm_cell(*cell)
+        if gate_counts is not None:
+            lm_paths[f"{path}_f32_gate"] = gate_counts
+    attention_paths = {
+        "flash_attention": {p: c["flash_attention_tc"] for p, c in lm_paths.items()},
+        "flash_decode": {p: c["flash_decode"] for p, c in lm_paths.items()},
+        "flash_attention_simt": {p: c["flash_attention"] - c["flash_attention_tc"]
+                                 for p, c in lm_paths.items()}}
+    for name, paths in attention_paths.items():
+        launches[name] = sum(paths.values())
     checks["flash_decode"] = checks["flash_attention_simt"] = checks["flash_attention"]
 
     # 15. embedding_bag against its plain version at the DLRM shapes
@@ -3661,7 +4069,7 @@ def main() -> None:
                                 "src/repro/kernels/flash_attention.py:84", "decode_first"),
                "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                         "src/repro/kernels/flash_attention.py:84",
-                                        "prefill_f32_gate"),
+                                        "mla_minicpm3_prefill"),
                "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag.py:41", "serve_bulk")}
     kernels = []
@@ -3682,10 +4090,16 @@ def main() -> None:
                 **{path: n[name] for path, n in planted_launches.items()}}
         elif name == "segment_sum":
             entry["launches_by_path"] = segment_paths
+        elif name in attention_paths:
+            # the serving paths (counts set to 0 just before each kernel
+            # serve and read just after); launches is their sum
+            entry["launches_by_path"] = attention_paths[name]
         kernels.append(entry)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    # the contract's last line, exactly (no t_s)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES``,
 ``GNN_SHAPES`` and ``RECSYS_SHAPES`` from ``repro/configs/registry.py``,
 restricted to the architectures the port runs: gatedgcn, graphsage-reddit,
-meshgraphnet and equiformer-v2 (GNN full-graph inference and training), phi4-mini-3.8b (LM serving)
-and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
+meshgraphnet and equiformer-v2 (GNN full-graph inference and training), the five LMs
+phi4-mini-3.8b, minicpm3-4b, deepseek-v2-lite-16b, granite-moe-3b-a800m and command-r-35b
+(serving on one device) and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
 registry's ``train_batch``, since the port does not train DLRM).
 """
 
@@ -51,7 +52,8 @@ class ArchSpec:
         raise KeyError(f"{self.name}: unknown shape {name}")
 
 
-_MODULES = ["phi4_mini_3_8b", "gatedgcn", "graphsage_reddit", "meshgraphnet", "equiformer_v2",
+_MODULES = ["phi4_mini_3_8b", "minicpm3_4b", "deepseek_v2_lite_16b", "granite_moe_3b_a800m",
+            "command_r_35b", "gatedgcn", "graphsage_reddit", "meshgraphnet", "equiformer_v2",
             "dlrm_rm2"]
 
 _REGISTRY: Dict[str, ArchSpec] = {}

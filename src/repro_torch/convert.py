@@ -90,7 +90,8 @@ dlrm_params_from_numpy = gnn_params_from_numpy
 
 def lm_params_from_numpy(params, device="cuda"):
     """Port tensors of a JAX transformer parameter dict: ``embed``,
-    ``final_norm``, ``lm_head`` and the layer-stacked ``dense`` dict."""
+    ``final_norm``, ``lm_head`` and the layer-stacked ``dense`` and ``moe``
+    dicts (each where the config has such layers), leaf for leaf."""
     return {name: lm_params_from_numpy(v, device) if isinstance(v, dict) else _param(v, device)
             for name, v in params.items()}
 

@@ -1,23 +1,28 @@
 """Batched serving: an LM's prefill and greedy decode loop, or DLRM's requests.
 
 Twin of ``repro/launch/serve.py``; the arch's family picks the loop. For an
-LM (the default arch), on the card, with every attention through the CUDA
-``flash_attention`` kernel::
+LM (the default arch is minicpm3-4b, an MLA model, as in the JAX CLI), on
+the card, with every attention through the CUDA ``flash_attention`` kernels::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
-        --batch 4 --prompt-len 8192 --gen 16 [--chunk 4096]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
+        --batch 4 --prompt-len 4096 --gen 16 [--chunk 2048] [--absorbed]
 
-It prints one JSON record per stage and the generated ids last. For DLRM,
-with every embedding bag through the CUDA ``embedding_bag`` kernel, it
-answers ``--requests`` requests of one ``RECSYS_SHAPES`` shape and prints a
-JSON record per request::
+``--absorbed`` decodes MLA models in the absorbed form (scores against the
+latent cache, no kernel); any of the five LMs is an ``--arch``
+(phi4-mini-3.8b, minicpm3-4b, deepseek-v2-lite-16b, granite-moe-3b-a800m,
+command-r-35b). It prints one JSON record per stage and the generated ids
+last. For DLRM, with every embedding bag through the CUDA ``embedding_bag``
+kernel, it answers ``--requests`` requests of one ``RECSYS_SHAPES`` shape and
+prints a JSON record per request::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2 \\
         --shape serve_bulk --requests 2
 
 On the CPU, with the plain versions, at the smoke configurations::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke [--absorbed]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --device cpu --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2 --device cpu \\
         --smoke --shape serve_p99 --requests 2
 """
@@ -162,7 +167,7 @@ def _main_recsys(args, spec, device: torch.device) -> RecsysResult:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--arch", default="minicpm3-4b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--shape", default="serve_p99",
                     help="recsys: serve_p99, serve_bulk or retrieval_cand")
@@ -171,6 +176,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--chunk", type=int, default=0, help="chunked prefill of this many tokens")
+    ap.add_argument("--absorbed", action="store_true", help="MLA absorbed decode")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -183,6 +189,8 @@ def main(argv=None):
     if spec.family == "recsys":
         return _main_recsys(args, spec, device)
     cfg: tf.TransformerConfig = spec.smoke if args.smoke else spec.config
+    if args.absorbed and cfg.attn == "mla":
+        cfg = dataclasses.replace(cfg, decode_absorbed=True)
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     prompt = torch.from_numpy(prompt_tokens(cfg.vocab, args.batch, args.prompt_len)).to(device)
     res = serve(cfg, params, prompt, args.gen, use_kernels=device.type == "cuda",

@@ -1,30 +1,47 @@
-"""Decoder-only transformer serving: dense grouped-query attention.
+"""Decoder-only transformer serving: dense GQA, MLA and mixture-of-experts layers.
 
-Single-device port of the dense GQA part of ``repro/models/transformer.py``
-(RoPE, SwiGLU, layer-stacked ``[L, …]`` parameters), for inference:
-``forward`` (teacher forcing), ``prefill``, ``prefill_chunked`` and
-``decode_step`` over a layer-stacked KV cache. The attention of every
-layer goes through :func:`repro_torch.kernels.ops.flash_attention`, the
-hand-written CUDA kernel with ``use_kernels=True`` and its plain version
-otherwise; offsets are Python ints, so the kernel serves prefill, chunked
-prefill and decode alike. Parameters are a nested dict keyed by the JAX
-names, weights in JAX's ``[in, out]`` layout, so the JAX package's
-parameters carry across unchanged (``convert.lm_params_from_numpy``).
+Single-device port of ``repro/models/transformer.py`` (RoPE, SwiGLU,
+layer-stacked ``[L, …]`` parameters), for inference: ``forward`` (teacher
+forcing), ``prefill``, ``prefill_chunked`` and ``decode_step`` over a
+layer-stacked cache. Parameters are a nested dict keyed by the JAX names,
+weights in JAX's ``[in, out]`` layout, so the JAX package's parameters carry
+across unchanged (``convert.lm_params_from_numpy``).
+
+- **Attention.** Grouped-query (``attn="gqa"``), or MLA (``"mla"``,
+  DeepSeek-V2 §2.1): low-rank query and key/value projections, and a cache
+  of only the latents ``(c_kv, k_rope)``, ``kv_lora + qk_rope`` values a
+  position. Every attention but the absorbed decode goes through
+  :func:`repro_torch.kernels.ops.flash_attention`, the hand-written CUDA
+  kernels with ``use_kernels=True`` and their plain version otherwise;
+  offsets are Python ints, so the kernels serve prefill, chunked prefill and
+  decode alike. MLA's materialized form expands K and V from the whole
+  latent cache and pads V with zero columns to the query width
+  ``qk_nope + qk_rope``, so one call of the one-width kernels computes the
+  attention; the padding is sliced off its output. The absorbed decode
+  (``decode_absorbed`` with one new token) scores the queries against the
+  latent cache itself in float32 products, as JAX does, with no kernel.
+- **Mixture of experts** (the layers after ``first_dense``): router softmax
+  in float32, top-k by a stable descending sort (ties go to the lower expert
+  id, as ``jax.lax.top_k`` sends them), weights renormalized; then each
+  expert's SwiGLU on only the rows routed to it, added into a zero
+  accumulator in the model's type in ascending expert order, and the shared
+  experts after. JAX's one-device path runs every expert on every token and
+  adds ``y · 0`` for the unrouted ones, so each token's sum has the same
+  terms in the same order; only the products' own rounding differs. The
+  loop reads the per-expert row counts to the host once a layer to skip the
+  empty experts. The expert-parallel path (``_moe_routed``) and the sharding
+  specs need a mesh and are not ported (ROADMAP).
 
 Every entry point runs under ``torch.inference_mode()``. The serving
-functions write the new keys and values into the cache **in place** and
-return the same cache object.
-
-MLA attention, mixture-of-experts layers and the sharding specs are not
-ported (ROADMAP); configurations that need them raise
-``NotImplementedError``.
+functions write the new keys and values (or latents) into the cache **in
+place** and return the same cache object.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -33,7 +50,6 @@ from .common import apply_rope, rms_norm, rope, swiglu
 
 __all__ = ["TransformerConfig", "param_shapes", "init_params", "forward", "init_cache",
            "prefill", "prefill_chunked", "decode_step"]
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -70,13 +86,19 @@ class TransformerConfig:
     attn_backend: str = "ref"
     q_chunk: int = 256
     moe_capacity_factor: float = 2.0
-    decode_absorbed: bool = False
+    decode_absorbed: bool = False  # MLA: the absorbed form for one-token decode
     attn_seq_shard: bool = False
     remat: bool = True
 
     @property
     def tdtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Expert arrays are padded to a multiple of 16 (JAX's widest expert
+        split); the padded experts are never routed to."""
+        return -(-self.n_experts // 16) * 16
 
     @property
     def n_moe_layers(self) -> int:
@@ -90,13 +112,42 @@ class TransformerConfig:
         """Total parameters, from the shapes."""
         return sum(math.prod(s) for s in _leaves(param_shapes(self)))
 
+    def active_param_count(self) -> int:
+        """Parameters a token reads: with MoE, the padded experts it is not
+        routed to left out (JAX's count)."""
+        if not self.moe:
+            return self.param_count()
+        inactive = (self.n_moe_layers * (self.n_experts_padded - self.top_k)
+                    * 3 * self.d_model * self.d_expert)
+        return self.param_count() - inactive
+
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP Queue 1)")
+def _attn_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    d = c.d_model
+    if c.attn == "gqa":
+        return {
+            "wq": (d, c.n_heads * c.d_head),
+            "wk": (d, c.n_kv_heads * c.d_head),
+            "wv": (d, c.n_kv_heads * c.d_head),
+            "wo": (c.n_heads * c.d_head, d),
+        }
+    shapes = {
+        "wkv_a": (d, c.kv_lora + c.qk_rope),
+        "kv_norm": (c.kv_lora,),
+        "wk_b": (c.kv_lora, c.n_heads * c.qk_nope),
+        "wv_b": (c.kv_lora, c.n_heads * c.v_head),
+        "wo": (c.n_heads * c.v_head, d),
+    }
+    qdim = c.n_heads * (c.qk_nope + c.qk_rope)
+    if c.q_lora:
+        shapes.update({"wq_a": (d, c.q_lora), "q_norm": (c.q_lora,), "wq_b": (c.q_lora, qdim)})
+    else:
+        shapes["wq"] = (d, qdim)
+    return shapes
 
 
 def _dense_layer_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
@@ -106,27 +157,33 @@ def _dense_layer_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _attn_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
-    if c.attn != "gqa":
-        raise _not_ported(f"{c.attn!r} attention")
-    d = c.d_model
-    return {
-        "wq": (d, c.n_heads * c.d_head),
-        "wk": (d, c.n_kv_heads * c.d_head),
-        "wv": (d, c.n_kv_heads * c.d_head),
-        "wo": (c.n_heads * c.d_head, d),
-    }
+def _moe_layer_shapes(c: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    d, fe, e = c.d_model, c.d_expert, c.n_experts_padded
+    shapes = {"attn_norm": (d,), "mlp_norm": (d,), "router": (d, c.n_experts),
+              "e_wg": (e, d, fe), "e_wu": (e, d, fe), "e_wd": (e, fe, d)}
+    if c.n_shared:
+        fs = c.n_shared * fe
+        shapes.update({"s_wg": (d, fs), "s_wu": (d, fs), "s_wd": (fs, d)})
+    shapes.update(_attn_shapes(c))
+    return shapes
+
+
+def _groups(c: TransformerConfig) -> List[Tuple[str, bool, int]]:
+    """The layer groups in the order they run: ``(name, moe, layers)``,
+    each only where the config has such layers."""
+    return [(g, moe, n) for g, moe, n in (("dense", False, c.n_dense_layers),
+                                          ("moe", True, c.n_moe_layers)) if n]
 
 
 def param_shapes(c: TransformerConfig) -> Dict:
     """The parameter tree's shapes, named as the JAX package names them;
-    the layer leaves are stacked ``[L, …]``."""
-    if c.n_moe_layers:
-        raise _not_ported("the mixture-of-experts layer")
+    the layer leaves are stacked ``[L, …]`` in a ``"dense"`` and a
+    ``"moe"`` group."""
     shapes = {"embed": (c.vocab, c.d_model), "final_norm": (c.d_model,),
               "lm_head": (c.d_model, c.vocab)}
-    if c.n_dense_layers:
-        shapes["dense"] = {k: (c.n_dense_layers,) + s for k, s in _dense_layer_shapes(c).items()}
+    for group, moe, n in _groups(c):
+        layer = _moe_layer_shapes(c) if moe else _dense_layer_shapes(c)
+        shapes[group] = {k: (n,) + s for k, s in layer.items()}
     return shapes
 
 
@@ -141,36 +198,50 @@ def _leaves(tree):
 
 def init_params(c: TransformerConfig, generator: torch.Generator, device="cuda") -> Dict:
     """Random parameters by the JAX ``init_params`` law: norms one; embed
-    ``N(0, 1) · 0.02``; lm_head and the layer weights ``N(0, 1) /
-    sqrt(fan_in)``, fan_in being a layer weight's first (input) axis. The
-    draws, in float32 on ``generator``'s device, differ from ``jax.random``;
-    they are taken leaf by leaf in sorted-name order (``dense/…``,
-    ``embed``, ``final_norm``, ``lm_head``), then cast to ``c.dtype`` and
-    moved to ``device``."""
-    def normal(shape, std):
-        w = torch.randn(shape, generator=generator, device=generator.device).mul_(std)
-        return w.to(device=device, dtype=c.tdtype)
+    ``N(0, 1) · 0.02``; lm_head ``N(0, 1) / sqrt(d_model)``; every other
+    weight ``N(0, 1) / sqrt(fan_in)``, fan_in being its input axis (the
+    second to last of one layer's leaf: ``d_model`` for ``e_wg`` / ``e_wu``,
+    ``d_expert`` for ``e_wd``).
 
-    def leaf(name, shape, fan_in):
+    The draws differ from ``jax.random``. They are taken in float32 on
+    ``generator``'s device, leaf by leaf in sorted-name order (``dense/…``,
+    ``embed``, ``final_norm``, ``lm_head``, ``moe/…``), a piece at a time: a
+    stacked ``[L, …]`` leaf one layer at a time, ``embed`` and ``lm_head`` in
+    blocks of whole rows no larger than the largest one-layer leaf. Each
+    piece is cast to ``c.dtype`` and written into its leaf on ``device``
+    before the next is drawn, so the float32 transient stays one layer's
+    leaf (command-r-35b's ``wg`` would be 29.5 GB in float32 drawn whole)."""
+    shapes = param_shapes(c)
+    piece = max(math.prod(s[1:]) for g, _, _ in _groups(c) for s in shapes[g].values())
+
+    def normal(shape, std, rows):
+        out = torch.empty(shape, dtype=c.tdtype, device=device)
+        for i in range(0, shape[0], rows):
+            n = min(rows, shape[0] - i)
+            w = torch.randn((n,) + tuple(shape[1:]), generator=generator,
+                            device=generator.device)
+            out[i:i + n] = w.mul_(std)
+        return out
+
+    def leaf(name, shape, std, rows):
         if name.endswith("norm"):
             return torch.ones(shape, dtype=c.tdtype, device=device)
-        return normal(shape, 1.0 / math.sqrt(fan_in))
+        return normal(shape, std, rows)
 
-    shapes = param_shapes(c)
     params = {}
     for key in sorted(shapes):
-        if key == "dense":
-            params[key] = {n: leaf(n, s, s[-2] if len(s) >= 3 else s[-1])
-                           for n, s in sorted(shapes[key].items())}
-        elif key == "embed":
-            params[key] = normal(shapes[key], 0.02)
+        s = shapes[key]
+        if isinstance(s, dict):
+            params[key] = {n: leaf(n, ls, 1.0 / math.sqrt(ls[-2]), 1)
+                           for n, ls in sorted(s.items())}
         else:
-            params[key] = leaf(key, shapes[key], c.d_model)
+            std = 0.02 if key == "embed" else 1.0 / math.sqrt(c.d_model)
+            params[key] = leaf(key, s, std, max(1, piece // math.prod(s[1:])))
     return params
 
 
 # ---------------------------------------------------------------------------
-# Layers + model
+# Attention
 # ---------------------------------------------------------------------------
 
 def _gqa_qkv(lp, x, c: TransformerConfig, positions):
@@ -184,36 +255,193 @@ def _gqa_qkv(lp, x, c: TransformerConfig, positions):
     return q, k, v.transpose(1, 2)
 
 
-def _layer(lp, x, c: TransformerConfig, positions, *, use_kernels: bool, cache=None,
-           pos: int = 0):
-    """One dense GQA block. With ``cache`` (this layer's ``(k, v)`` views
-    ``[B, Hkv, S, Dh]``) the chunk's keys and values are written at
-    ``pos … pos + Lq - 1`` in place and the queries attend over the whole
-    cache with ``q_offset = pos``: the causal mask hides the entries not
-    written yet."""
+def _mla_q(lp, x, c: TransformerConfig, positions):
+    """MLA queries ``(q_nope [B, H, L, qk_nope], q_rope [B, H, L, qk_rope])``,
+    RoPE on the ``qk_rope`` columns only."""
+    b, l, _ = x.shape
+    if c.q_lora:
+        q = rms_norm(x @ lp["wq_a"], lp["q_norm"]) @ lp["wq_b"]
+    else:
+        q = x @ lp["wq"]
+    q = q.view(b, l, c.n_heads, c.qk_nope + c.qk_rope).transpose(1, 2)
+    cos, sin = rope(positions, c.qk_rope, c.rope_theta)
+    return q[..., :c.qk_nope], apply_rope(q[..., c.qk_nope:], cos, sin)
+
+
+def _mla_kv_latent(lp, x, c: TransformerConfig, positions):
+    """The cache entries of a chunk: ``(c_kv [B, L, kv_lora], k_rope [B, L,
+    qk_rope])``; ``k_rope`` is one head shared by all query heads."""
+    kv = x @ lp["wkv_a"]
+    c_kv = rms_norm(kv[..., :c.kv_lora], lp["kv_norm"])
+    cos, sin = rope(positions, c.qk_rope, c.rope_theta)
+    return c_kv, apply_rope(kv[..., c.kv_lora:][:, None], cos, sin)[:, 0]
+
+
+def _mla_attention(lp, q_nope, q_rope, c_kv, k_rope, c: TransformerConfig, q_offset: int, *,
+                   use_kernels: bool):
+    """Materialized MLA: K and V expanded from the whole latent ``c_kv [B,
+    Lk, kv_lora]`` (its unwritten zeros too, hidden by the causal mask),
+    ``k_rope`` broadcast to every head, V zero-padded from ``v_head`` to
+    ``qk_nope + qk_rope`` columns; one ``flash_attention`` call, its first
+    ``v_head`` output columns kept. The zero columns change no other output
+    column, and the scale stays ``1 / sqrt(qk_nope + qk_rope)``, the query's
+    width. Returns ``[B, H, Lq, v_head]``."""
+    b, h = q_nope.shape[:2]
+    lk = c_kv.shape[1]
+    width = c.qk_nope + c.qk_rope
+    k = torch.empty((b, h, lk, width), dtype=c_kv.dtype, device=c_kv.device)
+    k[..., :c.qk_nope] = (c_kv @ lp["wk_b"]).view(b, lk, h, c.qk_nope).transpose(1, 2)
+    k[..., c.qk_nope:] = k_rope[:, None]
+    v = torch.zeros((b, h, lk, width), dtype=c_kv.dtype, device=c_kv.device)
+    v[..., :c.v_head] = (c_kv @ lp["wv_b"]).view(b, lk, h, c.v_head).transpose(1, 2)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset, use_kernels=use_kernels)
+    return out[..., :c.v_head]
+
+
+def _mla_attention_absorbed(lp, q_nope, q_rope, c_kv, k_rope, c: TransformerConfig,
+                            q_offset: int):
+    """Absorbed MLA: ``q_nope`` taken through ``wk_bᵀ`` into the latent
+    space (in the model's type), scores in float32 against ``c_kv`` and the
+    shared ``k_rope``, values read in latent space and expanded once a query
+    through ``wv_b``; the output ``[B, H, Lq, v_head]`` in the cache's type.
+    JAX's einsums, no kernel."""
+    h, lq = q_nope.shape[1], q_nope.shape[2]
+    lk = c_kv.shape[1]
+    q_lat = torch.einsum("bhqn,rhn->bhqr", q_nope, lp["wk_b"].view(c.kv_lora, h, c.qk_nope))
+    cf = c_kv.float()
+    logits = (torch.einsum("bhqr,blr->bhql", q_lat.float(), cf)
+              + torch.einsum("bhqe,ble->bhql", q_rope.float(), k_rope.float()))
+    logits = logits * (1.0 / math.sqrt(c.qk_nope + c.qk_rope))
+    qpos = torch.arange(lq, device=c_kv.device)[:, None] + q_offset
+    kpos = torch.arange(lk, device=c_kv.device)[None, :]
+    probs = torch.softmax(logits.masked_fill(kpos > qpos, -1e30), dim=-1)
+    o_lat = torch.einsum("bhql,blr->bhqr", probs, cf)
+    wv_b = lp["wv_b"].view(c.kv_lora, h, c.v_head).float()
+    return torch.einsum("bhqr,rhv->bhqv", o_lat, wv_b).to(c_kv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (one device)
+# ---------------------------------------------------------------------------
+
+def _router_probs(lp, x) -> torch.Tensor:
+    """Router probabilities of ``x [T, D]``, ``[T, n_experts]`` float32:
+    logits in the model's type, softmax in float32."""
+    return torch.softmax((x @ lp["router"]).float(), dim=-1)
+
+
+def _top_experts(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` most probable experts of each row, ``[T, k]`` int64, by a
+    stable descending sort: equal probabilities in ascending expert order,
+    as ``jax.lax.top_k``."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def _route_weights(probs: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """The probabilities of experts ``sel``, renormalized by their sum
+    clipped at 1e-9."""
+    w = probs.gather(-1, sel)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def _moe_route(lp, x, c: TransformerConfig):
+    """Router of ``x [T, D]``: ``(weights [T, top_k] float32, experts [T,
+    top_k] int64)``."""
+    probs = _router_probs(lp, x)
+    sel = _top_experts(probs, c.top_k)
+    return _route_weights(probs, sel), sel
+
+
+def _expert_rows(experts: torch.Tensor, n: int) -> List[int]:
+    """Rows routed to each of the ``n`` experts, read to the host (the
+    layer's one synchronization)."""
+    return torch.bincount(experts, minlength=n).tolist()
+
+
+def _moe_experts(lp, x, weights, sel, c: TransformerConfig) -> torch.Tensor:
+    """``Σ_e coef · SwiGLU_e(x)`` over the routed ``(token, expert)`` pairs
+    of ``x [T, D]``: each expert's SwiGLU on its routed rows only, times the
+    weight cast to the model's type, added into a zero ``[T, D]`` in
+    ascending expert order (a token meets each expert at most once)."""
+    experts = sel.reshape(-1)
+    order = torch.argsort(experts, stable=True)
+    tokens = order // c.top_k
+    coef = weights.reshape(-1)[order].to(x.dtype)[:, None]
+    out = torch.zeros_like(x)
+    start = 0
+    for e, n in enumerate(_expert_rows(experts, c.n_experts)):
+        if n:
+            rows = tokens[start:start + n]
+            y = swiglu(x.index_select(0, rows), lp["e_wg"][e], lp["e_wu"][e], lp["e_wd"][e])
+            out.index_add_(0, rows, y * coef[start:start + n])
+            start += n
+    return out
+
+
+def _moe_ffn(lp, x, c: TransformerConfig):
+    """``x [B, L, D]`` → the routed experts' SwiGLU plus the shared experts'."""
+    b, l, d = x.shape
+    flat = x.reshape(-1, d)
+    weights, sel = _moe_route(lp, flat, c)
+    out = _moe_experts(lp, flat, weights, sel, c)
+    if c.n_shared:
+        out = out + swiglu(flat, lp["s_wg"], lp["s_wu"], lp["s_wd"])
+    return out.view(b, l, d)
+
+
+# ---------------------------------------------------------------------------
+# Layers + model
+# ---------------------------------------------------------------------------
+
+def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bool,
+           cache=None, pos: int = 0):
+    """One block. With ``cache`` (this layer's views: GQA ``(k, v)`` ``[B,
+    Hkv, S, Dh]``, MLA ``(c_kv [B, S, kv_lora], k_rope [B, S, qk_rope])``) the
+    chunk's entries are written at ``pos … pos + Lq - 1`` in place and the
+    queries attend over the whole cache with ``q_offset = pos``: the causal
+    mask hides the entries not written yet."""
     h = rms_norm(x, lp["attn_norm"])
-    q, k, v = _gqa_qkv(lp, h, c, positions)
-    if cache is not None:
-        ck, cv = cache
-        ck[:, :, pos:pos + k.shape[2]] = k
-        cv[:, :, pos:pos + v.shape[2]] = v
-        k, v = ck, cv
-    attn = ops.flash_attention(q, k, v, causal=True, q_offset=pos, use_kernels=use_kernels)
+    if c.attn == "gqa":
+        q, k, v = _gqa_qkv(lp, h, c, positions)
+        if cache is not None:
+            ck, cv = cache
+            ck[:, :, pos:pos + k.shape[2]] = k
+            cv[:, :, pos:pos + v.shape[2]] = v
+            k, v = ck, cv
+        attn = ops.flash_attention(q, k, v, causal=True, q_offset=pos, use_kernels=use_kernels)
+    else:
+        q_nope, q_rope = _mla_q(lp, h, c, positions)
+        c_kv, k_rope = _mla_kv_latent(lp, h, c, positions)
+        if cache is not None:
+            cc, cr = cache
+            cc[:, pos:pos + c_kv.shape[1]] = c_kv
+            cr[:, pos:pos + k_rope.shape[1]] = k_rope
+            c_kv, k_rope = cc, cr
+        if cache is not None and c.decode_absorbed and q_nope.shape[2] == 1:
+            attn = _mla_attention_absorbed(lp, q_nope, q_rope, c_kv, k_rope, c, pos)
+        else:
+            attn = _mla_attention(lp, q_nope, q_rope, c_kv, k_rope, c, pos,
+                                  use_kernels=use_kernels)
     attn = attn.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
     x = x + attn @ lp["wo"]
     h2 = rms_norm(x, lp["mlp_norm"])
+    if moe:
+        return x + _moe_ffn(lp, h2, c)
     return x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
 
 
 def _run_layers(params, x, c: TransformerConfig, positions, *, use_kernels: bool,
                 caches: Optional[Dict] = None, pos: int = 0):
-    """The dense layers in order, each reading its slice of the stacked
-    ``[L, …]`` parameters (and of the cache)."""
-    stacked = params["dense"]
-    for i in range(c.n_dense_layers):
-        lp = {name: t[i] for name, t in stacked.items()}
-        cache = None if caches is None else (caches["dense"][0][i], caches["dense"][1][i])
-        x = _layer(lp, x, c, positions, use_kernels=use_kernels, cache=cache, pos=pos)
+    """The dense layers, then the MoE layers, each reading its slice of the
+    group's stacked ``[L, …]`` parameters (and of its cache)."""
+    for group, moe, n in _groups(c):
+        stacked = params[group]
+        for i in range(n):
+            lp = {name: t[i] for name, t in stacked.items()}
+            cache = None if caches is None else tuple(t[i] for t in caches[group])
+            x = _layer(lp, x, c, positions, moe=moe, use_kernels=use_kernels, cache=cache,
+                       pos=pos)
     return x
 
 
@@ -243,14 +471,19 @@ def forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch
 # ---------------------------------------------------------------------------
 
 def init_cache(c: TransformerConfig, batch: int, max_len: int, device="cuda") -> Dict:
-    """Zeroed layer-stacked KV cache: ``{"dense": (k, v)}``, each
-    ``[L, B, Hkv, max_len, Dh]`` in ``c.dtype``."""
-    if c.attn != "gqa" or c.n_moe_layers:
-        raise _not_ported("a latent (MLA) or mixture-of-experts cache")
-    shape = (c.n_dense_layers, batch, c.n_kv_heads, max_len, c.d_head)
+    """Zeroed layer-stacked cache in ``c.dtype``, a ``"dense"`` and a
+    ``"moe"`` group where the config has such layers: GQA ``(k, v)``, each
+    ``[L, B, Hkv, max_len, Dh]``; MLA the latents ``(c_kv [L, B, max_len,
+    kv_lora], k_rope [L, B, max_len, qk_rope])``."""
+    def group(n):
+        if c.attn == "gqa":
+            shapes = [(n, batch, c.n_kv_heads, max_len, c.d_head)] * 2
+        else:
+            shapes = [(n, batch, max_len, c.kv_lora), (n, batch, max_len, c.qk_rope)]
+        return tuple(torch.zeros(s, dtype=c.tdtype, device=device) for s in shapes)
+
     with torch.inference_mode():
-        return {"dense": (torch.zeros(shape, dtype=c.tdtype, device=device),
-                          torch.zeros(shape, dtype=c.tdtype, device=device))}
+        return {g: group(n) for g, _, n in _groups(c)}
 
 
 def _fill(params, tokens, cache, c: TransformerConfig, pos: int, use_kernels: bool):

@@ -104,6 +104,11 @@ logits, cache = tf.prefill(lm_params, torch.randint(0, lm.vocab, (2, 8)), cache,
                            use_kernels=False)
 assert logits.shape == (2, 1, lm.vocab) and bool(torch.isfinite(logits).all()), logits
 assert bool(cache["dense"][0][:, :, :, :8].any()) and not cache["dense"][0][:, :, :, 8:].any()
+from repro_torch.launch.serve import main as serve_main
+ds = serve_main(["--arch", "deepseek-v2-lite-16b", "--device", "cpu", "--smoke", "--absorbed",
+                 "--gen", "3"])
+assert ds.ids.shape == (2, 3) and bool(torch.isfinite(ds.logits).all())
+assert sorted(ds.cache) == ["dense", "moe"] and bool(ds.cache["moe"][0][:, :, :18].any())
 from repro_torch.launch import steps
 from repro_torch.models import dlrm
 rec = get_arch("dlrm-rm2").smoke

@@ -234,16 +234,6 @@ def test_init_params_law():
     assert torch.equal(again["dense"]["wq"], params["dense"]["wq"])
 
 
-@pytest.mark.parametrize("change", [dict(attn="mla", kv_lora=8, qk_rope=4, qk_nope=4, v_head=8),
-                                    dict(moe=True, n_experts=4, top_k=2, d_expert=8)])
-def test_mla_and_moe_are_not_ported(change):
-    cfg = dataclasses.replace(get_arch(ARCH).smoke, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_cache(cfg, 1, 4, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # the smoke model against the JAX functions
 # ---------------------------------------------------------------------------
@@ -368,7 +358,7 @@ def test_serve_matches_jax_serve_loop(monkeypatch, capsys):
 
 
 def test_serve_cli_smoke_on_cpu(capsys):
-    res = tserve.main(["--device", "cpu", "--smoke", "--gen", "4"])
+    res = tserve.main(["--arch", ARCH, "--device", "cpu", "--smoke", "--gen", "4"])
     out = capsys.readouterr().out
     assert res.ids.shape == (2, 4)
     np.testing.assert_array_equal(_printed_ids(out, 2, 4), res.ids.numpy())
