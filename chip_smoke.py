@@ -306,16 +306,56 @@ since the script started (all but the last line):
    max |plain|, and the embedding outputs (one-row bags) bitwise equal.
    ``dlrm_profile``: three more ``serve_bulk`` forwards under
    ``torch.profiler``, after a warm-up forward.
+17. ``dlrm_train_plan`` / ``dlrm_train`` — dlrm-rm2 training at its full
+   config on ``train_batch`` (65,536 examples a batch from
+   ``click_batches(seed=0)``, skewed ids; the distinct rows each batch
+   touches), 10 steps of ``launch.steps.dlrm_train_step`` (``_dlrm_cell``'s
+   stable BCE, AdamW at 1e-3 in place) from the parameters of seed 0: the
+   losses (falling), global norms, CUDA-event seconds a step, peak GiB and
+   launches a step (one ``embedding_bag`` forward, one ``segment_sum`` for
+   the tables' gradient, into the touched rows), ``dlrm_train_profile`` (one
+   more step under ``torch.profiler``); then the same 10 steps on
+   the plain versions from the same parameters, no launch, losses and norms
+   within ``DLRM_TRAIN_LIMIT`` of the kernel run's (``bitwise_equal_kernels``
+   reported). Then ``embedding_bag`` at the first batch's lookups
+   (``train_batch``, one-row bags, equal to plain and to
+   ``F.embedding_bag``; the bound counts the distinct rows) and
+   ``segment_sum`` at the tables' gradient (``dlrm_table_grad``, 1,703,936
+   float32 rows summed into the touched rows, row 0 of each field heavy).
+18. ``lm_train_plan`` / ``lm_train`` — phi4-mini-3.8b training at full width
+   at train_4k's sequence of 4,096, the batch cut to ``LM_TRAIN_BATCH``
+   (``lm_micro_batches`` gives 1), remat on, from ``token_batches(seed=0)``:
+   3 steps of ``launch.steps.lm_train_step`` (AdamW at 3e-4 in place):
+   losses, norms, seconds a step, peak GiB, TFLOP/s of ``lm_flops`` and the
+   launches a step (``flash_attention`` on the tensor cores twice a layer,
+   forward and recompute; ``flash_attention_bwd`` once a layer;
+   ``segment_sum`` once, the embedding's gradient); ``lm_train_profile``, one
+   more step under ``torch.profiler``; ``lm_train_equal``, the next batch's
+   loss and gradient norm (and each leaf's) from the same state with the
+   kernels and with the plain versions, within ``LM_TRAIN_LIMIT``. Then
+   ``segment_sum`` at the embedding's gradient (``lm_embed_grad``: 8,192 bf16
+   rows of 3,072 summed by token into the tokens the batch holds).
+19. ``kernel_check`` (``flash_attention_bwd``) — the attention backward
+   against its plain version at the training shape (q [2, 24, 4096, 128]
+   bf16 over k/v [2, 8, 4096, 128]) and at edge cases (L 1, 17, 4,095;
+   groups 1, 3, 8; Dh 64 and 128; bf16 and float32): every element of dQ,
+   dK and dV within ``ref.flash_attention_bwd_limits`` of the plain version
+   on the inputs in float32, two launches bitwise equal; with the kernel's,
+   the plain backward's and SDPA's forward + backward median ms beside the
+   bound (five causal products at the bf16 tensor-core rate); a
+   ``flash_kernels`` line with both kernels' registers and spills.
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
-the molecule and full_graph_sm kernel requests, the chunked forward and
-the four training paths' 10 steps, each counted from 0; the three
-attention kernels' ``launches_by_path``: the five LM kernel serves, phi4,
-minicpm3, deepseek, granite and command_r, and the four float32 gates'
-kernel serves, ``<path>_f32_gate`` (none for command_r), their sum in
-``launches``), and last
+the molecule and full_graph_sm kernel requests, the chunked forward,
+the four GNN training paths' 10 steps and ``dlrm_train`` and ``lm_train``,
+each counted from 0; the three attention kernels' ``launches_by_path``: the
+five LM kernel serves, phi4, minicpm3, deepseek, granite and command_r, the
+four float32 gates' kernel serves, ``<path>_f32_gate`` (none for
+command_r), and ``lm_train``, their sum in ``launches``; ``embedding_bag``'s
+``dlrm_serve`` and ``dlrm_train``; ``flash_attention_bwd``'s ``lm_train``),
+and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
 
@@ -428,6 +468,22 @@ DLRM_PROFILED = 3  # serve_bulk forwards under the profiler
 # (214 a sample); the serve path keeps the repo's multi_hot = 1.
 MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3,
                    1, 1)
+# The training slices. dlrm-rm2 on train_batch (65,536 examples), nothing cut;
+# the plain run's losses and norms are expected bit-equal (one-row bags are
+# copies, the table gradient a float64 sum rounded once) and held to 1e-6
+# relative: the plain segment sum adds with float64 atomics in no fixed
+# order, so where a float64 sum is not exact its rounding may fall either way.
+DLRM_TRAIN_STEPS, DLRM_TRAIN_LR, DLRM_TRAIN_LIMIT = 10, 1e-3, 1e-6
+# phi4-mini-3.8b at train_4k's sequence of 4,096; the global batch cut from
+# 256 to LM_TRAIN_BATCH, the largest at which lm_micro_batches gives one
+# microbatch: the bf16 weights, their gradient and the float32 moments take
+# 53.4 GB, and more microbatches add a float32 accumulator of 17.8 GB (run in
+# the CPU tests only). The kernel and plain losses and
+# gradient norms are held to LM_TRAIN_LIMIT relative: the two paths round each
+# layer's attention output and gradients to bf16 independently (2**-8 a
+# rounding), and over 32 bf16 layers those differences add to a few roundings.
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 4096, 3, 3e-4
+LM_TRAIN_LIMIT = 2e-2
 
 
 _START = time.perf_counter()
@@ -3732,6 +3788,355 @@ def dlrm_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Training slices: dlrm-rm2 and phi4-mini-3.8b, and the attention backward
+# ---------------------------------------------------------------------------
+
+def dlrm_train_run(cfg, batches, use_kernels: bool):
+    """DLRM_TRAIN_STEPS steps of ``dlrm_train_step`` from the parameters of
+    seed 0: (losses, norms, CUDA-event seconds, peak GiB, launch counts,
+    profile), the counts over exactly these steps; with the kernels one
+    more step (the first batch again) under ``torch.profiler``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import dlrm_train_step
+    from repro_torch.models import dlrm
+    from repro_torch.optim import adamw_init
+
+    free_device_memory()
+    params = dlrm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, times = [], [], []
+    for dense, sparse, labels in batches:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt, loss, gnorm = dlrm_train_step(params, opt, dense, sparse, labels, cfg,
+                                                   lr=DLRM_TRAIN_LR, use_kernels=use_kernels)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = None
+    if use_kernels:
+        _, prof = profiled(lambda: dlrm_train_step(params, opt, *batches[0], cfg,
+                                                   lr=DLRM_TRAIN_LR, use_kernels=True),
+                           kernels=("embedding_bag", "segment_sum"))
+    del params, opt
+    free_device_memory()
+    return losses, norms, times, peak, counts, prof
+
+
+def dlrm_train_phase():
+    """dlrm-rm2 training at full width on ``train_batch`` (65,536 examples
+    from ``click_batches(seed=0)``), DLRM_TRAIN_STEPS in-place AdamW steps
+    with the kernels, then the same steps on the plain versions from the
+    same parameters; then the embedding bag and the tables' segment sum at
+    the first batch's skewed lookups. Returns the kernel run's launches and
+    the kernel_check cases."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.data import click_batches
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.segment_sum import segment_plan
+    from repro_torch.launch.steps import dlrm_flops
+
+    spec = get_arch(DLRM_ARCH)
+    cfg, shape = spec.config, spec.shape("train_batch")
+    n_f, v, d, batch = cfg.n_sparse, cfg.rows_per_table, cfg.embed_dim, shape.batch
+    t0 = time.perf_counter()
+    stream = click_batches(cfg.n_dense, n_f, v, batch, multi_hot=cfg.multi_hot, seed=0)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in next(stream))
+               for _ in range(DLRM_TRAIN_STEPS)]
+    offsets = torch.arange(0, n_f * v, v, device="cuda")[None, :, None]
+    rows = [(s.long() + offsets).reshape(-1) for _, s, _ in batches]
+    touched = [int(torch.unique(r).numel()) for r in rows]
+    row0 = int((batches[0][1][:, :, 0] == 0).sum()) / n_f
+    data_s = time.perf_counter() - t0
+    emit({"phase": "dlrm_train_plan", "arch": cfg.name, "shape": shape.name,
+          "batch": batch, "steps": DLRM_TRAIN_STEPS, "lr": DLRM_TRAIN_LR,
+          "params": cfg.param_count(), "lookups": batch * n_f * cfg.multi_hot,
+          "distinct_rows": touched, "row0_lookups_per_field": row0,
+          "model_flops": dlrm_flops(cfg, batch, train=True)["model_flops"],
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "data_seconds": data_s})
+
+    losses, norms, times, peak, counts, prof = dlrm_train_run(cfg, batches, True)
+    finite = all(math.isfinite(x) for x in losses + norms)
+    check(finite, f"dlrm training: a loss or norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"dlrm training: the loss did not fall: {losses}")
+    for name in ("embedding_bag", "segment_sum"):
+        check(counts[name] == DLRM_TRAIN_STEPS,
+              f"dlrm training: {name} launched {counts[name]} times in {DLRM_TRAIN_STEPS} steps")
+    others = {k: n for k, n in counts.items() if k not in ("embedding_bag", "segment_sum") and n}
+    check(not others, f"dlrm training: other kernels launched: {others}")
+    emit({"phase": "dlrm_train", "run": "kernels", "losses": losses, "gnorms": norms,
+          "step_seconds": times, "median_step_seconds": statistics.median(times),
+          "examples_per_s": batch / statistics.median(times), "peak_gib": peak,
+          "launches_per_step": {k: n // DLRM_TRAIN_STEPS for k, n in counts.items() if n}})
+    emit({"phase": "dlrm_train_profile", "arch": cfg.name, **prof})
+    losses_p, norms_p, times_p, peak_p, counts_p, _ = dlrm_train_run(cfg, batches, False)
+    check(not any(counts_p.values()), f"the plain DLRM steps launched kernels: {counts_p}")
+    bitwise = losses_p == losses and norms_p == norms
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses + norms, losses_p + norms_p))
+    emit({"phase": "dlrm_train", "run": "plain", "losses": losses_p, "gnorms": norms_p,
+          "step_seconds": times_p, "median_step_seconds": statistics.median(times_p),
+          "peak_gib": peak_p, "bitwise_equal_kernels": bitwise, "max_rel_diff": worst,
+          "limit": DLRM_TRAIN_LIMIT})
+    check(worst <= DLRM_TRAIN_LIMIT,
+          f"dlrm training: kernel and plain losses / norms differ by {worst} (relative)")
+
+    # the kernels at the first batch's lookups: the embedding bag over the
+    # stacked tables, and the tables' gradient summed into the touched rows
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    table = torch.randn((n_f * v, d), generator=gen, device="cuda").mul_(d ** -0.5)
+    idx = rows[0].to(torch.int32)
+    bag = torch.arange(batch * n_f, device="cuda", dtype=torch.int32)
+    nb = batch * n_f
+    got = embedding_bag_cuda(table, idx, bag, nb)
+    want = ref.embedding_bag_ref(table, idx, bag, nb)
+    check(torch.equal(got, want), "embedding_bag train_batch: kernel and plain differ")
+    i64 = idx.long()
+    lib = functools.partial(F.embedding_bag, i64, table, bag.long(), mode="sum")
+    rec = {"case": "train_batch", "v": n_f * v, "d": d, "n": idx.shape[0], "num_bags": nb,
+           "dtype": "float32", "equal": True, "max_abs_err": 0.0,
+           "max_abs_ref": float(want.abs().max()), "distinct_rows": touched[0],
+           "library_equal": torch.equal(lib(), want),
+           "ms": cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb)),
+           "ms_back_to_back": cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb), per=20),
+           "plain_ms": cuda_ms(lambda: ref.embedding_bag_ref(table, idx, bag, nb), reps=3),
+           "library_ms": cuda_ms(lib), "library_ms_back_to_back": cuda_ms(lib, per=20)}
+    # the distinct rows read once, the bags written once, the ids read once
+    n_bytes = (touched[0] + nb) * d * 4 + 8 * idx.shape[0]
+    rec["bytes"] = n_bytes
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, idx.shape[0] * d)
+    del got, want, table, lib, i64
+    free_device_memory()
+    # the tables' gradient: one bag-gradient row a lookup, summed by the
+    # lookup's row, compacted to the touched rows (ops._touched_sum)
+    uniq, compact = torch.unique(rows[0], sorted=True, return_inverse=True)
+    compact = compact.to(torch.int32)
+    grad_rows = torch.randn((compact.shape[0], d), generator=gen, device="cuda").mul_(1e-5)
+    seg = segment_sum_case("dlrm_table_grad", grad_rows, compact, uniq.shape[0],
+                           segment_plan(compact, uniq.shape[0]), True)
+    del uniq, compact, grad_rows, batches, rows
+    free_device_memory()
+    return counts, rec, seg
+
+
+def lm_train_value_and_norm(params, tok, lab, cfg, use_kernels: bool):
+    """One loss and gradient from the current state, without an update:
+    (loss, global norm, each leaf's norm), the gradient freed."""
+    from repro_torch.launch.steps import lm_value_and_grad
+
+    loss, grads = lm_value_and_grad(params, tok, lab, cfg, use_kernels=use_kernels)
+    leaf = {k: float(torch.linalg.vector_norm(g.float())) for k, g in grads.items()}
+    norm = math.sqrt(sum(x * x for x in leaf.values()))
+    del grads
+    free_device_memory()
+    return float(loss), norm, leaf
+
+
+def lm_train_phase():
+    """phi4-mini-3.8b training at full width at train_4k's sequence (the
+    batch cut to LM_TRAIN_BATCH): LM_TRAIN_STEPS in-place AdamW steps with
+    remat, a profiled step, then the loss and gradient of the next batch
+    with the kernels and with the plain versions from the same state.
+    Returns the steps' launches and the first batch's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import flat_params, lm_flops, lm_micro_batches, lm_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    spec = get_arch(LM_ARCH)
+    cfg = spec.config
+    shape = dataclasses.replace(spec.shape("train_4k"), global_batch=LM_TRAIN_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    n_micro = lm_micro_batches(cfg, b, s)
+    check(n_micro == 1, f"lm training: {n_micro} microbatches at batch {b}, expected 1")
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw_init(flat_params(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = token_batches(cfg.vocab, b, s, seed=0)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in next(stream))
+               for _ in range(LM_TRAIN_STEPS + 2)]
+    flops = lm_flops(cfg, shape)["model_flops"]
+    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_tc": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers, "segment_sum": 1}
+    emit({"phase": "lm_train_plan", "arch": cfg.name, "params": cfg.param_count(),
+          "batch": b, "seq": s, "global_batch_published": spec.shape("train_4k").global_batch,
+          "n_micro": n_micro, "remat": cfg.remat, "dtype": cfg.dtype, "lr": LM_TRAIN_LR,
+          "steps": LM_TRAIN_STEPS, "model_flops_per_step": flops,
+          "predicted_launches_per_step": per_step, "init_seconds": init_s,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, times = [], [], []
+    for tok, lab in batches[:LM_TRAIN_STEPS]:
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        params, opt, loss, gnorm = lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
+                                                 use_kernels=True, n_micro=1)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1) / 1e3)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"lm training: a loss or norm is not finite: {losses} {norms}")
+    for name, n in per_step.items():
+        check(counts[name] == n * LM_TRAIN_STEPS,
+              f"lm training: {name} launched {counts[name]} times, predicted "
+              f"{n * LM_TRAIN_STEPS}")
+    others = {k: n for k, n in counts.items() if k not in per_step and n}
+    check(not others, f"lm training: other kernels launched: {others}")
+    med = statistics.median(times)
+    emit({"phase": "lm_train", "run": "kernels", "losses": losses, "gnorms": norms,
+          "step_seconds": times, "median_step_seconds": med, "peak_gib": peak,
+          "model_tflop_per_s": flops / med / 1e12, "tokens_per_s": b * s / med,
+          "launches_per_step": {k: n // LM_TRAIN_STEPS for k, n in counts.items() if n}})
+
+    tok, lab = batches[LM_TRAIN_STEPS]
+    _, prof = profiled(lambda: lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
+                                             use_kernels=True, n_micro=1),
+                       kernels=("flash_attention_bwd", "flash_attention_tc", "segment_sum"))
+    emit({"phase": "lm_train_profile", "arch": cfg.name, **prof})
+
+    # the gate: the next batch's loss and gradient from the same state, with
+    # the kernels and with the plain versions (attention forward and backward,
+    # the embedding's segment sum)
+    tok, lab = batches[LM_TRAIN_STEPS + 1]
+    loss_k, norm_k, leaf_k = lm_train_value_and_norm(params, tok, lab, cfg, True)
+    loss_p, norm_p, leaf_p = lm_train_value_and_norm(params, tok, lab, cfg, False)
+    loss_ratio = abs(loss_k - loss_p) / abs(loss_p)
+    norm_ratio = abs(norm_k - norm_p) / norm_p
+    leaf_ratio = max(abs(leaf_k[k] - leaf_p[k]) / max(leaf_p[k], 1e-30) for k in leaf_p)
+    emit({"phase": "lm_train_equal", "limit": LM_TRAIN_LIMIT, "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_ratio": loss_ratio, "gnorm_kernels": norm_k,
+          "gnorm_plain": norm_p, "gnorm_ratio": norm_ratio,
+          "leaf_norm_max_ratio": leaf_ratio})
+    check(loss_ratio <= LM_TRAIN_LIMIT and norm_ratio <= LM_TRAIN_LIMIT,
+          f"lm training: kernel against plain loss {loss_ratio}, gnorm {norm_ratio} "
+          f"> {LM_TRAIN_LIMIT}")
+    first = batches[0][0]
+    del params, opt, batches, tok, lab
+    free_device_memory()
+    return counts, first
+
+
+def attention_bwd_work(b, hq, hkv, l, dh, elem):
+    """The backward's operations and bytes: five causal products of
+    2 * b * hq * (l * (l + 1) / 2) * dh FLOP (S, dP, dV, dQ, dK); q, k, v,
+    O and dO read once and dQ, dK, dV written once."""
+    pairs = l * (l + 1) // 2
+    flops = 5 * 2 * b * hq * pairs * dh
+    n_bytes = elem * dh * l * (3 * b * hq + 2 * b * hkv + 2 * b * hkv + b * hq)
+    return flops, n_bytes
+
+
+def flash_attention_bwd_phase(train_batch: int):
+    """The attention backward kernel against its plain version at the LM
+    training shape and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64
+    and 128; bf16 and float32), each element of dQ, dK and dV within
+    ``ref.flash_attention_bwd_limits``; timed beside the plain backward and
+    SDPA's forward and backward through autograd, and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_cuda,
+                                                         kernel_attributes)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"train": (train_batch, 24, 8, LM_TRAIN_SEQ, 128, (bf16,)),
+             "l1": (2, 6, 2, 1, 128, (f32, bf16)),
+             "l17_group3": (2, 6, 2, 17, 128, (f32, bf16)),
+             "l4095_group1": (1, 4, 4, 4095, 64, (f32, bf16)),
+             "group8_dh64": (1, 16, 2, 300, 64, (f32, bf16)),
+             "group3_dh128": (2, 24, 8, 1000, 128, (f32,))}
+    out = []
+    for name, (b, hq, hkv, l, dh, dtypes) in cases.items():
+        for dtype in dtypes:
+            q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                             for sh in ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dh),
+                                        (b, hq, l, dh)))
+            o = flash_attention_cuda(q, k, v, causal=True, q_offset=0)
+            got = flash_attention_bwd_cuda(q, k, v, o, dout)
+            again = flash_attention_bwd_cuda(q, k, v, o, dout)
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            want, limit = ref.flash_attention_bwd_limits(q, k, v, dout)
+            plain = ref.flash_attention_bwd_ref(q, k, v, dout)
+            worst = {n: float(((g.float() - w).abs() / lim).max())
+                     for n, g, w, lim in zip(("dq", "dk", "dv"), got, want, limit)}
+            err = max(float((g.float() - p.float()).abs().max()) for g, p in zip(got, plain))
+            tag = str(dtype).split(".")[-1]
+            check(all(x <= 1.0 for x in worst.values()),
+                  f"flash_attention_bwd {name} {tag}: |kernel - plain in float32| reaches "
+                  f"{worst} of its limit")
+            check(repeat, f"flash_attention_bwd {name} {tag}: two launches differ")
+            rec = {"case": name, "dtype": tag, "b": b, "hq": hq, "hkv": hkv, "l": l, "dh": dh,
+                   "max_abs_err": err,
+                   "max_abs_ref": max(float(w.abs().max()) for w in want),
+                   "max_err_over_limit": worst, "repeat_bitwise": repeat}
+            del want, limit, plain, got
+            flops, n_bytes = attention_bwd_work(b, hq, hkv, l, dh, q.element_size())
+            rec["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, dout),
+                                reps=5 if name == "train" else 10)
+            rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), reps=3)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def sdpa():
+                y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+                torch.autograd.grad(y, (qg, kg, vg), dout)
+
+            rec["library_ms"] = cuda_ms(sdpa)
+            rec["flops"], rec["bytes"] = flops, n_bytes
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                n_bytes, flops, PEAK_BF16_FLOPS if dtype == bf16 else PEAK_OPS_PER_S)
+            rec["tflop_per_s"] = flops / rec["ms"] / 1e9
+            out.append(rec)
+            del q, k, v, dout, o, qg, kg, vg
+    free_device_memory()
+    attrs = {f"{t}_dh{dh}": kernel_attributes(dt, dh)
+             for t, dt in (("bf16", bf16), ("f32", f32)) for dh in (64, 128)}
+    emit({"phase": "flash_kernels", "flash_attention_bwd": attrs})
+    # the training path's instantiation (bf16, Dh 128) keeps everything in registers
+    check(all(a["local_bytes"] == 0 for a in attrs["bf16_dh128"].values()),
+          f"flash_attention_bwd spills: {attrs['bf16_dh128']}")
+    return out
+
+
+def lm_embed_grad_case(tokens):
+    """``segment_sum`` at the LM embedding's gradient: a [B * S, d_model]
+    bf16 row a token, summed by token id, compacted to the tokens the batch
+    holds (ops._touched_sum)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment_sum import segment_plan
+
+    d = get_arch(LM_ARCH).config.d_model
+    uniq, compact = torch.unique(tokens.reshape(-1), sorted=True, return_inverse=True)
+    compact = compact.to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = torch.randn((compact.shape[0], d), generator=gen, device="cuda").to(torch.bfloat16)
+    return segment_sum_case("lm_embed_grad", rows, compact, uniq.shape[0],
+                            segment_plan(compact, uniq.shape[0]), True)
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4052,6 +4457,31 @@ def main() -> None:
     # 16. dlrm-rm2 serving; launches counted over the kernel serve
     launches["embedding_bag"] = dlrm_phase()["embedding_bag"]
 
+    # 17. dlrm-rm2 training; launches counted over the kernel run's steps
+    dlrm_train_counts, bag_case, table_case = dlrm_train_phase()
+    # 18. phi4-mini-3.8b training; launches counted over the training steps
+    lm_train_counts, train_tokens = lm_train_phase()
+    embed_case = lm_embed_grad_case(train_tokens)
+    del train_tokens
+    # 19. the attention backward against its plain version
+    checks["flash_attention_bwd"] = flash_attention_bwd_phase(LM_TRAIN_BATCH)
+    checks["embedding_bag"].append(bag_case)
+    checks["segment_sum"] += [table_case, embed_case]
+    emit({"phase": "kernel_check", "flash_attention_bwd": checks["flash_attention_bwd"],
+          "embedding_bag": [bag_case], "segment_sum": [table_case, embed_case]})
+    segment_paths.update(dlrm_train=dlrm_train_counts["segment_sum"],
+                         lm_train=lm_train_counts["segment_sum"])
+    attention_paths["flash_attention"]["lm_train"] = lm_train_counts["flash_attention_tc"]
+    attention_paths["flash_decode"]["lm_train"] = lm_train_counts["flash_decode"]
+    attention_paths["flash_attention_simt"]["lm_train"] = (
+        lm_train_counts["flash_attention"] - lm_train_counts["flash_attention_tc"])
+    attention_paths["flash_attention_bwd"] = {"lm_train": lm_train_counts["flash_attention_bwd"]}
+    for name, paths in attention_paths.items():
+        launches[name] = sum(paths.values())
+    bag_paths = {"dlrm_serve": launches["embedding_bag"],
+                 "dlrm_train": dlrm_train_counts["embedding_bag"]}
+    launches["embedding_bag"] = sum(bag_paths.values())
+
     # summary lines
     line = nvidia_smi()
     name, _, power = line.rpartition(",")
@@ -4071,7 +4501,9 @@ def main() -> None:
                                         "src/repro/kernels/flash_attention.py:84",
                                         "mla_minicpm3_prefill"),
                "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
-                                 "src/repro/kernels/embedding_bag.py:41", "serve_bulk")}
+                                 "src/repro/kernels/embedding_bag.py:41", "serve_bulk"),
+               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                       "src/repro/kernels/flash_attention.py:84", "train")}
     kernels = []
     for name, (src, replaces, case) in sources.items():
         rec = next(r for r in checks[name] if r["case"] == case)
@@ -4091,9 +4523,11 @@ def main() -> None:
         elif name == "segment_sum":
             entry["launches_by_path"] = segment_paths
         elif name in attention_paths:
-            # the serving paths (counts set to 0 just before each kernel
-            # serve and read just after); launches is their sum
+            # the serving paths and the LM training steps (counts set to 0
+            # just before each and read just after); launches is their sum
             entry["launches_by_path"] = attention_paths[name]
+        elif name == "embedding_bag":
+            entry["launches_by_path"] = bag_paths
         kernels.append(entry)
     emit({"kernels": kernels})
     # the contract's last line, exactly (no t_s)

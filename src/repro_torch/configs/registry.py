@@ -5,8 +5,8 @@ Copy of ``ShapeSpec``, ``ArchSpec``, ``get_arch``, ``LM_SHAPES``,
 restricted to the architectures the port runs: gatedgcn, graphsage-reddit,
 meshgraphnet and equiformer-v2 (GNN full-graph inference and training), the five LMs
 phi4-mini-3.8b, minicpm3-4b, deepseek-v2-lite-16b, granite-moe-3b-a800m and command-r-35b
-(serving on one device) and dlrm-rm2 (recsys serving; ``RECSYS_SHAPES`` leaves out the JAX
-registry's ``train_batch``, since the port does not train DLRM).
+(serving on one device; the dense-GQA ones, phi4-mini-3.8b and command-r-35b, also training
+on one device) and dlrm-rm2 (recsys serving and training).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ __all__ = ["ShapeSpec", "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", 
 class ShapeSpec:
     name: str
     kind: str  # train | prefill | decode | full_graph | minibatch | batched_graphs
-    #            | recsys_serve | retrieval
+    #            | recsys_train | recsys_serve | retrieval
     seq_len: int = 0
     global_batch: int = 0
     n_nodes: int = 0
@@ -98,6 +98,7 @@ GNN_SHAPES = (
 )
 
 RECSYS_SHAPES = (
+    ShapeSpec(name="train_batch", kind="recsys_train", batch=65536),
     ShapeSpec(name="serve_p99", kind="recsys_serve", batch=512),
     ShapeSpec(name="serve_bulk", kind="recsys_serve", batch=262144),
     ShapeSpec(name="retrieval_cand", kind="retrieval", batch=1, n_candidates=1_000_000),

@@ -1,6 +1,7 @@
-"""Host-side NP-storage management of the port: rebalancing away from slow
-partitions and elastic repartitioning, copies from ``repro/dist/straggler.py``
-and ``repro/dist/elastic.py`` on the port's :mod:`repro_torch.core.storage`.
+"""Host-side NP-storage management of the port: straggler detection,
+rebalancing away from slow partitions and elastic repartitioning, copies
+from ``repro/dist/straggler.py`` and ``repro/dist/elastic.py`` on the
+port's :mod:`repro_torch.core.storage`.
 
 The JAX package's ``repro/dist`` also holds the device engine and its
 ``shard_map`` steps; their twins are :mod:`repro_torch.engine`,
@@ -8,6 +9,6 @@ The JAX package's ``repro/dist`` also holds the device engine and its
 """
 
 from .elastic import repartition_delta, repartition_storage
-from .straggler import apply_rebalance, rebalance_plan
+from .straggler import StragglerMonitor, apply_rebalance, rebalance_plan
 
-__all__ = ["rebalance_plan", "apply_rebalance", "repartition_delta", "repartition_storage"]
+__all__ = ["StragglerMonitor", "rebalance_plan", "apply_rebalance", "repartition_delta", "repartition_storage"]

@@ -52,6 +52,11 @@ _SIGNATURES = {
     # rows, splits, kps, stream
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _I, _I, _P),
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, is_bf16, b, hq, hkv, l, dh, scale, stream
+    "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, ctypes.c_float, _P),
+    # is_bf16, dh, which kernel, out[4]
+    "flash_attention_bwd_attributes": (_I, _I, _I, _P),
     # (is_bf16,) dh, (rows,) out[4]
     "flash_attention_attributes": (_I, _I, _P),
     "flash_attention_tc_attributes": (_I, _P),

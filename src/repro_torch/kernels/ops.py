@@ -4,9 +4,11 @@ The path follows the tensor's device: a CUDA tensor with
 ``use_kernels=True`` launches the hand-written kernel; ``use_kernels=False``
 runs the plain version (on either device); ``use_kernels=True`` on a CPU
 tensor raises. A failed build or launch raises — nothing falls back.
-:func:`segment_sum` and :func:`gather_rows` are differentiable; the
-gather's backward is a segment sum, so on the card it launches the kernel
-too.
+:func:`segment_sum`, :func:`gather_rows`, :func:`embedding_bag` and
+:func:`flash_attention` are differentiable. The gather's and the
+embedding bag's backward are segment sums into the rows the ids touch,
+so on the card they launch the ``segment_sum`` kernel; the attention's
+backward launches its own kernel, ``flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from . import ref
 from .ref import ACC_DTYPE
 from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
+from .flash_attention_bwd import flash_attention_bwd_cuda
 from .member_probe import member_probe_cuda
 from .segment_sum import SegmentPlan, segment_plan, segment_sum_cuda
 from .set_intersect import set_intersect_cuda
@@ -36,7 +39,8 @@ _COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
              "embedding_bag": (embedding_bag_cuda, "launches"),
              "flash_attention": (flash_attention_cuda, "launches"),
              "flash_attention_tc": (flash_attention_cuda, "tc_launches"),
-             "flash_decode": (flash_attention_cuda, "decode_launches")}
+             "flash_decode": (flash_attention_cuda, "decode_launches"),
+             "flash_attention_bwd": (flash_attention_bwd_cuda, "launches")}
 
 
 def _use_kernel(t: torch.Tensor, use_kernels: bool, name: str) -> bool:
@@ -144,8 +148,10 @@ def gather_rows(h: torch.Tensor, idx: torch.Tensor, *, use_kernels: bool,
     atomics in ``h``'s type. ``plan`` is the segment plan of the ids that
     sum: those of ``idx``, or of ``idx`` with the rows whose gradient is
     known to be zero set to ``len(h)``, which drops them; without one the
-    backward builds the plan of ``idx``. ``use_kernels=True`` on a CPU
-    tensor raises here too, as in the backward.
+    backward sums into the rows ``idx`` touches only (:func:`_touched_sum`),
+    as the LM embedding's 8,192 tokens into its 200,064 rows.
+    ``use_kernels=True`` on a CPU tensor raises here too, as in the
+    backward.
     """
     _use_kernel(h, use_kernels, "gather_rows")
     if plan is not None:
@@ -168,8 +174,32 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         rows = grad.reshape(grad.shape[0], -1)
-        out = segment_sum(rows, idx, ctx.n, use_kernels=ctx.use_kernels, plan=ctx.plan)
+        if ctx.plan is not None:
+            out = segment_sum(rows, idx, ctx.n, use_kernels=ctx.use_kernels, plan=ctx.plan)
+        else:
+            out = _touched_sum(rows, idx, ctx.n, ctx.use_kernels)
         return out.reshape((ctx.n,) + tuple(grad.shape[1:])), None, None, None
+
+
+def _touched_sum(rows: torch.Tensor, ids: torch.Tensor, n: int,
+                 use_kernels: bool) -> torch.Tensor:
+    """``segment_sum(rows, ids, n)`` in ``rows``' type, summed only into the
+    rows the ids touch: the ids in ``[0, n)`` are made 0 … u - 1 over their
+    u distinct values (``torch.unique``, sorted), summed into a float64
+    ``[u, D]`` through :func:`segment_sum` (the kernel on the card), rounded
+    once and written into a zero ``[n, D]``. Each touched row's float64 sum
+    has the same terms in the same order as the dense sum's, so the result
+    is the same; the accumulator is u rows instead of n (a table gradient
+    touches a few of its rows)."""
+    out = rows.new_zeros((n, rows.shape[1]))
+    keep = (ids >= 0) & (ids < n)
+    if not bool(keep.all()):
+        rows, ids = rows[keep], ids[keep]
+    if ids.shape[0] == 0:
+        return out
+    uniq, compact = torch.unique(ids, sorted=True, return_inverse=True)
+    sums = segment_sum(rows, compact.to(torch.int32), uniq.shape[0], use_kernels=use_kernels)
+    return out.index_copy_(0, uniq.long(), sums)
 
 
 def sort_by_bag(indices: torch.Tensor,
@@ -186,11 +216,45 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, bag_ids: torch.Ten
     table's type: bags with no rows are zero, bag ids outside
     ``[0, num_bags)`` are dropped, a row index outside ``[0, V)`` makes its
     bag NaN. ``indices`` and ``bag_ids`` are int32 in any order; the kernel
-    path sorts them by bag first, as the JAX wrapper does."""
+    path sorts them by bag first, as the JAX wrapper does.
+
+    With grad mode on and ``table`` requiring grad it is differentiable
+    (:class:`_EmbeddingBag`): the table's gradient is each lookup's bag
+    gradient summed into its row, over the rows the lookups touch
+    (:func:`_touched_sum`: the ``segment_sum`` kernel on the card, float64,
+    rounded once); lookups of a dropped bag or an out-of-range row add
+    nothing, as JAX's gather transposes them."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBag.apply(table, indices, bag_ids, num_bags, use_kernels)
+    return _embedding_bag(table, indices, bag_ids, num_bags, use_kernels)
+
+
+def _embedding_bag(table, indices, bag_ids, num_bags, use_kernels) -> torch.Tensor:
     if not _use_kernel(table, use_kernels, "embedding_bag"):
         return ref.embedding_bag_ref(table, indices, bag_ids, num_bags)
     idx, bags = sort_by_bag(indices, bag_ids)
     return embedding_bag_cuda(table.contiguous(), idx, bags, num_bags)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """:func:`embedding_bag` as a function of the table."""
+
+    @staticmethod
+    def forward(ctx, table, indices, bag_ids, num_bags, use_kernels):
+        ctx.save_for_backward(indices, bag_ids)
+        ctx.shape, ctx.num_bags, ctx.use_kernels = table.shape, num_bags, use_kernels
+        return _embedding_bag(table, indices, bag_ids, num_bags, use_kernels)
+
+    @staticmethod
+    def backward(ctx, grad):
+        indices, bag_ids = ctx.saved_tensors
+        _use_kernel(grad, ctx.use_kernels, "embedding_bag")
+        v = ctx.shape[0]
+        keep = (bag_ids >= 0) & (bag_ids < ctx.num_bags) & (indices >= 0) & (indices < v)
+        if not bool(keep.all()):
+            indices, bag_ids = indices[keep], bag_ids[keep]
+        rows = grad.index_select(0, bag_ids)
+        return _touched_sum(rows, indices, v, ctx.use_kernels), None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -198,11 +262,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """Grouped-query attention of ``q [B, Hq, Lq, Dh]`` over ``k, v
     [B, Hkv, Lk, Dh]``: query ``i`` sees keys ``j ≤ i + q_offset`` when
     ``causal``. The kernel keeps the TPU kernel's contracts and raises on
-    them; the plain version, like the JAX reference, does not."""
+    them; the plain version, like the JAX reference, does not.
+
+    With grad mode on and any input requiring grad it is differentiable
+    (:class:`_FlashAttention`): on the card the backward is the
+    ``flash_attention_bwd`` kernel (causal, offset 0, ``Lq = Lk``, Dh 64 or
+    128; it raises on anything else), with ``use_kernels=False`` the plain
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, use_kernels)
+    return _flash_attention(q, k, v, causal, q_offset, use_kernels)
+
+
+def _flash_attention(q, k, v, causal, q_offset, use_kernels) -> torch.Tensor:
     if _use_kernel(q, use_kernels, "flash_attention"):
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` as a function of q, k and v. The kernel
+    route saves the output, whose ``rowsum(dO ∘ O)`` the backward kernel
+    reads; the plain backward recomputes everything from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, use_kernels):
+        out = _flash_attention(q, k, v, causal, q_offset, use_kernels)
+        ctx.causal, ctx.q_offset, ctx.use_kernels = causal, q_offset, use_kernels
+        ctx.save_for_backward(q, k, v, out if use_kernels else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if _use_kernel(dout, ctx.use_kernels, "flash_attention"):
+            if not ctx.causal or ctx.q_offset != 0:
+                raise NotImplementedError("flash_attention_bwd: the kernel takes causal "
+                                          "attention at offset 0 only")
+            grads = flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             out, dout.contiguous())
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, dout, causal=ctx.causal,
+                                                q_offset=ctx.q_offset)
+        return (*grads, None, None, None)
 
 
 def launch_counts() -> Dict[str, int]:

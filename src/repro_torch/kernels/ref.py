@@ -15,8 +15,8 @@ __all__ = ["set_intersect_ref", "set_intersect_layout_ref", "set_intersect_searc
            "member_probe_ref", "probe_key", "member_probe_two_level_ref",
            "segment_sum_ref", "segment_sum_plan_ref",
            "embedding_bag_ref",
-           "flash_attention_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
-           "merge_split_k", "ACC_DTYPE"]
+           "flash_attention_ref", "flash_attention_bwd_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
+           "merge_split_k", "flash_attention_bwd_limits", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -362,6 +362,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``, the gradient of :func:`flash_attention_ref` at
+    ``q, k, v`` given ``dout``, the output's gradient, each in its input's
+    type.
+
+    The plain version of ``csrc/flash_attention_bwd.cu``, written as
+    autograd differentiates the forward: in float32, a query slice of
+    ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time (as JAX recomputes each
+    query chunk's softmax in its backward), the scores and ``P`` are
+    recomputed, ``dV += Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘ (dP −
+    rowsum(P ∘ dP))`` divided by ``√Dh``, ``dQ = dS K`` and ``dK += dSᵀ Q``;
+    ``dK`` and ``dV`` sum over each KV head's query heads.
+    """
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kf, vf = k.float(), v.float()
+    root = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=q.device))
+    qg = q.reshape(b, hkv, group, lq, dh)
+    dg = dout.reshape(b, hkv, group, lq, dh)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
+    step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
+    for s in range(0, lq, step):
+        rows = min(step, lq - s)
+        qs = qg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
+        ds = dg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
+        logits = (torch.matmul(qs, kf.transpose(-1, -2)) / root).view(b, hkv, group, rows, lk)
+        if causal:
+            qpos = torch.arange(s, s + rows, device=q.device)[:, None] + q_offset
+            kpos = torch.arange(lk, device=q.device)[None, :]
+            logits.masked_fill_(kpos > qpos, -math.inf)
+        p = torch.softmax(logits, dim=-1).view(b, hkv, group * rows, lk)
+        dv += torch.matmul(p.transpose(-1, -2), ds)
+        dp = torch.matmul(ds, vf.transpose(-1, -2))
+        dsc = p * (dp - (p * dp).sum(-1, keepdim=True)) / root
+        del p, dp
+        dq[:, :, s:s + rows] = torch.matmul(dsc, kf).view(b, hq, rows, dh).to(q.dtype)
+        dk += torch.matmul(dsc.transpose(-1, -2), qs)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Mirrors of the attention kernels' algebra (for the tests only): the
 # tensor-core kernel's split of P and the decode kernel's split-K merge.
@@ -466,3 +511,66 @@ def merge_split_k(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, shape,
     out = (acc * w[..., None]).sum(-2)
     out = torch.where(lsum[..., None] > 0, out / lsum[..., None], 0.0)
     return out.reshape(shape).to(dtype)
+
+
+def flash_attention_bwd_limits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               dout: torch.Tensor):
+    """The plain backward (causal, offset 0) on the inputs in float32, and
+    the limit each element of the backward kernel's ``(dq, dk, dv)`` is
+    held to: ``(want, limit)``, each a tuple of three float32 tensors.
+
+    Each gradient is a float32 sum of products; its rounding errors are
+    bounded by a few float32 roundings of the same sum over absolute values
+    (``M``): ``Pᵀ|dO|`` for dV, and for dQ and dK the sums of ``|dS|``'s
+    bound ``P ∘ (|dO||V|ᵀ + Dmag) / √Dh`` times ``|K|`` and ``|Q|``, where
+    ``Dmag = rowsum(|dO| ∘ P|V|)`` bounds ``D``. The kernel reads D from
+    the forward's output, itself within the forward's limit, and recomputes
+    P and dP before its products: the float32 limit is ``2e-5 · M``, the
+    forward's 1e-5 twice. In bfloat16 the output O it reads was rounded (off
+    by up to ``2⁻⁸ |O| ≤ 2⁻⁸ P|V|``), which moves D by up to ``(2⁻⁸ + 2e-5)
+    · Dmag`` and dQ, dK by that through ``P ∘ Dmag / √Dh`` (``MD``); and each
+    gradient is one rounding of such a float32 value, off by at most ``2⁻⁸``
+    of its size: ``2⁻⁸ |want| + (1 + 2⁻⁸)(2e-5 · M + (2⁻⁸ + 2e-5) · MD)``.
+    Computed a query slice at a time, as :func:`flash_attention_bwd_ref`.
+    """
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float())
+    b, hq, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kf, vf = k.float(), v.float()
+    ka, va = kf.abs(), vf.abs()
+    root = math.sqrt(dh)
+    mq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    mdq = torch.empty_like(mq)
+    mk, mdk, mv = (torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
+                   for _ in range(3))
+    qg, dg = q.reshape(b, hkv, group, lq, dh), dout.reshape(b, hkv, group, lq, dh)
+    step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
+    for s in range(0, lq, step):
+        rows = min(step, lq - s)
+        qs = qg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
+        da = dg[:, :, :, s:s + rows].float().abs().reshape(b, hkv, group * rows, dh)
+        logits = (torch.matmul(qs, kf.transpose(-1, -2)) / root).view(b, hkv, group, rows, lk)
+        qpos = torch.arange(s, s + rows, device=q.device)[:, None]
+        logits.masked_fill_(torch.arange(lk, device=q.device)[None, :] > qpos, -math.inf)
+        p = torch.softmax(logits, dim=-1).view(b, hkv, group * rows, lk)
+        mv += torch.matmul(p.transpose(-1, -2), da)
+        dmag = (da * torch.matmul(p, va)).sum(-1, keepdim=True)
+        pd = p * dmag / root                                      # P ∘ Dmag / √Dh
+        ms = p * torch.matmul(da, va.transpose(-1, -2)) / root + pd
+        del p
+        mq[:, :, s:s + rows] = torch.matmul(ms, ka).view(b, hq, rows, dh)
+        mdq[:, :, s:s + rows] = torch.matmul(pd, ka).view(b, hq, rows, dh)
+        qa = qs.abs()
+        mk += torch.matmul(ms.transpose(-1, -2), qa)
+        mdk += torch.matmul(pd.transpose(-1, -2), qa)
+        del ms, pd
+    limits = []
+    for w, m, md in zip(want, (mq, mk, mv), (mdq, mdk, None)):
+        lim = 2e-5 * m
+        if q.dtype == torch.bfloat16:
+            if md is not None:
+                lim += (2.0**-8 + 2e-5) * md
+            lim = 2.0**-8 * w.float().abs() + (1 + 2.0**-8) * lim
+        limits.append(lim)
+    return tuple(w.float() for w in want), tuple(limits)

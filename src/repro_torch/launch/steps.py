@@ -1,11 +1,15 @@
-"""DLRM serving steps, their FLOP count and their requests; the GNN
-training step, its loss, node and edge counts and FLOP count.
+"""The training steps of DLRM, the LMs and the GNNs, the DLRM serving
+steps, their FLOP counts and their inputs.
 
-Twins of the ``recsys_serve`` and ``retrieval`` branches of
-``repro/launch/steps.py`` (``_dlrm_cell``) and of its ``_dlrm_flops`` for
-serving; of the ``step`` of ``_gnn_cell`` (its masked loss, its gradient,
-one AdamW update), of ``_gnn_counts`` on one device and of
-``_gnn_flops``. DLRM training and the LM cells are not ported.
+Twins of ``repro/launch/steps.py``'s cells on one device: the
+``recsys_train``, ``recsys_serve`` and ``retrieval`` branches of
+``_dlrm_cell`` and ``_dlrm_flops``; the train branch of ``_lm_cell`` (its
+microbatch count and float32 gradient accumulation, dense GQA layers) and
+``_lm_flops``; the ``step`` of ``_gnn_cell``, ``_gnn_counts`` and
+``_gnn_flops``. Each step's loss and gradient are JAX's; the DLRM and LM
+steps then run :func:`~repro_torch.optim.adamw_update_`, in place (their
+parameters and moments fill most of the card), the GNN step the functional
+``adamw_update``.
 """
 
 from __future__ import annotations
@@ -17,10 +21,14 @@ import torch
 
 from ..configs.registry import ShapeSpec
 from ..models import dlrm, gnn
-from ..optim import AdamWState, adamw_update
+from ..models import transformer as tf
+from ..models.common import cross_entropy
+from ..optim import AdamWState, adamw_update, adamw_update_
 
-__all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "gnn_flops", "gnn_counts",
-           "gnn_loss", "gnn_value_and_grad", "gnn_train_step", "recsys_requests",
+__all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "dlrm_loss",
+           "dlrm_value_and_grad", "dlrm_train_step", "lm_flops", "lm_micro_batches",
+           "lm_loss", "lm_value_and_grad", "lm_train_step", "flat_params", "gnn_flops",
+           "gnn_counts", "gnn_loss", "gnn_value_and_grad", "gnn_train_step", "recsys_requests",
            "retrieval_candidates"]
 
 
@@ -37,18 +45,202 @@ def dlrm_retrieval_step(params, dense, sparse, candidates, cfg: dlrm.DLRMConfig,
                                  use_kernels=use_kernels)
 
 
-def dlrm_flops(cfg: dlrm.DLRMConfig, batch: int) -> Dict[str, float]:
-    """Model FLOP of serving ``batch`` examples (the two MLPs and the dot
-    interaction, 2 FLOP a multiply-add; copy of ``_dlrm_flops`` with
-    ``train=False``), and the table parameters."""
+def dlrm_flops(cfg: dlrm.DLRMConfig, batch: int, train: bool = False) -> Dict[str, float]:
+    """Model FLOP of serving ``batch`` examples, or with ``train`` of one
+    training step on them, three times that (the two MLPs and the dot
+    interaction, 2 FLOP a multiply-add; copy of ``_dlrm_flops``), and the
+    table parameters."""
     dims_b = (cfg.n_dense,) + cfg.bot_mlp
     dims_t = (cfg.n_interact + cfg.bot_mlp[-1],) + cfg.top_mlp
     mlp = sum(2 * a * b for a, b in zip(dims_b, dims_b[1:]))
     mlp += sum(2 * a * b for a, b in zip(dims_t, dims_t[1:]))
     inter = 2 * (cfg.n_sparse + 1) ** 2 * cfg.embed_dim
     params = cfg.n_sparse * cfg.rows_per_table * cfg.embed_dim
-    return {"model_flops": float(batch * (mlp + inter)), "params": float(params),
-            "active_params": float(params)}
+    return {"model_flops": float(batch * (mlp + inter) * (3.0 if train else 1.0)),
+            "params": float(params), "active_params": float(params)}
+
+
+def dlrm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``_dlrm_cell``'s stable binary cross-entropy on float32 logits:
+    ``mean(max(z, 0) - z·y + log1p(exp(-|z|)))``."""
+    z = logits.float()
+    return torch.mean(torch.clamp_min(z, 0) - z * labels + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def dlrm_value_and_grad(params, dense, sparse, labels, cfg: dlrm.DLRMConfig, *,
+                        use_kernels: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and its gradient by parameter name, as ``jax.value_and_grad``
+    of ``_dlrm_cell``'s loss gives them. The leaves share the parameters'
+    storage; the tables' gradient is dense (``[F, V, D]``, zero in the rows
+    no lookup touched)."""
+    names = sorted(params)
+    leaves = [params[k].detach().requires_grad_() for k in names]
+    with torch.enable_grad():
+        logits = dlrm.train_forward(dict(zip(names, leaves)), dense, sparse, cfg,
+                                    use_kernels=use_kernels)
+        loss = dlrm_loss(logits, labels)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def dlrm_train_step(params, opt: AdamWState, dense, sparse, labels, cfg: dlrm.DLRMConfig, *,
+                    lr=1e-3, use_kernels: bool):
+    """One training step (the ``step`` of ``_dlrm_cell``'s ``recsys_train``
+    branch): the loss's gradient, then AdamW at ``lr`` **in place**
+    (:func:`~repro_torch.optim.adamw_update_`): ``params`` and ``opt`` are
+    overwritten and returned. Returns ``(params, opt, loss, gnorm)``."""
+    loss, grads = dlrm_value_and_grad(params, dense, sparse, labels, cfg,
+                                      use_kernels=use_kernels)
+    gnorm = adamw_update_(params, grads, opt, lr)
+    return params, opt, loss, gnorm
+
+
+# ---------------------------------------------------------------------------
+# LM training (dense GQA layers, one device)
+# ---------------------------------------------------------------------------
+
+def lm_flops(cfg: tf.TransformerConfig, shape: ShapeSpec) -> Dict[str, float]:
+    """Model FLOP of one cell of ``shape`` (copy of ``_lm_flops``): a
+    training step's ``6 · active params · tokens``; a prefill's ``2 · active
+    params · tokens`` plus its causal attention; a decode step's weights
+    and its attention over the cache. With the total and active parameter
+    counts."""
+    n_active, n_total = cfg.active_param_count(), cfg.param_count()
+    if shape.kind == "train":
+        useful = 6.0 * n_active * shape.seq_len * shape.global_batch
+    elif shape.kind == "prefill":
+        tokens = shape.seq_len * shape.global_batch
+        attn = (2.0 * shape.global_batch * cfg.n_layers * cfg.n_heads * shape.seq_len ** 2
+                * (cfg.d_head + (cfg.v_head or cfg.d_head)) / 2)
+        useful = 2.0 * n_active * tokens + attn
+    else:  # decode: one token against a seq_len cache
+        b = shape.global_batch
+        if cfg.attn == "mla":
+            attn = (2.0 * b * cfg.n_layers * cfg.n_heads * shape.seq_len
+                    * (cfg.qk_nope + cfg.qk_rope + cfg.v_head))
+        else:
+            attn = 2.0 * b * cfg.n_layers * cfg.n_heads * shape.seq_len * 2 * cfg.d_head
+        useful = 2.0 * n_active * b + attn
+    return {"model_flops": useful, "params": float(n_total), "active_params": float(n_active)}
+
+
+def lm_micro_batches(cfg: tf.TransformerConfig, batch: int, seq: int, devices: int = 1) -> int:
+    """``_lm_cell``'s microbatch count: double it while each keeps at least
+    one example a device and a device's microbatch exceeds the examples
+    whose saved layer inputs (``2 · L · S · D`` bytes each) fit 2e9 bytes
+    (5e8 with MoE)."""
+    stack_per_example = 2 * cfg.n_layers * seq * cfg.d_model
+    target = 5e8 if cfg.moe else 2e9
+    micro_bs = max(1, int(target // max(stack_per_example, 1)))
+    n_micro = 1
+    while batch // (n_micro * 2) >= devices and batch // (devices * n_micro) > micro_bs:
+        n_micro *= 2
+    return n_micro
+
+
+def flat_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The leaves of a nested parameter dict by ``/``-joined path (the same
+    tensors, no copies): the flat dict :mod:`repro_torch.optim` takes, in
+    the sorted order JAX flattens the nested dict in."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_params(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def lm_loss(params, tokens, labels, cfg: tf.TransformerConfig, *,
+            use_kernels: bool) -> torch.Tensor:
+    """``_lm_cell``'s loss: the float32 mean token NLL of the training
+    forward's logits."""
+    return cross_entropy(tf.train_forward(params, tokens, cfg, use_kernels=use_kernels), labels)
+
+
+def _lm_grads(params, tokens, labels, cfg, use_kernels):
+    """One loss and its gradient by flat parameter name. Each layer of a
+    stacked group is its own leaf, a view of the stacked tensor; as each
+    layer's gradient arrives it is copied into that layer's slice of the
+    stacked gradient (allocated at the first) and freed, so no ``[L, …]``
+    gradient is made once a layer, and none is held while the head's
+    backward runs."""
+    leaves, grads, model = [], {}, {}
+
+    def into_slice(key, stacked, i):
+        def hook(leaf):
+            if key not in grads:
+                grads[key] = torch.zeros_like(stacked)
+            grads[key][i].copy_(leaf.grad)
+            leaf.grad = None
+        return hook
+
+    for key, val in params.items():
+        if isinstance(val, dict):
+            layers = [{} for _ in range(next(iter(val.values())).shape[0])]
+            for name, t in val.items():
+                for i, layer in enumerate(layers):
+                    layer[name] = leaf = t[i].detach().requires_grad_()
+                    leaf.register_post_accumulate_grad_hook(into_slice(f"{key}/{name}", t, i))
+                    leaves.append(leaf)
+            model[key] = layers
+        else:
+            model[key] = leaf = val.detach().requires_grad_()
+            leaves.append(leaf)
+    with torch.enable_grad():
+        loss = lm_loss(model, tokens, labels, cfg, use_kernels=use_kernels)
+        torch.autograd.backward(loss, inputs=leaves)
+    for key, val in params.items():
+        if isinstance(val, dict):
+            for name, t in val.items():
+                grads.setdefault(f"{key}/{name}", torch.zeros_like(t))
+        else:
+            grad = model[key].grad
+            grads[key] = grad if grad is not None else torch.zeros_like(val)
+    return loss.detach(), {k: grads[k] for k in sorted(grads)}
+
+
+def lm_value_and_grad(params, tokens, labels, cfg: tf.TransformerConfig, *, use_kernels: bool,
+                      n_micro: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and its gradient by flat parameter name
+    (:func:`flat_params`' keys), as ``_lm_cell``'s step takes them: with
+    ``n_micro > 1`` the batch is cut into ``n_micro`` microbatches, their
+    gradients summed in float32, divided by ``n_micro`` and cast to each
+    parameter's type, the loss their mean."""
+    if n_micro == 1:
+        return _lm_grads(params, tokens, labels, cfg, use_kernels)
+    b = tokens.shape[0]
+    if b % n_micro:
+        raise ValueError(f"lm_value_and_grad: batch {b} is not a multiple of {n_micro}")
+    flat = flat_params(params)
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in flat.items()}
+    losses = []
+    for t, lab in zip(tokens.chunk(n_micro), labels.chunk(n_micro)):
+        loss, g = _lm_grads(params, t, lab, cfg, use_kernels)
+        losses.append(loss)
+        for k in acc:
+            acc[k] += g[k].float()
+        del g
+    grads = {k: (a / n_micro).to(flat[k].dtype) for k, a in acc.items()}
+    return torch.stack(losses).mean(), grads
+
+
+def lm_train_step(params, opt: AdamWState, tokens, labels, cfg: tf.TransformerConfig, *,
+                  lr=3e-4, use_kernels: bool, n_micro: int | None = None):
+    """One training step (the train branch of ``_lm_cell`` on one device):
+    the loss's gradient over ``n_micro`` microbatches (default
+    :func:`lm_micro_batches`), then AdamW at ``lr`` **in place** on the flat
+    view of ``params`` (``opt`` keyed by :func:`flat_params`' names).
+    Returns ``(params, opt, loss, gnorm)``, the first two the same objects,
+    overwritten."""
+    if n_micro is None:
+        n_micro = lm_micro_batches(cfg, tokens.shape[0], tokens.shape[1])
+    loss, grads = lm_value_and_grad(params, tokens, labels, cfg, use_kernels=use_kernels,
+                                    n_micro=n_micro)
+    gnorm = adamw_update_(flat_params(params), grads, opt, lr)
+    return params, opt, loss, gnorm
 
 
 def gnn_flops(cfg: gnn.GNNConfig, nodes: int, edges: int, train: bool = False) -> Dict[str, float]:

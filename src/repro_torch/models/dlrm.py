@@ -1,17 +1,20 @@
-"""DLRM-RM2 serving [arXiv:1906.00091]: embedding bags → dot interaction → MLPs.
+"""DLRM-RM2 [arXiv:1906.00091]: embedding bags → dot interaction → MLPs.
 
-Single-device port of ``repro/models/dlrm.py`` (``forward`` and
-``retrieval_scores``; training and ``param_specs`` are not ported). The 26
-sparse tables are stacked ``[n_sparse, rows, dim]``; every lookup of a
-forward is one :func:`repro_torch.kernels.ops.embedding_bag` call over the
-stack viewed as one ``[n_sparse · rows, dim]`` table, with bag ``b · F + f``
-for field ``f`` of example ``b``. That is the function the JAX forward
-computes with ``take_along_axis`` and a sum. The dense products are
-``torch.matmul`` / ``torch.bmm``, as the JAX package leaves them to XLA.
+Single-device port of ``repro/models/dlrm.py``: ``forward`` and
+``retrieval_scores`` for serving, ``train_forward`` for training
+(``param_specs`` waits for a mesh). The 26 sparse tables are stacked
+``[n_sparse, rows, dim]``; every lookup of a forward is one
+:func:`repro_torch.kernels.ops.embedding_bag` call over the stack viewed as
+one ``[n_sparse · rows, dim]`` table, with bag ``b · F + f`` for field
+``f`` of example ``b``. That is the function the JAX forward computes with
+``take_along_axis`` and a sum. In training the call is differentiable: the
+tables' gradient is a segment sum of the bags' gradients into the rows the
+batch touches (the ``segment_sum`` kernel on the card). The dense products
+are ``torch.matmul`` / ``torch.bmm``, as the JAX package leaves them to XLA.
 Parameters are a flat dict keyed by the JAX names (``tables``, ``bot_w0``,
 …), so the JAX parameters carry across unchanged
-(``convert.dlrm_params_from_numpy``). Every entry point runs under
-``torch.inference_mode()``.
+(``convert.dlrm_params_from_numpy``). The serving entry points run under
+``torch.inference_mode()``; ``train_forward`` is the same body with grad.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["DLRMConfig", "param_shapes", "init_params", "forward", "retrieval_scores"]
+__all__ = ["DLRMConfig", "param_shapes", "init_params", "forward", "train_forward",
+           "retrieval_scores"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,16 +129,28 @@ def _interact(bot: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
     return torch.cat([bot, inter[:, iu, ju]], dim=-1)
 
 
+def _forward(params, dense, sparse_ids, c: DLRMConfig, use_kernels: bool) -> torch.Tensor:
+    bot = _mlp(params, "bot", dense.to(c.tdtype), len(c.bot_mlp))                    # [B, D]
+    emb = _embedding_bags(params, sparse_ids, c, use_kernels=use_kernels)           # [B, F, D]
+    feats = torch.cat([bot[:, None, :], emb], dim=1)                               # [B, F+1, D]
+    return _mlp(params, "top", _interact(bot, feats), len(c.top_mlp))[:, 0]
+
+
 def forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor, c: DLRMConfig, *,
             use_kernels: bool) -> torch.Tensor:
     """dense ``[B, n_dense]``, sparse_ids ``[B, n_sparse, multi_hot]`` →
     logits ``[B]``. ``use_kernels=True`` needs CUDA tensors and sends the
     embedding bags through the CUDA kernel (one launch)."""
     with torch.inference_mode():
-        bot = _mlp(params, "bot", dense.to(c.tdtype), len(c.bot_mlp))                # [B, D]
-        emb = _embedding_bags(params, sparse_ids, c, use_kernels=use_kernels)       # [B, F, D]
-        feats = torch.cat([bot[:, None, :], emb], dim=1)                           # [B, F+1, D]
-        return _mlp(params, "top", _interact(bot, feats), len(c.top_mlp))[:, 0]
+        return _forward(params, dense, sparse_ids, c, use_kernels)
+
+
+def train_forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor, c: DLRMConfig, *,
+                  use_kernels: bool) -> torch.Tensor:
+    """:func:`forward` with grad: differentiable in every parameter that
+    requires grad, the tables through the embedding bag's backward (one
+    ``embedding_bag`` launch forward, one ``segment_sum`` backward)."""
+    return _forward(params, dense, sparse_ids, c, use_kernels)
 
 
 def retrieval_scores(params, dense: torch.Tensor, user_sparse: torch.Tensor,

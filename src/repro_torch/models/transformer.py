@@ -1,9 +1,11 @@
-"""Decoder-only transformer serving: dense GQA, MLA and mixture-of-experts layers.
+"""Decoder-only transformer: dense GQA, MLA and mixture-of-experts layers.
 
 Single-device port of ``repro/models/transformer.py`` (RoPE, SwiGLU,
-layer-stacked ``[L, …]`` parameters), for inference: ``forward`` (teacher
+layer-stacked ``[L, …]`` parameters): for inference ``forward`` (teacher
 forcing), ``prefill``, ``prefill_chunked`` and ``decode_step`` over a
-layer-stacked cache. Parameters are a nested dict keyed by the JAX names,
+layer-stacked cache; for training ``train_forward`` (dense GQA layers),
+the same layer body with grad, each layer recomputed in the backward when
+``remat`` is set. Parameters are a nested dict keyed by the JAX names,
 weights in JAX's ``[in, out]`` layout, so the JAX package's parameters carry
 across unchanged (``convert.lm_params_from_numpy``).
 
@@ -32,7 +34,7 @@ across unchanged (``convert.lm_params_from_numpy``).
   empty experts. The expert-parallel path (``_moe_routed``) and the sharding
   specs need a mesh and are not ported (ROADMAP).
 
-Every entry point runs under ``torch.inference_mode()``. The serving
+Every serving entry point runs under ``torch.inference_mode()``. The serving
 functions write the new keys and values (or latents) into the cache **in
 place** and return the same cache object.
 """
@@ -40,24 +42,26 @@ place** and return the same cache object.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .common import apply_rope, rms_norm, rope, swiglu
 
-__all__ = ["TransformerConfig", "param_shapes", "init_params", "forward", "init_cache",
-           "prefill", "prefill_chunked", "decode_step"]
+__all__ = ["TransformerConfig", "param_shapes", "init_params", "forward", "train_forward",
+           "init_cache", "prefill", "prefill_chunked", "decode_step"]
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Twin of ``repro.models.transformer.TransformerConfig``, field for
-    field. ``attn_backend``, ``q_chunk``, ``moe_capacity_factor``,
-    ``attn_seq_shard`` and ``remat`` steer JAX's compilation and sharding
-    and are not read here: the port chooses its attention by
-    ``use_kernels=``."""
+    field. ``attn_backend``, ``q_chunk``, ``moe_capacity_factor`` and
+    ``attn_seq_shard`` steer JAX's compilation and sharding and are not
+    read here: the port chooses its attention by ``use_kernels=``.
+    ``remat`` checkpoints each layer of ``train_forward``."""
 
     name: str
     n_layers: int
@@ -464,6 +468,39 @@ def forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch
         x = _run_layers(params, x, c, _positions(0, tokens.shape[1], x.device),
                         use_kernels=use_kernels)
         return _logits(params, x)
+
+
+def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch.Tensor:
+    """Teacher-forcing forward with grad: tokens ``[B, S]`` → logits ``[B,
+    S, V]``, for dense GQA layers (JAX's ``forward`` under
+    ``jax.value_and_grad``).
+
+    The embedding goes through :func:`ops.gather_rows` (its transpose a
+    segment sum into the rows the tokens touch), each layer through
+    :func:`_layer` (serving's body, no cache), its attention through the
+    differentiable :func:`ops.flash_attention`. With ``c.remat`` and grad
+    mode on each layer is checkpointed and recomputed in the backward, as
+    JAX's ``jax.checkpoint`` of its scan step. A layer group of ``params``
+    may be a list of per-layer dicts instead of stacked ``[L, …]`` tensors,
+    so that a caller can take each layer's gradient on its own leaves.
+    """
+    if c.attn != "gqa" or c.moe:
+        raise NotImplementedError(f"{c.name}: training runs dense GQA layers only; MLA and "
+                                  "MoE training wait in ROADMAP Queue 1")
+    b, s = tokens.shape
+    x = ops.gather_rows(params["embed"], tokens.reshape(-1).to(torch.int32),
+                        use_kernels=use_kernels).view(b, s, -1).to(c.tdtype)
+    positions = _positions(0, s, x.device)
+    remat = c.remat and torch.is_grad_enabled()
+    for group, moe, n in _groups(c):
+        layers = params[group]
+        for i in range(n):
+            lp = layers[i] if isinstance(layers, list) else {k: t[i] for k, t in layers.items()}
+            fn = functools.partial(_layer, lp, c=c, positions=positions, moe=moe,
+                                   use_kernels=use_kernels)
+            x = (checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+                 if remat else fn(x))
+    return _logits(params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ taken in sorted-key order, the order ``jax.tree.flatten`` gives a dict,
 so the global norm sums them in the same order. Moments are float32
 whatever the parameter's type; the update runs in float32 and is cast
 back, so bf16 parameters stay bf16. Functions, not an optimizer object:
-each returns new tensors and leaves its arguments as they were.
+:func:`adamw_update` returns new tensors and leaves its arguments as they
+were (the GNN step); :func:`adamw_update_` does the same arithmetic in
+place, a block of rows at a time, for the models whose parameters,
+gradients and two moments fill most of the card (DLRM's tables, the LMs).
 """
 
 from __future__ import annotations
@@ -15,9 +18,13 @@ from typing import Dict, Tuple, Union
 
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm_clip"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "adamw_update_", "global_norm_clip"]
 
 Tree = Dict[str, torch.Tensor]
+# Bytes of float32 a block of rows of :func:`adamw_update_` spans at most
+# (read when it is called): its float32 temporaries stay a few times this
+# whatever the leaf's size.
+BLOCK_BYTES = 1 << 28
 
 
 @dataclasses.dataclass
@@ -72,3 +79,56 @@ def adamw_update(params: Tree, grads: Tree, state: AdamWState,
         new_mu[k], new_nu[k] = mu, nu
     return new_p, AdamWState(step=step, mu=new_mu, nu=new_nu), gnorm
 
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(torch.square(g.float()))``, squaring in place where
+    ``g.float()`` is a copy (a bf16 leaf): the same float32 products and
+    the same reduction, one float32 copy of the leaf fewer."""
+    x = g.float()
+    return torch.sum(x.square_() if x.data_ptr() != g.data_ptr() else torch.square(x))
+
+
+@torch.no_grad()
+def adamw_update_(params: Tree, grads: Tree, state: AdamWState,
+                  lr: Union[float, torch.Tensor], *, b1: float = 0.9, b2: float = 0.95,
+                  eps: float = 1e-8, weight_decay: float = 0.1,
+                  max_norm: float = 1.0) -> torch.Tensor:
+    """:func:`adamw_update` in place: overwrites ``params``, ``state`` (its
+    step and moments) and ``grads`` (with the clipped gradients) and
+    returns the float32 global norm before clipping.
+
+    The same float32 arithmetic in the same order, leaf by leaf in sorted-
+    key order, so the results are :func:`adamw_update`'s bit for bit. The
+    norm sums each leaf whole (a blocked sum would round otherwise); the
+    clip and the update, which are elementwise, go a block of rows at a
+    time, each block spanning at most :data:`BLOCK_BYTES` of float32, so the
+    temporaries stay a few blocks whatever the leaf's size.
+    """
+    block_bytes = BLOCK_BYTES
+    keys = sorted(params)
+    if keys != sorted(grads) or keys != sorted(state.mu):
+        raise ValueError("adamw_update_: params, grads and moments name different leaves")
+    norm = torch.sqrt(sum(_sum_squares(grads[k]) for k in keys))
+    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+    state.step.add_(1)
+    t = state.step.float()
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    for k in keys:
+        p, g, mu, nu = params[k], grads[k], state.mu[k], state.nu[k]
+        if p.dim() == 0:
+            blocks = [(p, g, mu, nu)]
+        else:
+            rows = max(1, block_bytes // max(1, 4 * (p.numel() // max(1, p.shape[0]))))
+            blocks = [(p[i:i + rows], g[i:i + rows], mu[i:i + rows], nu[i:i + rows])
+                      for i in range(0, p.shape[0], rows)]
+        for pb, gb, mb, nb in blocks:
+            gb.copy_((gb.float() * scale).to(gb.dtype))
+            g32 = gb.float()
+            m = b1 * mb + (1 - b1) * g32
+            v = b2 * nb + (1 - b2) * g32 * g32
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pb.float()
+            pb.copy_((pb.float() - lr * delta).to(pb.dtype))
+            mb.copy_(m)
+            nb.copy_(v)
+    return norm

@@ -195,7 +195,8 @@ def test_configs_match_jax():
         assert cfg.n_interact == jcfg.n_interact
     assert mine.config.param_count() == 1_664_762_177
     jshapes = {s.name: s for s in J_RECSYS_SHAPES}
-    assert [s.name for s in RECSYS_SHAPES] == ["serve_p99", "serve_bulk", "retrieval_cand"]
+    assert [s.name for s in RECSYS_SHAPES] == ["train_batch", "serve_p99", "serve_bulk",
+                                               "retrieval_cand"]
     for s in RECSYS_SHAPES:
         js = jshapes[s.name]
         assert (s.kind, s.batch, s.n_candidates) == (js.kind, js.batch, js.n_candidates)

@@ -116,6 +116,26 @@ dense, sparse = steps.recsys_requests(rec, 4, 0)
 scores = dlrm.forward(dlrm.init_params(rec, torch.Generator().manual_seed(0), "cpu"),
                       torch.from_numpy(dense), torch.from_numpy(sparse), rec, use_kernels=False)
 assert scores.shape == (4,) and bool(torch.isfinite(scores).all()), scores
+from repro_torch.data import click_batches
+from repro_torch.optim import adamw_init
+dd, ds, dy = (torch.from_numpy(a) for a in next(click_batches(rec.n_dense, rec.n_sparse,
+                                                              rec.rows_per_table, 16)))
+dp = dlrm.init_params(rec, torch.Generator().manual_seed(0), "cpu")
+dp, dopt, dloss, dnorm = steps.dlrm_train_step(dp, adamw_init(dp), dd, ds, dy, rec,
+                                               use_kernels=False)
+assert int(dopt.step) == 1 and bool(torch.isfinite(dloss)) and float(dnorm) > 0
+lp = tf.init_params(lm, torch.Generator().manual_seed(0), "cpu")
+from repro_torch.data import prefetch, token_batches
+tk, tl = (torch.from_numpy(a) for a in next(prefetch(token_batches(lm.vocab, 2, 8))))
+lopt = adamw_init(steps.flat_params(lp))
+lp, lopt, lloss, lnorm = steps.lm_train_step(lp, lopt, tk, tl, lm, use_kernels=False)
+assert int(lopt.step) == 1 and bool(torch.isfinite(lloss)) and float(lnorm) > 0
+with tempfile.TemporaryDirectory() as ck:
+    from repro_torch.launch.train import main as train_main
+    assert len(train_main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
+                           "--seq", "8", "--ckpt-dir", ck, "--ckpt-every", "1"])) == 1
+    from repro_torch.checkpoint import CheckpointManager
+    assert CheckpointManager(ck).latest_step() == 1
 assert not any(m == "repro" or m.startswith(("repro.", "jax")) for m in sys.modules
                if sys.modules[m] is not None), "repro or jax was imported"
 print("standalone OK")
@@ -138,6 +158,7 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "examples", "torch_subgraph_service.py")
     yield os.path.join(REPO, "examples", "torch_train_gnn.py")
+    yield os.path.join(REPO, "examples", "torch_train_lm.py")
 
 
 def test_no_source_imports_jax_or_repro():
@@ -147,9 +168,13 @@ def test_no_source_imports_jax_or_repro():
                 ("stream", "service.py"), ("stream", "plan_manager.py"),
                 ("stream", "journal.py"), ("stream", "sinks.py"), ("obs", "prof.py"),
                 ("dist", "__init__.py"), ("dist", "straggler.py"), ("dist", "elastic.py"),
-                ("optim", "__init__.py"), ("optim", "adamw.py"), ("launch", "steps.py"),
+                ("optim", "__init__.py"), ("optim", "adamw.py"), ("optim", "schedule.py"),
+                ("launch", "steps.py"), ("launch", "train.py"),
+                ("checkpoint", "checkpoint.py"), ("data", "recsys.py"), ("data", "tokens.py"),
+                ("data", "pipeline.py"), ("kernels", "flash_attention_bwd.py"),
                 ("..", "..", "examples", "torch_subgraph_service.py"),
-                ("..", "..", "examples", "torch_train_gnn.py")):
+                ("..", "..", "examples", "torch_train_gnn.py"),
+                ("..", "..", "examples", "torch_train_lm.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
@@ -162,5 +187,6 @@ def test_no_source_imports_jax_or_repro():
 def test_kernel_sources_are_shipped():
     csrc = os.path.join(PKG, "kernels", "csrc")
     assert sorted(os.listdir(csrc)) == ["embedding_bag.cu", "flash_attention.cu",
-                                        "flash_attention_tc.cu", "flash_decode.cu",
-                                        "member_probe.cu", "segment_sum.cu", "set_intersect.cu"]
+                                        "flash_attention_bwd.cu", "flash_attention_tc.cu",
+                                        "flash_decode.cu", "member_probe.cu", "segment_sum.cu",
+                                        "set_intersect.cu"]

@@ -8,7 +8,9 @@ in bfloat16), one-row bags equal; member_probe and embedding_bag on offset
 (misaligned) views and bitwise repeatable; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
 float32, and within one bfloat16 rounding of that in bfloat16, on each of
-its three kernels). Imports no
+its three kernels; flash_attention_bwd's dQ, dK and dV element by element
+within ref.flash_attention_bwd_limits, repeatable, and through autograd).
+Imports no
 JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -564,3 +566,72 @@ def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
         ops.flash_attention(q, shifted, v, q_offset=184, use_kernels=True)
     assert ops.launch_counts()["flash_decode"] == 0
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,l,dh", [
+    (2, 6, 2, 37, 64),      # group 3, a partial tile
+    (1, 8, 8, 1, 128),      # L 1, MHA
+    (1, 4, 1, 200, 128),    # group 4, tiles past the diagonal skipped
+    (2, 16, 2, 65, 64),     # group 8, one row past a tile
+    (1, 3, 3, 128, 128),    # whole tiles
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, hq, hkv, l, dh, dtype):
+    """dQ, dK and dV element by element against the plain backward on the
+    inputs in float32, within ``ref.flash_attention_bwd_limits`` (its
+    docstring derives them); two launches bitwise equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    q, k, v = _attn_inputs(l + dh, b, hq, hkv, l, l, dh, dtype, cuda_device)
+    (dout,) = _attn_inputs(l + dh + 1, b, hq, hkv, l, l, dh, dtype, cuda_device)[:1]
+    out = flash_attention_cuda(q, k, v, causal=True, q_offset=0)
+    got = flash_attention_bwd_cuda(q, k, v, out, dout)
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    want, limit = ref.flash_attention_bwd_limits(q, k, v, dout)
+    for g, w, lim in zip(got, want, limit):
+        assert float(((g.float() - w).abs() / lim).max()) <= 1.0
+    again = flash_attention_bwd_cuda(q, k, v, out, dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_through_autograd(cuda_device):
+    """``ops.flash_attention`` with grad: the backward launches the kernel
+    once and gives its gradients; serving (no grad) launches it never."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    q, k, v = _attn_inputs(3, 1, 6, 2, 90, 90, 128, torch.bfloat16, cuda_device)
+    (dout,) = _attn_inputs(4, 1, 6, 2, 90, 90, 128, torch.bfloat16, cuda_device)[:1]
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        ops.flash_attention(q, k, v, use_kernels=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, use_kernels=True)
+    out.backward(dout)
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 1)
+    want = flash_attention_bwd_cuda(q, k, v, out.detach(), dout)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_refuses(cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    q, k, v = _attn_inputs(5, 1, 4, 2, 40, 40, 96, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="Dh"):
+        flash_attention_bwd_cuda(q, k, v, q, q)
+    q, k, v = _attn_inputs(5, 1, 4, 2, 40, 48, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="length"):
+        flash_attention_bwd_cuda(q, k, v, q, q)
+    q, k, v = _attn_inputs(5, 1, 4, 2, 40, 40, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="type"):
+        flash_attention_bwd_cuda(q, k, v.float(), q, q)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="offset 0"):
+        ops.flash_attention(*leaves, causal=False, use_kernels=True).sum().backward()
