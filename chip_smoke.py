@@ -328,7 +328,8 @@ since the script started (all but the last line):
    3 steps of ``launch.steps.lm_train_step`` (AdamW at 3e-4 in place):
    losses, norms, seconds a step, peak GiB, TFLOP/s of ``lm_flops`` and the
    launches a step (``flash_attention`` on the tensor cores twice a layer,
-   forward and recompute; ``flash_attention_bwd`` once a layer;
+   forward and recompute, each keeping its log-sum-exp;
+   ``flash_attention_bwd`` once a layer, on the tensor cores;
    ``segment_sum`` once, the embedding's gradient); ``lm_train_profile``, one
    more step under ``torch.profiler``; ``lm_train_equal``, the next batch's
    loss and gradient norm (and each leaf's) from the same state with the
@@ -338,12 +339,16 @@ since the script started (all but the last line):
 19. ``kernel_check`` (``flash_attention_bwd``) — the attention backward
    against its plain version at the training shape (q [2, 24, 4096, 128]
    bf16 over k/v [2, 8, 4096, 128]) and at edge cases (L 1, 17, 4,095;
-   groups 1, 3, 8; Dh 64 and 128; bf16 and float32): every element of dQ,
+   groups 1, 3, 8; Dh 64 and 128; bf16 on the tensor cores from the
+   forward's log-sum-exp, float32 on the CUDA cores): every element of dQ,
    dK and dV within ``ref.flash_attention_bwd_limits`` of the plain version
-   on the inputs in float32, two launches bitwise equal; with the kernel's,
-   the plain backward's and SDPA's forward + backward median ms beside the
-   bound (five causal products at the bf16 tensor-core rate); a
-   ``flash_kernels`` line with both kernels' registers and spills.
+   on the inputs in float32, two launches bitwise equal; the forward's
+   output bitwise the same with and without its log-sum-exp, which is
+   within 1e-5 of ``torch.logsumexp``; with the kernel's, the plain
+   backward's, SDPA's forward + backward and SDPA's backward-alone median
+   ms beside the bound (five causal products at the bf16 tensor-core rate);
+   a ``flash_kernels`` line with the four kernels' registers and spills
+   (the tensor-core ones must not spill).
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
@@ -354,7 +359,8 @@ each counted from 0; the three attention kernels' ``launches_by_path``: the
 five LM kernel serves, phi4, minicpm3, deepseek, granite and command_r, the
 four float32 gates' kernel serves, ``<path>_f32_gate`` (none for
 command_r), and ``lm_train``, their sum in ``launches``; ``embedding_bag``'s
-``dlrm_serve`` and ``dlrm_train``; ``flash_attention_bwd``'s ``lm_train``),
+``dlrm_serve`` and ``dlrm_train``; ``flash_attention_bwd``'s ``lm_train``
+and ``launches_by_route``, ``tc`` or ``simt``),
 and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
@@ -3972,7 +3978,8 @@ def lm_train_phase():
                for _ in range(LM_TRAIN_STEPS + 2)]
     flops = lm_flops(cfg, shape)["model_flops"]
     per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_tc": 2 * cfg.n_layers,
-                "flash_attention_bwd": cfg.n_layers, "segment_sum": 1}
+                "flash_attention_bwd": cfg.n_layers, "flash_attention_bwd_tc": cfg.n_layers,
+                "segment_sum": 1}
     emit({"phase": "lm_train_plan", "arch": cfg.name, "params": cfg.param_count(),
           "batch": b, "seq": s, "global_batch_published": spec.shape("train_4k").global_batch,
           "n_micro": n_micro, "remat": cfg.remat, "dtype": cfg.dtype, "lr": LM_TRAIN_LR,
@@ -4049,14 +4056,18 @@ def attention_bwd_work(b, hq, hkv, l, dh, elem):
 
 
 def flash_attention_bwd_phase(train_batch: int):
-    """The attention backward kernel against its plain version at the LM
+    """The attention backward kernels against their plain version at the LM
     training shape and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64
-    and 128; bf16 and float32), each element of dQ, dK and dV within
-    ``ref.flash_attention_bwd_limits``; timed beside the plain backward and
-    SDPA's forward and backward through autograd, and its bound."""
+    and 128; bf16 on the tensor cores from the forward's log-sum-exp,
+    float32 on the CUDA cores), each element of dQ, dK and dV within
+    ``ref.flash_attention_bwd_limits``, two launches bitwise equal; the
+    forward's output bitwise the same with and without the log-sum-exp, and
+    the log-sum-exp against ``torch.logsumexp`` of the scores; timed beside
+    the plain backward, SDPA's forward and backward through autograd and
+    SDPA's backward alone, and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import bwd_route, flash_attention_cuda, route
     from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd_cuda,
                                                          kernel_attributes)
 
@@ -4067,16 +4078,43 @@ def flash_attention_bwd_phase(train_batch: int):
              "l17_group3": (2, 6, 2, 17, 128, (f32, bf16)),
              "l4095_group1": (1, 4, 4, 4095, 64, (f32, bf16)),
              "group8_dh64": (1, 16, 2, 300, 64, (f32, bf16)),
-             "group3_dh128": (2, 24, 8, 1000, 128, (f32,))}
+             "group3_dh128": (2, 24, 8, 1000, 128, (f32, bf16)),
+             "group1_dh128": (1, 4, 4, 600, 128, (bf16,)),
+             "group8_dh128": (1, 16, 2, 300, 128, (bf16,))}
     out = []
     for name, (b, hq, hkv, l, dh, dtypes) in cases.items():
         for dtype in dtypes:
             q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
                              for sh in ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dh),
                                         (b, hq, l, dh)))
-            o = flash_attention_cuda(q, k, v, causal=True, q_offset=0)
-            got = flash_attention_bwd_cuda(q, k, v, o, dout)
-            again = flash_attention_bwd_cuda(q, k, v, o, dout)
+            kind = bwd_route(dtype, dh)
+            tag = str(dtype).split(".")[-1]
+            rec = {"case": name, "dtype": tag, "route": kind, "b": b, "hq": hq, "hkv": hkv,
+                   "l": l, "dh": dh}
+            lse = None
+            if kind == "tc":
+                o, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+                if route(l, dtype, dh) == "tc":
+                    # serving's call (no log-sum-exp) on the same kernel: the same output
+                    rec["forward_bitwise_without_lse"] = torch.equal(
+                        o, flash_attention_cuda(q, k, v, causal=True, q_offset=0))
+                    check(rec["forward_bitwise_without_lse"],
+                          f"flash_attention {name}: the output differs with the log-sum-exp")
+                if name != "train":
+                    kg = k.float().repeat_interleave(hq // hkv, dim=1)
+                    sc = torch.matmul(q.float(), kg.transpose(-1, -2)) / math.sqrt(dh)
+                    sc.masked_fill_(torch.ones(l, l, dtype=torch.bool, device="cuda").triu(1),
+                                    -math.inf)
+                    want_lse = torch.logsumexp(sc, -1) / math.log(2.0)
+                    rec["lse_max_rel_err"] = float(((lse - want_lse).abs()
+                                                    / want_lse.abs().clamp(min=1.0)).max())
+                    check(rec["lse_max_rel_err"] <= 1e-5,
+                          f"flash_attention {name}: log-sum-exp off by {rec['lse_max_rel_err']}")
+                    del kg, sc, want_lse
+            else:
+                o = flash_attention_cuda(q, k, v, causal=True, q_offset=0)
+            got = flash_attention_bwd_cuda(q, k, v, o, dout, lse)
+            again = flash_attention_bwd_cuda(q, k, v, o, dout, lse)
             repeat = all(torch.equal(x, y) for x, y in zip(got, again))
             del again
             want, limit = ref.flash_attention_bwd_limits(q, k, v, dout)
@@ -4084,20 +4122,23 @@ def flash_attention_bwd_phase(train_batch: int):
             worst = {n: float(((g.float() - w).abs() / lim).max())
                      for n, g, w, lim in zip(("dq", "dk", "dv"), got, want, limit)}
             err = max(float((g.float() - p.float()).abs().max()) for g, p in zip(got, plain))
-            tag = str(dtype).split(".")[-1]
             check(all(x <= 1.0 for x in worst.values()),
                   f"flash_attention_bwd {name} {tag}: |kernel - plain in float32| reaches "
                   f"{worst} of its limit")
             check(repeat, f"flash_attention_bwd {name} {tag}: two launches differ")
-            rec = {"case": name, "dtype": tag, "b": b, "hq": hq, "hkv": hkv, "l": l, "dh": dh,
-                   "max_abs_err": err,
-                   "max_abs_ref": max(float(w.abs().max()) for w in want),
-                   "max_err_over_limit": worst, "repeat_bitwise": repeat}
+            rec.update({"max_abs_err": err,
+                        "max_abs_ref": max(float(w.abs().max()) for w in want),
+                        "max_err_over_limit": worst, "repeat_bitwise": repeat})
             del want, limit, plain, got
             flops, n_bytes = attention_bwd_work(b, hq, hkv, l, dh, q.element_size())
-            rec["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, dout),
+            rec["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, dout, lse),
                                 reps=5 if name == "train" else 10)
             rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), reps=3)
+            if name == "train":
+                # the forward with and without the log-sum-exp it keeps for this kernel
+                rec["forward_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v))
+                rec["forward_lse_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                                             return_lse=True))
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
             def sdpa():
@@ -4105,19 +4146,25 @@ def flash_attention_bwd_phase(train_batch: int):
                 torch.autograd.grad(y, (qg, kg, vg), dout)
 
             rec["library_ms"] = cuda_ms(sdpa)
+            # SDPA's backward alone: its forward once, outside the timed call
+            y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+            rec["library_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(y, (qg, kg, vg), dout, retain_graph=True))
+            del y
             rec["flops"], rec["bytes"] = flops, n_bytes
             rec["bound_ms"], rec["bound_by"] = bound_ms(
                 n_bytes, flops, PEAK_BF16_FLOPS if dtype == bf16 else PEAK_OPS_PER_S)
             rec["tflop_per_s"] = flops / rec["ms"] / 1e9
             out.append(rec)
-            del q, k, v, dout, o, qg, kg, vg
+            del q, k, v, dout, o, lse, qg, kg, vg
     free_device_memory()
-    attrs = {f"{t}_dh{dh}": kernel_attributes(dt, dh)
-             for t, dt in (("bf16", bf16), ("f32", f32)) for dh in (64, 128)}
+    attrs = {f"{kind}_dh{dh}": kernel_attributes(kind, dh)
+             for kind in ("tc", "simt") for dh in (64, 128)}
     emit({"phase": "flash_kernels", "flash_attention_bwd": attrs})
-    # the training path's instantiation (bf16, Dh 128) keeps everything in registers
-    check(all(a["local_bytes"] == 0 for a in attrs["bf16_dh128"].values()),
-          f"flash_attention_bwd spills: {attrs['bf16_dh128']}")
+    # the tensor-core kernels (the training path's) keep everything in registers
+    for dh in (64, 128):
+        check(all(a["local_bytes"] == 0 for a in attrs[f"tc_dh{dh}"].values()),
+              f"flash_attention_bwd tc Dh {dh} spills: {attrs[f'tc_dh{dh}']}")
     return out
 
 
@@ -4476,6 +4523,9 @@ def main() -> None:
     attention_paths["flash_attention_simt"]["lm_train"] = (
         lm_train_counts["flash_attention"] - lm_train_counts["flash_attention_tc"])
     attention_paths["flash_attention_bwd"] = {"lm_train": lm_train_counts["flash_attention_bwd"]}
+    bwd_routes = {"tc": lm_train_counts["flash_attention_bwd_tc"],
+                  "simt": lm_train_counts["flash_attention_bwd"]
+                  - lm_train_counts["flash_attention_bwd_tc"]}
     for name, paths in attention_paths.items():
         launches[name] = sum(paths.values())
     bag_paths = {"dlrm_serve": launches["embedding_bag"],
@@ -4502,7 +4552,7 @@ def main() -> None:
                                         "mla_minicpm3_prefill"),
                "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag.py:41", "serve_bulk"),
-               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                                        "src/repro/kernels/flash_attention.py:84", "train")}
     kernels = []
     for name, (src, replaces, case) in sources.items():
@@ -4528,6 +4578,10 @@ def main() -> None:
             entry["launches_by_path"] = attention_paths[name]
         elif name == "embedding_bag":
             entry["launches_by_path"] = bag_paths
+        if name == "flash_attention_bwd":
+            # the route the training steps' backward launches took
+            entry["launches_by_route"] = bwd_routes
+            entry["library_bwd_ms"] = rec["library_bwd_ms"]
         kernels.append(entry)
     emit({"kernels": kernels})
     # the contract's last line, exactly (no t_s)

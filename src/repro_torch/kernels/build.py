@@ -45,18 +45,23 @@ _SIGNATURES = {
     # q, k, v, out, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
-    # q, k, v, out, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
-    "flash_attention_tc_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, out, lse (or null), lse row stride, b, hq, hkv, lq, lk, dh, causal, q_offset,
+    # scale, stream
+    "flash_attention_tc_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P),
     # q, k, v, out, ws, tickets, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale,
     # rows, splits, kps, stream
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _I, _I, _P),
-    # q, k, v, o, dout, dq, dk, dv, lse, delta, is_bf16, b, hq, hkv, l, dh, scale, stream
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq, hkv, l, dh, scale, stream
     "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, ctypes.c_float, _P),
-    # is_bf16, dh, which kernel, out[4]
-    "flash_attention_bwd_attributes": (_I, _I, _I, _P),
+                                   ctypes.c_float, _P),
+    # q, k, v, o, dout, lse, lse row stride, dq, dk, dv, delta, b, hq, hkv, l, dh, scale, stream
+    "flash_attention_bwd_tc_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, ctypes.c_float, _P),
+    # dh, which kernel, out[4]
+    "flash_attention_bwd_attributes": (_I, _I, _P),
+    "flash_attention_bwd_tc_attributes": (_I, _I, _P),
     # (is_bf16,) dh, (rows,) out[4]
     "flash_attention_attributes": (_I, _I, _P),
     "flash_attention_tc_attributes": (_I, _P),

@@ -1,4 +1,6 @@
-// The backward of causal grouped-query attention on the CUDA cores (sm_90a).
+// The backward of causal grouped-query attention on the CUDA cores (sm_90a),
+// float32: the "simt" route of kernels/flash_attention.py bwd_route (bf16
+// takes the tensor cores, flash_attention_bwd_tc.cu).
 //
 // Differentiates the function of the TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_pallas) as the LM training step calls it: causal, query
@@ -12,9 +14,8 @@
 // D[i] = sum_d dO[i, d] O[i, d] and dS = P * (dO V^T - D),
 //   dV = P^T dO,  dQ = scale * dS K,  dK = scale * dS^T Q,
 // dK and dV summed over the query heads of each KV head. q, o, dout, dq:
-// [b, hq, l, dh]; k, v, dk, dv: [b, hkv, l, dh]; all float32 or all
-// bfloat16, contiguous, dh 64 or 128. Every product, the softmax and every
-// sum are float32; the gradients are rounded once to the inputs' type.
+// [b, hq, l, dh]; k, v, dk, dv: [b, hkv, l, dh]; all float32, contiguous,
+// dh 64 or 128. Every product, the softmax and every sum are float32.
 //
 // Two launches, deterministic, no atomics:
 // (a) flash_attention_bwd_dq_kernel, one block per (b * hq, 64-query tile):
@@ -29,7 +30,7 @@
 //     values and the queries, LSE and D, and add P^T dO into dV and dS^T Q
 //     into dK, held in registers; the group's heads are summed inside the
 //     block. Query tiles wholly before the key tile are skipped (causal).
-// Tiles are float32 in shared memory, transposed ([dh][64 + 4]) for the
+// Tiles are in shared memory, transposed ([dh][64 + 4]) for the
 // score products; thread (ty, tx) of 16 x 16 takes a 4 x 4 block of
 // scores and 4 rows x dh / 16 columns of its accumulators, as the forward
 // CUDA-core kernel (flash_attention.cu) does.
@@ -37,12 +38,10 @@
 // Bound: operations. The step needs five causal products of
 // 2 * b * hq * l^2 * dh / 2 FLOP (S, dP, dV, dQ, dK); this kernel does
 // eight (S in both passes of (a) and in (b), dP in both kernels), all on
-// the float32 CUDA cores (67 TFLOP/s peak), against a bound taken at the
-// bf16 tensor-core rate (989 TFLOP/s). Tensor cores, the LSE kept from the
-// forward and pipelined loads are for a later change; its time on an H100
-// is in PERF.md (chip_smoke.py, kernel_check "flash_attention_bwd").
+// the float32 CUDA cores (67 TFLOP/s peak), the bound of float32 inputs.
+// Its time on an H100 is in PERF.md (chip_smoke.py, kernel_check
+// "flash_attention_bwd", the float32 cases).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,45 +52,24 @@ constexpr int kTile = 64;      // query rows or keys per tile
 constexpr int kS = kTile + 4;  // row stride of a transposed tile and of a P / dS tile
 constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-// dst[d * kS + j] = src[(row0 + j) * DH + d] as float32 for the kTile rows
-// from row0, zero for rows at or past end. Each thread loads its 16-byte
-// chunks first (all in flight), then stores them; neighbouring threads
-// take neighbouring rows, so the transposed stores hit distinct banks.
-template <typename T, int DH>
-__device__ __forceinline__ void load_transposed(const T* __restrict__ src, int row0, int end,
-                                                float* dst) {
-  constexpr int V = 16 / sizeof(T);
+// dst[d * kS + j] = src[(row0 + j) * DH + d] for the kTile rows from
+// row0, zero for rows at or past end. Each thread loads its 16-byte chunks
+// first (all in flight), then stores them; neighbouring threads take
+// neighbouring rows, so the transposed stores hit distinct banks.
+template <int DH>
+__device__ __forceinline__ void load_transposed(const float* __restrict__ src, int row0,
+                                                int end, float* dst) {
+  constexpr int V = 4;
   constexpr int CH = kTile * DH / V;
   constexpr int C = (CH + kThreads - 1) / kThreads;
-  uint4 r[C];
+  float4 r[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int e = threadIdx.x + c * kThreads;
     const int j = e % kTile;
-    r[c] = make_uint4(0, 0, 0, 0);
+    r[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (e < CH && row0 + j < end)
-      r[c] = __ldg(reinterpret_cast<const uint4*>(
+      r[c] = __ldg(reinterpret_cast<const float4*>(
           src + static_cast<size_t>(row0 + j) * DH + (e / kTile) * V));
   }
 #pragma unroll
@@ -99,10 +77,10 @@ __device__ __forceinline__ void load_transposed(const T* __restrict__ src, int r
     const int e = threadIdx.x + c * kThreads;
     if (e < CH) {
       const int j = e % kTile, d0 = (e / kTile) * V;
-      float f[V];
-      unpack(r[c], f, T());
-#pragma unroll
-      for (int t = 0; t < V; ++t) dst[(d0 + t) * kS + j] = f[t];
+      dst[d0 * kS + j] = r[c].x;
+      dst[(d0 + 1) * kS + j] = r[c].y;
+      dst[(d0 + 2) * kS + j] = r[c].z;
+      dst[(d0 + 3) * kS + j] = r[c].w;
     }
   }
 }
@@ -144,11 +122,11 @@ constexpr size_t dkdv_smem_floats(int dh) {
   return 4 * static_cast<size_t>(dh) * kS + 2 * kTile * kS;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                  const T* __restrict__ v, const T* __restrict__ o,
-                                  const T* __restrict__ dout, T* __restrict__ dq,
+    flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ o,
+                                  const float* __restrict__ dout, float* __restrict__ dq,
                                   float* __restrict__ lse_out, float* __restrict__ delta_out,
                                   int hq, int group, int l, float scale) {
   constexpr int NC = DH / 16;
@@ -166,11 +144,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / hq, h = bh - b * hq;
   const size_t kvh = static_cast<size_t>(b) * (hq / group) + h / group;
   const size_t qoff = static_cast<size_t>(bh) * l * DH;
-  const T* kp = k + kvh * l * DH;
-  const T* vp = v + kvh * l * DH;
+  const float* kp = k + kvh * l * DH;
+  const float* vp = v + kvh * l * DH;
 
-  load_transposed<T, DH>(q + qoff, q0, l, qT);
-  load_transposed<T, DH>(dout + qoff, q0, l, doT);
+  load_transposed<DH>(q + qoff, q0, l, qT);
+  load_transposed<DH>(dout + qoff, q0, l, doT);
   __syncthreads();
 
   // D[i] = sum_d dO[i, d] O[i, d], over the row's 16 tx lanes
@@ -183,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = c * 16 + tx;
-        dsum[i] = fmaf(to_f32(o[qoff + static_cast<size_t>(row) * DH + col]),
+        dsum[i] = fmaf(o[qoff + static_cast<size_t>(row) * DH + col],
                        doT[col * kS + ty * 4 + i], dsum[i]);
       }
     }
@@ -201,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
     lsum[i] = 0.f;
   }
   for (int k0 = 0; k0 < kend; k0 += kTile) {
-    load_transposed<T, DH>(kp, k0, kend, kT);
+    load_transposed<DH>(kp, k0, kend, kT);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -261,8 +239,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += kTile) {
-    load_transposed<T, DH>(kp, k0, kend, kT);
-    load_transposed<T, DH>(vp, k0, kend, vT);
+    load_transposed<DH>(kp, k0, kend, kT);
+    load_transposed<DH>(vp, k0, kend, vT);
     __syncthreads();
     float s[4][4], dp[4][4];
     two_products<DH>(qT, kT, doT, vT, ty * 4, tx * 4, s, dp);
@@ -300,17 +278,17 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= l) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store(dq + qoff + static_cast<size_t>(row) * DH + c * 16 + tx, acc[i][c] * scale);
+      dq[qoff + static_cast<size_t>(row) * DH + c * 16 + tx] = acc[i][c] * scale;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
                                     const float* __restrict__ lse_in,
-                                    const float* __restrict__ delta_in, T* __restrict__ dk,
-                                    T* __restrict__ dv, int hq, int group, int l, float scale) {
+                                    const float* __restrict__ delta_in, float* __restrict__ dk,
+                                    float* __restrict__ dv, int hq, int group, int l, float scale) {
   constexpr int NC = DH / 16;
   extern __shared__ float4 smem4[];
   float* kT = reinterpret_cast<float*>(smem4);
@@ -329,8 +307,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.y * kTile;
   const size_t koff = static_cast<size_t>(bkv) * l * DH;
 
-  load_transposed<T, DH>(k + koff, k0, l, kT);
-  load_transposed<T, DH>(v + koff, k0, l, vT);
+  load_transposed<DH>(k + koff, k0, l, kT);
+  load_transposed<DH>(v + koff, k0, l, vT);
 
   float adk[4][NC], adv[4][NC];
 #pragma unroll
@@ -340,11 +318,11 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int g = 0; g < group; ++g) {
     const size_t bh = static_cast<size_t>(b) * hq + hk * group + g;
-    const T* qp = q + bh * l * DH;
-    const T* dop = dout + bh * l * DH;
+    const float* qp = q + bh * l * DH;
+    const float* dop = dout + bh * l * DH;
     for (int q0 = k0; q0 < l; q0 += kTile) {  // causal: queries before k0 see none
-      load_transposed<T, DH>(qp, q0, l, qT);
-      load_transposed<T, DH>(dop, q0, l, doT);
+      load_transposed<DH>(qp, q0, l, qT);
+      load_transposed<DH>(dop, q0, l, doT);
       if (tid < kTile) {
         const int row = q0 + tid;
         s_lse[tid] = row < l ? lse_in[bh * l + row] : 0.f;
@@ -398,23 +376,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const size_t at = koff + static_cast<size_t>(key) * DH + c * 16 + tx;
-      store(dk + at, adk[jj][c] * scale);
-      store(dv + at, adv[jj][c]);
+      dk[at] = adk[jj][c] * scale;
+      dv[at] = adv[jj][c];
     }
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           void* dq, void* dk, void* dv, float* lse, float* delta, int b, int hq, int hkv, int l,
-           float scale, cudaStream_t stream) {
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
+template <int DH>
+int launch(const float* q, const float* k, const float* v, const float* o, const float* dout,
+           float* dq, float* dk, float* dv, float* lse, float* delta, int b, int hq, int hkv,
+           int l, float scale, cudaStream_t stream) {
   const size_t smem_a = dq_smem_floats(DH) * sizeof(float);
   const size_t smem_b = dkdv_smem_floats(DH) * sizeof(float);
-  auto ka = flash_attention_bwd_dq_kernel<T, DH>;
-  auto kb = flash_attention_bwd_dkdv_kernel<T, DH>;
+  auto ka = flash_attention_bwd_dq_kernel<DH>;
+  auto kb = flash_attention_bwd_dkdv_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_a));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -422,23 +397,21 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                              static_cast<int>(smem_b));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (l + kTile - 1) / kTile;
-  ka<<<dim3(b * hq, tiles), kThreads, smem_a, stream>>>(
-      qq, kk, vv, static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<T*>(dq),
-      lse, delta, hq, hq / hkv, l, scale);
+  ka<<<dim3(b * hq, tiles), kThreads, smem_a, stream>>>(q, k, v, o, dout, dq, lse, delta, hq,
+                                                         hq / hkv, l, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  kb<<<dim3(b * hkv, tiles), kThreads, smem_b, stream>>>(
-      qq, kk, vv, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), hq, hq / hkv, l, scale);
+  kb<<<dim3(b * hkv, tiles), kThreads, smem_b, stream>>>(q, k, v, dout, lse, delta, dk, dv, hq,
+                                                          hq / hkv, l, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <int DH>
 int attributes(int which, int* out) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      which == 0 ? cudaFuncGetAttributes(&a, flash_attention_bwd_dq_kernel<T, DH>)
-                 : cudaFuncGetAttributes(&a, flash_attention_bwd_dkdv_kernel<T, DH>);
+      which == 0 ? cudaFuncGetAttributes(&a, flash_attention_bwd_dq_kernel<DH>)
+                 : cudaFuncGetAttributes(&a, flash_attention_bwd_dkdv_kernel<DH>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);
@@ -451,32 +424,28 @@ int attributes(int which, int* out) {
 }  // namespace
 
 // q, o, dout, dq: [b, hq, l, dh]; k, v, dk, dv: [b, hkv, l, dh], all
-// contiguous, 16-byte aligned, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); lse, delta: float32 scratch of b * hq * l. Causal with
-// query offset 0. The caller guarantees b, hq, hkv, l >= 1, hq % hkv == 0,
-// dh 64 or 128, b * hq < 2**31 and ceil(l / 64) <= 65,535. Launches (a)
-// then (b) on the stream; returns the first cudaError_t (0 on success).
-extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dout, void* dq, void* dk,
-                                          void* dv, float* lse, float* delta, int is_bf16, int b,
+// contiguous, 16-byte aligned float32; lse, delta: float32 scratch of
+// b * hq * l. Causal with query offset 0. The caller guarantees b, hq,
+// hkv, l >= 1, hq % hkv == 0, dh 64 or 128, b * hq < 2**31 and ceil(l / 64)
+// <= 65,535. Launches (a) then (b) on the stream; returns the first
+// cudaError_t (0 on success).
+extern "C" int flash_attention_bwd_launch(const float* q, const float* k, const float* v,
+                                          const float* o, const float* dout, float* dq,
+                                          float* dk, float* dv, float* lse, float* delta, int b,
                                           int hq, int hkv, int l, int dh, float scale,
                                           cudaStream_t stream) {
 #define FAB_ARGS q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq, hkv, l, scale, stream
-  if (dh == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(FAB_ARGS) : launch<float, 64>(FAB_ARGS);
-  if (dh == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(FAB_ARGS) : launch<float, 128>(FAB_ARGS);
+  if (dh == 64) return launch<64>(FAB_ARGS);
+  if (dh == 128) return launch<128>(FAB_ARGS);
 #undef FAB_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Registers a thread, static shared bytes, local (spill) bytes a thread and
 // dynamic shared bytes of kernel (a) (which = 0) or (b) (which = 1) for
-// this type and dh, into out[0..3].
-extern "C" int flash_attention_bwd_attributes(int is_bf16, int dh, int which, int* out) {
-  if (dh == 64) return is_bf16 ? attributes<__nv_bfloat16, 64>(which, out)
-                               : attributes<float, 64>(which, out);
-  if (dh == 128) return is_bf16 ? attributes<__nv_bfloat16, 128>(which, out)
-                                : attributes<float, 128>(which, out);
+// dh, into out[0..3].
+extern "C" int flash_attention_bwd_attributes(int dh, int which, int* out) {
+  if (dh == 64) return attributes<64>(which, out);
+  if (dh == 128) return attributes<128>(which, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,6 +45,12 @@
 // - Only a tile that crosses a warpgroup's causal diagonal or lk is
 //   masked; a warpgroup skips the tiles wholly past its last row (and
 //   releases them once loaded).
+// - On request (training) each row's log-sum-exp m + log2 l, in the log2
+//   domain of the scaled scores, is written to a float32 [b, hq, lq]
+//   vector after the output (rows lse_ld apart, a multiple of 64: the
+//   backward's TMA loads it in boxes of 64 that must start 16-byte
+//   aligned); the backward (flash_attention_bwd_tc.cu)
+//   takes P from it. Serving passes none and its output is the same.
 // Within a warpgroup the softmax waits for S and the next S for the
 // softmax: issuing S_t before P_{t-1} V_{t-1} (the softmax running under
 // that product) and 128-key tiles cost time in the two-warpgroup form of
@@ -56,10 +62,7 @@
 // Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 4.76 ms, 2.9x
 // that bound, 53 % of the peak on the work it issues (PERF.md).
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,163 +84,6 @@ struct Smem {
   static constexpr int kBytes = kQ + kStages * kStage + 8 * (2 * kStages + 1) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Waits for the phase of parity `parity` of the mbarrier to complete; traps
-// (a launch error, not a hang) if it never does.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1 << 24)) __trap();
-  }
-}
-// TMA: the 64 x 64 box at (column c0, row c1, plane c2) of the tensor map
-// into shared memory at dst (128-byte swizzle), reported to the mbarrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving register reads or writes across a wgmma
-// start or wait (the instructions run asynchronously on these registers).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), 128-byte swizzle (layout type 1, bits 62-63).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] = A[64 x 16] B[16 x 64], the first step of a product: D is
-// only written, so its registers need not hold anything before.
-__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=&f"(d[0]), "=&f"(d[1]), "=&f"(d[2]), "=&f"(d[3]), "=&f"(d[4]), "=&f"(d[5]), "=&f"(d[6]), "=&f"(d[7]),
-        "=&f"(d[8]), "=&f"(d[9]), "=&f"(d[10]), "=&f"(d[11]), "=&f"(d[12]), "=&f"(d[13]), "=&f"(d[14]), "=&f"(d[15]),
-        "=&f"(d[16]), "=&f"(d[17]), "=&f"(d[18]), "=&f"(d[19]), "=&f"(d[20]), "=&f"(d[21]), "=&f"(d[22]), "=&f"(d[23]),
-        "=&f"(d[24]), "=&f"(d[25]), "=&f"(d[26]), "=&f"(d[27]), "=&f"(d[28]), "=&f"(d[29]), "=&f"(d[30]), "=&f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
-}
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers, B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers, B from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0: a p
-// under 2^-126 of its row's maximum is below float32's resolution of the
-// sums it joins.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The register fragments of one warpgroup (64 query rows). Thread (warp w,
 // lane = 4 g + t) holds rows 16 w + g and 16 w + g + 8; accumulator
 // element 4 j + 2 h + c is row 16 w + g + 8 h, column 8 j + 2 t + c.
@@ -246,8 +92,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
-                              __nv_bfloat16* __restrict__ out, int hq, int group, int lq, int lk,
-                              int causal, int q_offset, float scale_log2) {
+                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                              int lse_ld, int hq, int group, int lq, int lk, int causal,
+                              int q_offset, float scale_log2) {
   using S = Smem<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -443,89 +290,57 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(row) * DH + 8 * j + 2 * t4) =
           __floats2bfloat162_rn(a, c);
     }
+    // the row's log-sum-exp in the log2 domain, log2 sum_j 2^(s_j * scale
+    // log2 e) = m + log2 l, for the backward (+inf for a row with no key)
+    if (lse != nullptr && t4 == 0)
+      lse[static_cast<size_t>(bh) * lse_ld + row] = lsum > 0.f ? m[hh] + log2f(lsum) : INFINITY;
   }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint, so the
-// build needs no link flag.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a contiguous bf16 [planes, rows, dh] tensor in 64 x 64
-// boxes with the 128-byte swizzle: a box past `rows` is zero-filled, not
-// read from the next plane.
-int tensor_map(CUtensorMap* map, const void* base, int dh, int rows, int planes) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
-                                 static_cast<cuuint64_t>(rows) * dh * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
-           int lq, int lk, int causal, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int lse_ld,
+           int b, int hq, int hkv, int lq, int lk, int causal, int q_offset, float scale,
+           cudaStream_t stream) {
+  // a runtime call first: it makes the device's context current on this
+  // thread (the training recompute runs on autograd's), which the driver's
+  // tensor-map encoding below needs
+  auto kernel = flash_attention_tc_kernel<DH>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Smem<DH>::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, DH, lq, b * hq);
   if (err == 0) err = tensor_map(&tk, k, DH, lk, b * hkv);
   if (err == 0) err = tensor_map(&tv, v, DH, lk, b * hkv);
   if (err != 0) return err;
-  auto kernel = flash_attention_tc_kernel<DH>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Smem<DH>::kBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b * hq, (lq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, Smem<DH>::kBytes, stream>>>(tq, tk, tv,
-                                                      static_cast<__nv_bfloat16*>(out), hq,
-                                                      hq / hkv, lq, lk, causal, q_offset,
-                                                      scale * kLog2e);
+                                                      static_cast<__nv_bfloat16*>(out), lse,
+                                                      lse_ld, hq, hq / hkv, lq, lk, causal,
+                                                      q_offset, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: [b, hq, lq, dh], k, v: [b, hkv, lk, dh], out: [b, hq, lq, dh], all
-// contiguous bfloat16, 16-byte aligned, dh 64 or 128. The caller guarantees
+// contiguous bfloat16, 16-byte aligned, dh 64 or 128; lse: null, or float32
+// [b * hq] rows of lse_ld >= lq elements that receive each query row's
+// log-sum-exp of its scaled scores in the log2 domain (the output is the
+// same either way). The caller guarantees
 // b, hq, hkv, lq, lk >= 1, hq % hkv == 0, b * hq < 2**31, ceil(lq / kBQ)
 // <= 65,535 (kBQ = 192, flash_attention_tc_block_rows) and, when causal,
 // q_offset + lq <= lk. Returns the cudaError_t of
 // the launch (0 on success; cudaErrorInvalidValue for another dh).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         int b, int hq, int hkv, int lq, int lk, int dh,
-                                         int causal, int q_offset, float scale,
-                                         cudaStream_t stream) {
-  if (dh == 128) return launch<128>(q, k, v, out, b, hq, hkv, lq, lk, causal, q_offset, scale,
-                                    stream);
-  if (dh == 64) return launch<64>(q, k, v, out, b, hq, hkv, lq, lk, causal, q_offset, scale,
-                                  stream);
+                                         float* lse, int lse_ld, int b, int hq, int hkv,
+                                         int lq, int lk, int dh, int causal, int q_offset,
+                                         float scale, cudaStream_t stream) {
+  if (dh == 128) return launch<128>(q, k, v, out, lse, lse_ld, b, hq, hkv, lq, lk, causal,
+                                    q_offset, scale, stream);
+  if (dh == 64) return launch<64>(q, k, v, out, lse, lse_ld, b, hq, hkv, lq, lk, causal,
+                                  q_offset, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

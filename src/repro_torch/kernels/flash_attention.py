@@ -24,10 +24,17 @@ q's type. :func:`route` picks the kernel from Lq, the type and Dh alone:
   one bf16 rounding of P would break the float32 reference's limit (the
   source says by how much), the split keeps it at 6·Dh tensor-core FLOP
   per admitted pair instead of 4·Dh. Counted in ``launches`` and
-  ``tc_launches``.
+  ``tc_launches``. Asked with ``return_lse=True`` (the training forward)
+  it also writes each row's log-sum-exp, in the log2 domain of its scaled
+  scores, for the backward's tensor-core route; such a call takes this
+  kernel at any Lq.
 - ``"simt"`` — the other ``Lq > 16`` calls (float32; bf16 with another
   Dh): ``csrc/flash_attention.cu``, a 64-row tile on the float32 CUDA
   cores. Counted in ``launches``.
+
+The backward's route, :func:`bwd_route`, is ``"tc"`` (bf16, Dh 64 or
+128: ``csrc/flash_attention_bwd_tc.cu``, from the forward's log-sum-exp)
+or ``"simt"`` (float32: ``csrc/flash_attention_bwd.cu``).
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
@@ -36,20 +43,22 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import build
 
-__all__ = ["flash_attention_cuda", "check_contract", "route", "plan_splits", "decode_rows",
-           "decode_slots", "kernel_attributes"]
+__all__ = ["flash_attention_cuda", "check_contract", "route", "bwd_route", "lse_row_stride",
+           "plan_splits", "decode_rows", "decode_slots", "kernel_attributes"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
 DECODE_ROWS = 16  # Lq up to this takes the decode kernel
-TC_HEAD_DIMS = (64, 128)  # bf16 Dh the tensor-core kernel is built for
+TC_HEAD_DIMS = (64, 128)  # bf16 Dh the tensor-core kernels are built for
+LSE_ROW_ALIGN = 64  # the log-sum-exp's rows: whole boxes of the backward's TMA loads
+BWD_HEAD_DIMS = (64, 128)  # Dh the backward's kernels are built for
 DECODE_BLOCK_ROWS = 8  # query rows a decode block holds at most
 DECODE_MIN_KEYS = 256  # keys a split takes at least
 
@@ -72,6 +81,24 @@ def route(lq: int, dtype: torch.dtype, dh: int) -> str:
     if lq <= DECODE_ROWS:
         return "decode"
     return "tc" if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS else "simt"
+
+
+def lse_row_stride(lq: int) -> int:
+    """Floats between two heads' log-sum-exp rows: ``Lq`` rounded up to
+    :data:`LSE_ROW_ALIGN`."""
+    return -(-lq // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
+
+
+def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
+    """The backward kernel a call takes: ``"tc"`` for bf16 with Dh 64 or
+    128 (the tensor cores, from the forward's log-sum-exp), ``"simt"`` for
+    float32 with Dh 64 or 128 (the CUDA cores); None where no kernel is
+    built."""
+    if dh not in BWD_HEAD_DIMS:
+        return None
+    if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+        return "tc"
+    return "simt" if dtype == torch.float32 else None
 
 
 def plan_splits(heads: int, admitted: int, slots: int, max_splits: int) -> tuple[int, int]:
@@ -147,10 +174,15 @@ def _workspace(key: tuple, device: torch.device, n: int) -> torch.Tensor:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                         causal: bool = True, q_offset: int = 0, return_lse: bool = False):
     """Attention of ``q [B, Hq, Lq, Dh]`` over ``k, v [B, Hkv, Lk, Dh]`` on
     the card; returns ``[B, Hq, Lq, Dh]`` in q's type, through the kernel
-    :func:`route` names.
+    :func:`route` names. With ``return_lse`` it returns ``(out, lse)``
+    from the tensor-core kernel at any Lq (bf16, Dh 64 or 128 only):
+    ``lse [B, Hq, Lq]`` float32, each row's ``log2 Σⱼ 2^(sⱼ/√Dh · log2 e)``
+    over its admitted keys (+inf for a row with none), a view whose head
+    rows are :func:`lse_row_stride` floats apart; ``out`` is the
+    tensor-core kernel's output bit for bit.
 
     Raises on the TPU kernel's contracts (:func:`check_contract`), and on
     anything but contiguous CUDA tensors of one type (float32 or bfloat16)
@@ -183,10 +215,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"on {t.device} (contiguous: {t.is_contiguous()})")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    if return_lse and not (q.dtype == torch.bfloat16 and dh in TC_HEAD_DIMS):
+        raise ValueError(f"flash_attention: the log-sum-exp comes from the tensor-core kernel "
+                         f"(bf16, Dh {TC_HEAD_DIMS}), got {q.dtype}, Dh={dh}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, lse_row_stride(lq)), dtype=torch.float32,
+                       device=q.device)[..., :lq] if return_lse else None)
     if b == 0 or hq == 0 or lq == 0:
-        return out
-    kind = route(lq, q.dtype, dh)
+        return (out, lse) if return_lse else out
+    kind = "tc" if return_lse else route(lq, q.dtype, dh)
     lib = build.library()
     if kind != "decode":
         tile = (lib.flash_attention_tc_block_rows() if kind == "tc"
@@ -216,8 +253,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         build.check_launch("flash_decode", err)
         flash_attention_cuda.decode_launches += 1
     elif kind == "tc":
-        err = lib.flash_attention_tc_launch(*ptrs, b, hq, hkv, lq, lk, dh, int(causal), q_offset,
-                                            scale, stream)
+        lse_ptr, lse_ld = (None, 0) if lse is None else (lse.data_ptr(), lse.stride(1))
+        build.int32_arg("flash_attention", "b*hq*lse_ld", b * hq * lse_ld)
+        err = lib.flash_attention_tc_launch(*ptrs, lse_ptr, lse_ld, b, hq, hkv, lq, lk, dh,
+                                            int(causal), q_offset, scale, stream)
         build.check_launch("flash_attention (tensor cores)", err)
         flash_attention_cuda.launches += 1
         flash_attention_cuda.tc_launches += 1
@@ -226,7 +265,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          q_offset, scale, stream)
         build.check_launch("flash_attention", err)
         flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0

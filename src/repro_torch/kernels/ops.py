@@ -8,7 +8,8 @@ tensor raises. A failed build or launch raises — nothing falls back.
 :func:`flash_attention` are differentiable. The gather's and the
 embedding bag's backward are segment sums into the rows the ids touch,
 so on the card they launch the ``segment_sum`` kernel; the attention's
-backward launches its own kernel, ``flash_attention_bwd``.
+backward launches its own kernels, ``flash_attention_bwd`` (in bf16 on
+the tensor cores, from the log-sum-exp the forward kept).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from . import ref
 from .ref import ACC_DTYPE
 from .embedding_bag import embedding_bag_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import bwd_route, flash_attention_cuda
 from .flash_attention_bwd import flash_attention_bwd_cuda
 from .member_probe import member_probe_cuda
 from .segment_sum import SegmentPlan, segment_plan, segment_sum_cuda
@@ -32,7 +33,8 @@ __all__ = ["set_intersect", "member_probe", "segment_sum", "gather_rows", "segme
 
 # kernel name: (wrapper, its attribute that counts the kernel's launches).
 # "flash_attention" counts every Lq > 16 call; "flash_attention_tc" the
-# ones among them that took the tensor-core kernel.
+# ones among them that took the tensor-core kernel; "flash_attention_bwd"
+# every backward, "flash_attention_bwd_tc" the ones on the tensor cores.
 _COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
              "set_intersect": (set_intersect_cuda, "launches"),
              "segment_sum": (segment_sum_cuda, "launches"),
@@ -40,7 +42,8 @@ _COUNTERS = {"member_probe": (member_probe_cuda, "launches"),
              "flash_attention": (flash_attention_cuda, "launches"),
              "flash_attention_tc": (flash_attention_cuda, "tc_launches"),
              "flash_decode": (flash_attention_cuda, "decode_launches"),
-             "flash_attention_bwd": (flash_attention_bwd_cuda, "launches")}
+             "flash_attention_bwd": (flash_attention_bwd_cuda, "launches"),
+             "flash_attention_bwd_tc": (flash_attention_bwd_cuda, "tc_launches")}
 
 
 def _use_kernel(t: torch.Tensor, use_kernels: bool, name: str) -> bool:
@@ -266,8 +269,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
     With grad mode on and any input requiring grad it is differentiable
     (:class:`_FlashAttention`): on the card the backward is the
-    ``flash_attention_bwd`` kernel (causal, offset 0, ``Lq = Lk``, Dh 64 or
-    128; it raises on anything else), with ``use_kernels=False`` the plain
+    ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, Dh 64 or
+    128, the route :func:`~repro_torch.kernels.flash_attention.bwd_route`
+    names; it raises on anything else), with ``use_kernels=False`` the plain
     :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, q_offset, use_kernels)
@@ -284,24 +288,32 @@ def _flash_attention(q, k, v, causal, q_offset, use_kernels) -> torch.Tensor:
 class _FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` as a function of q, k and v. The kernel
     route saves the output, whose ``rowsum(dO ∘ O)`` the backward kernel
-    reads; the plain backward recomputes everything from q, k and v."""
+    reads, and, where the backward takes the tensor cores, the forward
+    kernel's log-sum-exp of each row (under remat, the recompute's); the
+    plain backward recomputes everything from q, k and v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, use_kernels):
-        out = _flash_attention(q, k, v, causal, q_offset, use_kernels)
+        lse = None
+        if (_use_kernel(q, use_kernels, "flash_attention") and causal and q_offset == 0
+                and bwd_route(q.dtype, q.shape[-1]) == "tc"):
+            out, lse = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=True, q_offset=0, return_lse=True)
+        else:
+            out = _flash_attention(q, k, v, causal, q_offset, use_kernels)
         ctx.causal, ctx.q_offset, ctx.use_kernels = causal, q_offset, use_kernels
-        ctx.save_for_backward(q, k, v, out if use_kernels else None)
+        ctx.save_for_backward(q, k, v, out if use_kernels else None, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if _use_kernel(dout, ctx.use_kernels, "flash_attention"):
             if not ctx.causal or ctx.q_offset != 0:
                 raise NotImplementedError("flash_attention_bwd: the kernel takes causal "
                                           "attention at offset 0 only")
             grads = flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             out, dout.contiguous())
+                                             out, dout.contiguous(), lse)
         else:
             grads = ref.flash_attention_bwd_ref(q, k, v, dout, causal=ctx.causal,
                                                 q_offset=ctx.q_offset)

@@ -15,7 +15,8 @@ __all__ = ["set_intersect_ref", "set_intersect_layout_ref", "set_intersect_searc
            "member_probe_ref", "probe_key", "member_probe_two_level_ref",
            "segment_sum_ref", "segment_sum_plan_ref",
            "embedding_bag_ref",
-           "flash_attention_ref", "flash_attention_bwd_ref", "split_p", "flash_attention_hilo_ref", "split_k_partials",
+           "flash_attention_ref", "flash_attention_bwd_ref", "split_p", "flash_attention_hilo_ref",
+           "flash_attention_lse_ref", "flash_attention_bwd_tc_ref", "split_k_partials",
            "merge_split_k", "flash_attention_bwd_limits", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
@@ -369,7 +370,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q, k, v`` given ``dout``, the output's gradient, each in its input's
     type.
 
-    The plain version of ``csrc/flash_attention_bwd.cu``, written as
+    The plain version of ``csrc/flash_attention_bwd.cu`` and
+    ``csrc/flash_attention_bwd_tc.cu``, written as
     autograd differentiates the forward: in float32, a query slice of
     ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time (as JAX recomputes each
     query chunk's softmax in its backward), the scores and ``P`` are
@@ -409,9 +411,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Mirrors of the attention kernels' algebra (for the tests only): the
-# tensor-core kernel's split of P and the decode kernel's split-K merge.
-# Both take scores in the log2 domain, s · (1/√Dh · log2 e), as the
-# kernels do, and exp2.
+# tensor-core kernel's split of P and its log-sum-exp, the tensor-core
+# backward, and the decode kernel's split-K merge. They take scores in the
+# log2 domain, s · (1/√Dh · log2 e), as the kernels do, and exp2.
 # ---------------------------------------------------------------------------
 
 _LOG2E = 1.4426950408889634
@@ -441,12 +443,15 @@ def _grouped(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int):
 
 def flash_attention_hilo_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, q_offset: int = 0, tile: int = 64,
-                             split: bool = True) -> torch.Tensor:
+                             split: bool = True, return_lse: bool = False):
     """The tensor-core kernel's arithmetic in plain PyTorch: float32
     scores over key tiles of ``tile``, an online softmax, P split by
     :func:`split_p` and ``hi·V + lo·V`` summed in float32, ``l`` summed from
     the float32 p, the output rounded once to q's type. ``split=False``
-    rounds P once to bf16 instead (what the kernel does not do)."""
+    rounds P once to bf16 instead (what the kernel does not do).
+    ``return_lse`` also returns what the kernel writes for the backward:
+    ``m + log2 l`` of each row, ``[B, Hq, Lq]`` float32 (+inf for a row
+    with no key)."""
     b, hq, lq, dh = q.shape
     lk = k.shape[2]
     qs, kt, scale, kend = _grouped(q, k, causal, q_offset)
@@ -472,7 +477,77 @@ def flash_attention_hilo_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
-    return out.reshape(b, hq, lq, dh).to(q.dtype)
+    out = out.reshape(b, hq, lq, dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log2(l), math.inf)
+    return out, lse.reshape(b, hq, lq)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of its admitted scaled scores in the log2
+    domain, ``log2 Σⱼ 2^(sⱼ)`` with ``s = q·k / √Dh · log2 e``, as
+    ``[B, Hq, Lq]`` float32 (+inf for a row with no key): the max ``m``
+    and ``m + log2 Σⱼ 2^(sⱼ − m)``, in float32."""
+    b, hq, lq, _ = q.shape
+    lk = k.shape[2]
+    qs, kt, scale, kend = _grouped(q, k, causal, q_offset)
+    s = torch.matmul(qs, kt) * scale
+    s = s.masked_fill(torch.arange(lk)[None, :] >= kend[:, None], -math.inf)
+    m = s.amax(-1)
+    m_use = torch.where(m == -math.inf, 0.0, m)
+    l = torch.exp2(s - m_use[..., None]).sum(-1)
+    return torch.where(l > 0, m_use + torch.log2(l), math.inf).reshape(b, hq, lq)
+
+
+def flash_attention_bwd_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                               split: bool = True):
+    """The tensor-core backward's arithmetic (``csrc/flash_attention_bwd_tc.cu``)
+    in plain PyTorch, causal at offset 0, ``(dq, dk, dv)`` each in its
+    input's type: over 64-row query tiles, S and dP in float32
+    from the operands, ``P = 2^(S · scale · log2 e − lse)`` from the given
+    log2-domain log-sum-exp (``lse [B, Hq, L]``, as the forward kernel
+    writes it; 0 past the diagonal), ``D = rowsum(dO ∘ O)`` in float32 from
+    ``out``, ``dS = P ∘ (dP − D)``; ``dV = Σ Pᵀ dO`` with P split by
+    :func:`split_p` into ``hi + lo`` (``split=False`` rounds P once to
+    bf16, what the kernel does not do); dS rounded once to bf16 for
+    ``dQ = scale · dS K`` and ``dK = scale · Σ dSᵀ Q``; dK and dV summed over
+    each KV head's query heads in float32."""
+    b, hq, l, dh = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    c = torch.tensor(scale * _LOG2E, dtype=torch.float32)
+    kf, vf = k.float(), v.float()
+    qg = q.float().reshape(b, hkv, group, l, dh)
+    dg = dout.float().reshape(b, hkv, group, l, dh)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, group, l)
+    lg = lse.reshape(b, hkv, group, l)
+    dq = torch.empty((b, hkv, group, l, dh), dtype=torch.float32)
+    dk = torch.zeros((b, hkv, l, dh), dtype=torch.float32)
+    dv = torch.zeros((b, hkv, l, dh), dtype=torch.float32)
+    keys = torch.arange(l)
+    for s0 in range(0, l, 64):
+        rows = min(64, l - s0)
+        qs = qg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, dh)
+        ds_ = dg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, dh)
+        st = lg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, 1)
+        dd = delta[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, 1)
+        pos = torch.arange(s0, s0 + rows).repeat(group)
+        p = torch.exp2(torch.matmul(qs, kf.transpose(-1, -2)) * c - st)
+        p = p.masked_fill(keys[None, :] > pos[:, None], 0.0)
+        dp = torch.matmul(ds_, vf.transpose(-1, -2))
+        hi, lo = split_p(p)
+        dv += torch.matmul(hi.float().transpose(-1, -2), ds_)
+        if split:
+            dv += torch.matmul(lo.float().transpose(-1, -2), ds_)
+        dsc = (p * (dp - dd)).to(torch.bfloat16).float()
+        dq[:, :, :, s0:s0 + rows] = (scale * torch.matmul(dsc, kf)).view(b, hkv, group, rows,
+                                                                          dh)
+        dk += torch.matmul(dsc.transpose(-1, -2), qs)
+    return (dq.reshape(q.shape).to(q.dtype), (scale * dk).to(k.dtype), dv.to(v.dtype))
 
 
 def split_k_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -531,6 +606,11 @@ def flash_attention_bwd_limits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     · Dmag`` and dQ, dK by that through ``P ∘ Dmag / √Dh`` (``MD``); and each
     gradient is one rounding of such a float32 value, off by at most ``2⁻⁸``
     of its size: ``2⁻⁸ |want| + (1 + 2⁻⁸)(2e-5 · M + (2⁻⁸ + 2e-5) · MD)``.
+    The tensor-core kernel rounds dS once to bf16 before dQ and dK (up to
+    2⁻⁹ of each term of their sums); on random bf16 inputs that keeps dQ
+    and dK within 0.15–0.34 of these limits (its mirror,
+    :func:`flash_attention_bwd_tc_ref`, in the CPU tests and the kernel on
+    the card), while P rounded once would break dV's by 35–75×.
     Computed a query slice at a time, as :func:`flash_attention_bwd_ref`.
     """
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float())

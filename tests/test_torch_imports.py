@@ -187,6 +187,6 @@ def test_no_source_imports_jax_or_repro():
 def test_kernel_sources_are_shipped():
     csrc = os.path.join(PKG, "kernels", "csrc")
     assert sorted(os.listdir(csrc)) == ["embedding_bag.cu", "flash_attention.cu",
-                                        "flash_attention_bwd.cu", "flash_attention_tc.cu",
-                                        "flash_decode.cu", "member_probe.cu", "segment_sum.cu",
-                                        "set_intersect.cu"]
+                                        "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
+                                        "flash_attention_tc.cu", "flash_decode.cu", "hopper.cuh",
+                                        "member_probe.cu", "segment_sum.cu", "set_intersect.cu"]

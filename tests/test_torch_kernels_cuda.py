@@ -9,8 +9,10 @@ in bfloat16), one-row bags equal; member_probe and embedding_bag on offset
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
 float32, and within one bfloat16 rounding of that in bfloat16, on each of
 its three kernels; flash_attention_bwd's dQ, dK and dV element by element
-within ref.flash_attention_bwd_limits, repeatable, and through autograd).
-Imports no
+within ref.flash_attention_bwd_limits on both routes (bf16 on the tensor
+cores from the forward's log-sum-exp, float32 on the CUDA cores),
+repeatable, and through autograd; the forward's log-sum-exp within 1e-5 of
+torch.logsumexp, its output bitwise unchanged by it). Imports no
 JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -576,32 +578,64 @@ def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
     (1, 4, 1, 200, 128),    # group 4, tiles past the diagonal skipped
     (2, 16, 2, 65, 64),     # group 8, one row past a tile
     (1, 3, 3, 128, 128),    # whole tiles
+    (2, 6, 2, 17, 128),     # group 3, one partial tile of 17 rows
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, hq, hkv, l, dh, dtype):
     """dQ, dK and dV element by element against the plain backward on the
     inputs in float32, within ``ref.flash_attention_bwd_limits`` (its
-    docstring derives them); two launches bitwise equal (no atomics)."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    docstring derives them); two launches bitwise equal (no atomics). bf16
+    takes the tensor cores from the forward's log-sum-exp, float32 the
+    CUDA cores."""
+    from repro_torch.kernels.flash_attention import bwd_route, flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
     q, k, v = _attn_inputs(l + dh, b, hq, hkv, l, l, dh, dtype, cuda_device)
     (dout,) = _attn_inputs(l + dh + 1, b, hq, hkv, l, l, dh, dtype, cuda_device)[:1]
-    out = flash_attention_cuda(q, k, v, causal=True, q_offset=0)
-    got = flash_attention_bwd_cuda(q, k, v, out, dout)
+    if bwd_route(dtype, dh) == "tc":
+        out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    else:
+        out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0), None
+    before = flash_attention_bwd_cuda.tc_launches
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    assert flash_attention_bwd_cuda.tc_launches - before == int(dtype == torch.bfloat16)
     assert [g.dtype for g in got] == [dtype] * 3
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
     want, limit = ref.flash_attention_bwd_limits(q, k, v, dout)
     for g, w, lim in zip(got, want, limit):
         assert float(((g.float() - w).abs() / lim).max()) <= 1.0
-    again = flash_attention_bwd_cuda(q, k, v, out, dout)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l,dh", [(17, 128), (300, 64), (1000, 128)])
+def test_flash_attention_forward_lse(cuda_device, l, dh):
+    """The tensor-core forward's log-sum-exp: each row's log2-domain
+    ``log2 Σⱼ 2^(sⱼ/√Dh · log2 e)`` within 1e-5 of max(1, |lse|) of
+    ``torch.logsumexp`` of the masked scores; the output bitwise the same
+    as without it; its rows a multiple of 64 floats apart."""
+    import math
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(l, 2, 6, 2, l, l, dh, torch.bfloat16, cuda_device)
+    out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=True, q_offset=0))
+    assert lse.shape == (2, 6, l) and lse.dtype == torch.float32 and lse.stride(1) % 64 == 0
+    s = torch.matmul(q.float(), k.float().repeat_interleave(3, dim=1).transpose(-1, -2))
+    s = (s / math.sqrt(dh)).masked_fill(
+        torch.ones(l, l, dtype=torch.bool, device=cuda_device).triu(1), -math.inf)
+    want = torch.logsumexp(s, -1) / math.log(2.0)
+    assert float(((lse - want).abs() / want.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
 def test_flash_attention_bwd_kernel_through_autograd(cuda_device):
-    """``ops.flash_attention`` with grad: the backward launches the kernel
-    once and gives its gradients; serving (no grad) launches it never."""
+    """``ops.flash_attention`` with grad: the forward keeps the log-sum-exp,
+    the backward launches the tensor-core kernels once and gives their
+    gradients; serving (no grad) launches it never."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
     q, k, v = _attn_inputs(3, 1, 6, 2, 90, 90, 128, torch.bfloat16, cuda_device)
@@ -613,14 +647,17 @@ def test_flash_attention_bwd_kernel_through_autograd(cuda_device):
     out = ops.flash_attention(*leaves, use_kernels=True)
     out.backward(dout)
     counts = ops.launch_counts()
-    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 1)
-    want = flash_attention_bwd_cuda(q, k, v, out.detach(), dout)
+    assert (counts["flash_attention"], counts["flash_attention_tc"]) == (2, 2)
+    assert (counts["flash_attention_bwd"], counts["flash_attention_bwd_tc"]) == (1, 1)
+    _, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    want = flash_attention_bwd_cuda(q, k, v, out.detach(), dout, lse)
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
 
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_kernel_refuses(cuda_device):
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
     q, k, v = _attn_inputs(5, 1, 4, 2, 40, 40, 96, torch.bfloat16, cuda_device)
@@ -632,6 +669,18 @@ def test_flash_attention_bwd_kernel_refuses(cuda_device):
     q, k, v = _attn_inputs(5, 1, 4, 2, 40, 40, 64, torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="type"):
         flash_attention_bwd_cuda(q, k, v.float(), q, q)
+    # the bf16 route needs the forward's log-sum-exp, in its padded rows
+    out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd_cuda(q, k, v, out, out)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd_cuda(q, k, v, out, out, lse.contiguous())
+    # the float32 route recomputes it and takes none; the forward keeps none in float32
+    qf, kf, vf = q.float(), k.float(), v.float()
+    with pytest.raises(ValueError, match="lse must be None"):
+        flash_attention_bwd_cuda(qf, kf, vf, qf, qf, lse)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_cuda(qf, kf, vf, causal=True, q_offset=0, return_lse=True)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     with pytest.raises(NotImplementedError, match="offset 0"):
         ops.flash_attention(*leaves, causal=False, use_kernels=True).sum().backward()
