@@ -222,10 +222,18 @@ since the script started (all but the last line):
    8,206 and with command-r's 64 / 8 heads on the split-K decode kernel;
    a Dh 64 bf16 prefill), at MLA's (``mla_minicpm3_prefill`` q [4, 40,
    4096, 96] and ``mla_deepseek_prefill`` q [4, 16, 4096, 192] over 4,112
-   keys on the CUDA-core kernel, and both at decode, Lq 1, offset 4,096,
-   group 1; V zero-padded from 64 / 128 columns as the model pads it, the
-   padded columns' outputs zero, the bound counted from the function's own
-   widths with the padded call's bytes and FLOP beside it), at granite's
+   keys on the tensor-core kernel, and both at decode, Lq 1, offset 4,096,
+   group 1, on the decode kernel; V at its own 64 / 128 columns, as the
+   model passes it, padded by the wrapper for the decode kernel only; the
+   bound counted from the function's own widths, the tensor-core kernel's
+   issued FLOP and the decode call's padded bytes and FLOP beside it; SDPA
+   on V at its own width, and on V zero-padded, beside it; each decode
+   case also timed on V as the model hands it over, a head-major view,
+   against two other ways of building the padded V), at the MLA float32
+   gates' (``mla_minicpm3_f32_gate`` q [2, 40, 1024, 96] over 1,032 keys
+   and ``mla_deepseek_f32_gate`` q [2, 16, 512, 192] over 520 on the
+   CUDA-core kernel, and both at decode, Lq 1, on V the wrapper pads),
+   at granite's
    and command-r's (``granite_prefill`` q [4, 24, 8192, 64] over [4, 8,
    8208, 64] and ``command_r_prefill`` q [2, 64, 4096, 128] over [2, 8,
    4112, 128] on the tensor-core kernel, and both at decode, Lq 1, offsets
@@ -234,7 +242,7 @@ since the script started (all but the last line):
    Lk; non-causal; Lk not a multiple of the tile; a bf16 Dh 20 must raise),
    each with the route it took.
    Each output element is held to the plain version on the inputs in
-   float32 (see ``attention_limits``): within 1e-5 * sum_j p_j |v_j| in
+   float32 (``ref.flash_attention_limits``): within 1e-5 * sum_j p_j |v_j| in
    float32, and within one bf16 rounding of that in bf16. With the
    kernel's, the plain version's and ``scaled_dot_product_attention``'s
    median ms beside the bound (and, under 1 ms, the kernel's and SDPA's
@@ -266,8 +274,8 @@ since the script started (all but the last line):
    (widths, parameters, active parameters, cache GiB, the prefill's
    product FLOP, predicted launches); the kernel run (prefill seconds and
    TFLOP/s, decode ms a step, tokens a second, peak and resident GiB,
-   ``flash_attention`` launches one a layer, on the tensor cores for
-   granite and command-r and on the CUDA cores for MLA, ``flash_decode``
+   ``flash_attention`` launches one a layer, all on the tensor cores,
+   ``flash_decode``
    one a layer a step, checked; with MoE the expert loop's routed rows and
    experts run a layer and its host seconds); the plain run, teacher-forced
    on the kernel run's tokens, with MoE on its routing decisions
@@ -2853,21 +2861,36 @@ def sdpa_call(q, k, v, off, causal):
     return lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask, enable_gqa=True)
 
 
-def attention_limits(q, k, v, off, causal):
-    """The plain version on the inputs in float32, and the limit each
-    output element is held to. A float32 evaluation of the softmax-weighted
-    mean sum_j p_j v_j errs by some float32 roundings of sum_j p_j |v_j|
-    (the plain version over |v|): the float32 limit is 1e-5 of that. A
-    bfloat16 output is one rounding of such a float32 value, off by at
-    most 2**-8 of its size."""
-    from repro_torch.kernels import ref
+def v_layout_ms(q, k, v, vpad, got, off, causal):
+    """Device ms of one decode call (20 in a row) on V of Dv < Dqk handed
+    over as ``models/transformer.py`` ``_mla_attention`` builds it, a
+    head-major view of the ``[B, Lk, H·Dv]`` product, three ways: the view
+    itself (the wrapper's one pad), the view made contiguous first (a copy,
+    then the pad), and the view written into a zero-filled Dqk-wide buffer
+    (a fill and a strided write, the output sliced); and, for the pad's
+    cost, the kernel alone on ``vpad``, V padded before the call. Each
+    gives ``got`` bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    want = ref.flash_attention_ref(q32, k32, v32, causal=causal, q_offset=off)
-    limit = 1e-5 * ref.flash_attention_ref(q32, k32, v32.abs(), causal=causal, q_offset=off)
-    if q.dtype == torch.bfloat16:
-        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
-    return want, limit
+    b, hkv, lk, dv = v.shape
+    view = v.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def zero_filled():
+        vp = torch.zeros((b, hkv, lk, q.shape[-1]), dtype=v.dtype, device=v.device)
+        vp[..., :dv] = view
+        return flash_attention_cuda(q, k, vp, causal=causal, q_offset=off)[..., :dv]
+
+    ways = {"view_padded_in_wrapper": lambda: flash_attention_cuda(q, k, view, causal=causal,
+                                                                   q_offset=off),
+            "contiguous_then_padded": lambda: flash_attention_cuda(q, k, view.contiguous(),
+                                                                   causal=causal, q_offset=off),
+            "zero_filled_buffer": zero_filled,
+            "padded_before_the_call": lambda: flash_attention_cuda(
+                q, k, vpad, causal=causal, q_offset=off)[..., :dv]}
+    for name, fn in ways.items():
+        check(torch.equal(fn(), got), f"flash_attention decode on V {name}: not the "
+                                      f"contiguous call's output bit for bit")
+    return {name: cuda_ms(fn, per=20) for name, fn in ways.items()}
 
 
 def flash_attention_phase():
@@ -2903,13 +2926,19 @@ def flash_attention_phase():
         "dh20": (2, 4, 2, 50, 77, 20, 27, True, (f32,)),
         "dh20_lq3": (2, 4, 2, 3, 77, 20, 74, True, (f32,)),
         # MLA (LM_CELLS' shapes): q and k of qk_nope + qk_rope columns, v of
-        # v_head columns zero-padded to that width, as models/transformer.py
-        # _mla_attention calls the kernels; prefill on the CUDA-core kernel,
-        # decode at group 1; the last field is the function's own value width
+        # v_head columns (the last field), as models/transformer.py
+        # _mla_attention calls the kernels; prefill on the tensor cores at
+        # those widths, decode at group 1 on V the wrapper pads
         "mla_minicpm3_prefill": (4, 40, 40, 4096, 4112, 96, 0, True, (bf16,), 64),
         "mla_deepseek_prefill": (4, 16, 16, 4096, 4112, 192, 0, True, (bf16,), 128),
         "mla_minicpm3_decode": (4, 40, 40, 1, 4112, 96, 4096, True, (bf16,), 64),
         "mla_deepseek_decode": (4, 16, 16, 1, 4112, 192, 4096, True, (bf16,), 128),
+        # the MLA float32 gates (LM_CELLS' gate shapes): prefill on the CUDA
+        # cores and decode, each on V the wrapper pads to Dqk
+        "mla_minicpm3_f32_gate": (2, 40, 40, 1024, 1032, 96, 0, True, (f32,), 64),
+        "mla_deepseek_f32_gate": (2, 16, 16, 512, 520, 192, 0, True, (f32,), 128),
+        "mla_minicpm3_f32_gate_decode": (2, 40, 40, 1, 1032, 96, 1024, True, (f32,), 64),
+        "mla_deepseek_f32_gate_decode": (2, 16, 16, 1, 520, 192, 512, True, (f32,), 128),
         # granite-moe-3b-a800m (Dh 64, 24 query heads over 8) and command-r-35b
         # (Dh 128, 64 over 8) at LM_CELLS' shapes: prefill on the tensor cores
         "granite_prefill": (4, 24, 8, 8192, 8208, 64, 0, True, (bf16,)),
@@ -2929,22 +2958,20 @@ def flash_attention_phase():
         dv = rest[0] if rest else dh
         for dtype in dtypes:
             q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
-                       for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)))
-            v[..., dv:] = 0
+                       for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dv)))
+            kind = route(lq, dtype, dh, dv)
             got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+            check(tuple(got.shape) == (b, hq, lq, dv), f"flash_attention {name}: output "
+                                                       f"{tuple(got.shape)}")
             want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
-            want32, limit = attention_limits(q, k, v, off, causal)
+            want32, limit = ref.flash_attention_limits(q, k, v, causal, off)
             dev = (got.float() - want32).abs()
-            # the padded value columns are held to exactly zero below; their
-            # limit is zero
-            worst = float((dev[..., :dv] / limit[..., :dv]).max())
+            worst = float((dev / limit).max())
             err = float((got.float() - want.float()).abs().max())
             tag = str(dtype).split(".")[-1]
             check(worst <= 1.0, f"flash_attention {name} {tag}: |kernel - plain in float32| "
                                 f"reaches {worst} of its limit")
-            check(not got[..., dv:].any(), f"flash_attention {name}: the zero value columns "
-                                           "gave nonzero outputs")
-            rec = {"case": name, "dtype": tag, "route": route(lq, dtype, dh), "b": b, "hq": hq,
+            rec = {"case": name, "dtype": tag, "route": kind, "b": b, "hq": hq,
                    "hkv": hkv, "lq": lq, "lk": lk, "dh": dh, "q_offset": off, "causal": causal,
                    "max_abs_err": err,
                    "max_abs_ref": float(want32.abs().max()),
@@ -2952,15 +2979,31 @@ def flash_attention_phase():
             del want32, limit, dev
             admitted, flops, n_bytes = attention_work(b, hq, hkv, lq, lk, dh, off, causal,
                                                       q.element_size(), dv)
-            if dv != dh:   # the padded call's own work, beside the function's
+            if dv != dh:
                 rec["dv"] = dv
-                _, rec["padded_flops"], rec["padded_bytes"] = attention_work(
-                    b, hq, hkv, lq, lk, dh, off, causal, q.element_size())
+                if kind == "tc":   # the split P's second product, at V's own width
+                    rec["issued_flops"] = flops + (flops // (dh + dv)) * dv
+                else:              # the one-width kernels run on V padded to dh
+                    _, rec["padded_flops"], rec["padded_bytes"] = attention_work(
+                        b, hq, hkv, lq, lk, dh, off, causal, q.element_size())
             rec["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
                                                              q_offset=off))
             rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, q_offset=off), reps=3)
             rec["library_ms"] = cuda_ms(sdpa_call(q, k, v, off, causal))
+            if dv != dh:
+                # SDPA above on V at its own width; here on V zero-padded to dh
+                rec["library_v"] = "own width"
+                vpad = torch.nn.functional.pad(v, (0, dh - dv))
+                rec["library_padded_ms"] = cuda_ms(sdpa_call(q, k, vpad, off, causal))
+                if kind != "tc":
+                    # the one-width kernel alone on V padded before the call:
+                    # ms less this is the wrapper's pad
+                    rec["padded_input_ms"] = cuda_ms(lambda: flash_attention_cuda(
+                        q, k, vpad, causal=causal, q_offset=off))
+                if kind == "decode":
+                    rec["v_layout_ms_back_to_back"] = v_layout_ms(q, k, v, vpad, got, off, causal)
+                del vpad
             if rec["ms"] < 1.0:
                 # device time without the host's share: 20 calls between two events
                 rec["ms_back_to_back"] = cuda_ms(lambda: flash_attention_cuda(
@@ -2989,13 +3032,20 @@ def flash_kernels_line():
     bf16, f32 = torch.bfloat16, torch.float32
     attrs = {"tc_dh128": fa.kernel_attributes("tc", bf16, 128),
              "tc_dh64": fa.kernel_attributes("tc", bf16, 64),
+             # MLA's prefill: minicpm3-4b (Dqk 96, Dv 64), deepseek-v2-lite-16b (192, 128)
+             "tc_dqk96_dv64": fa.kernel_attributes("tc", bf16, 96, dv=64),
+             "tc_dqk192_dv128": fa.kernel_attributes("tc", bf16, 192, dv=128),
              "decode_rows3": fa.kernel_attributes("decode", bf16, 128, 3),
              "decode_rows8": fa.kernel_attributes("decode", bf16, 128, 8),
+             # the float32 gates' prefill: phi4 / granite (Dh 128 / 64), MLA's (96 / 192)
              "simt_f32": fa.kernel_attributes("simt", f32, 128),
-             "simt_bf16_dh96": fa.kernel_attributes("simt", bf16, 96),
-             "simt_bf16_dh192": fa.kernel_attributes("simt", bf16, 192),
+             "simt_f32_dh96": fa.kernel_attributes("simt", f32, 96),
+             "simt_f32_dh192": fa.kernel_attributes("simt", f32, 192),
              "decode_rows1_dh96": fa.kernel_attributes("decode", bf16, 96, 1),
              "decode_rows1_dh192": fa.kernel_attributes("decode", bf16, 192, 1)}
+    for name in ("tc_dh128", "tc_dh64", "tc_dqk96_dv64", "tc_dqk192_dv128"):
+        check(attrs[name]["local_bytes"] == 0,
+              f"flash_attention {name} spills: {attrs[name]['local_bytes']} local bytes")
     rows, chunks, _ = fa.decode_rows(24, 8, 1)
     slots = fa.decode_slots(torch.device("cuda", torch.cuda.current_device()), 1, 128, rows)
     heads = LM_BATCH * 8 * chunks
@@ -3186,15 +3236,16 @@ def lm_phase():
 # LM slice, the other four configurations: MLA, MoE and command-r-35b
 # ---------------------------------------------------------------------------
 
-# phase, arch, prompts, prompt tokens, generated tokens, the prefill's route,
-# the float32 gate's (prompts, prompt tokens, generated tokens) or None.
-# Each at its _FULL config with random weights from seed 0. prefill_32k
-# (32 x 32,768) is cut as phi4-mini's is; decode_32k and long_500k are left
-# out. command-r-35b has no float32 gate: its weights would take 130 GB.
-LM_CELLS = (("mla_serve", "minicpm3-4b", 4, 4096, 16, "simt", (2, 1024, 8)),
-            ("moe_serve", "deepseek-v2-lite-16b", 4, 4096, 16, "simt", (2, 512, 8)),
-            ("moe_serve", "granite-moe-3b-a800m", 4, 8192, 16, "tc", (2, 1024, 8)),
-            ("lm_large", "command-r-35b", 2, 4096, 16, "tc", None))
+# phase, arch, prompts, prompt tokens, generated tokens, the float32 gate's
+# (prompts, prompt tokens, generated tokens) or None. Each at its _FULL
+# config with random weights from seed 0; every bf16 prefill on the tensor
+# cores (MLA's at its own widths). prefill_32k (32 x 32,768) is cut as
+# phi4-mini's is; decode_32k and long_500k are left out. command-r-35b has
+# no float32 gate: its weights would take 130 GB.
+LM_CELLS = (("mla_serve", "minicpm3-4b", 4, 4096, 16, (2, 1024, 8)),
+            ("moe_serve", "deepseek-v2-lite-16b", 4, 4096, 16, (2, 512, 8)),
+            ("moe_serve", "granite-moe-3b-a800m", 4, 8192, 16, (2, 1024, 8)),
+            ("lm_large", "command-r-35b", 2, 4096, 16, None))
 LM_PATHS = {"phi4-mini-3.8b": "phi4", "minicpm3-4b": "minicpm3",
             "deepseek-v2-lite-16b": "deepseek", "granite-moe-3b-a800m": "granite",
             "command-r-35b": "command_r"}
@@ -3345,7 +3396,7 @@ def lm_prefill_flops(cfg, b: int, s: int, max_len: int) -> int:
     return layers + 2 * b * d * cfg.vocab
 
 
-def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, route: str, gate):
+def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, gate):
     """One configuration of ``LM_CELLS`` served at full width through
     ``serve``: a ``plan`` record, the kernel run, the plain run
     (teacher-forced on the kernel run's tokens, MoE routing replayed),
@@ -3371,8 +3422,7 @@ def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, route:
                     for t in g) / 2**30
     prompt = torch.from_numpy(prompt_tokens(cfg.vocab, batch, prompt_len, 0)).cuda()
     n = cfg.n_layers
-    predicted = {"flash_attention": n, "flash_attention_tc": n if route == "tc" else 0,
-                 "flash_decode": n * (gen - 1)}
+    predicted = {"flash_attention": n, "flash_attention_tc": n, "flash_decode": n * (gen - 1)}
     flops = lm_prefill_flops(cfg, batch, prompt_len, max_len)
     emit({"phase": phase, "record": "plan", "arch": cfg.name, "attn": cfg.attn, "moe": cfg.moe,
           "layers": n, "dense_layers": cfg.n_dense_layers, "moe_layers": cfg.n_moe_layers,
@@ -3383,7 +3433,7 @@ def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, route:
           "shared": cfg.n_shared, "d_ff": cfg.d_ff, "d_expert": cfg.d_expert,
           "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
           "active_params": cfg.active_param_count(), "batch": batch,
-          "prompt_len": prompt_len, "gen": gen, "max_len": max_len, "prefill_route": route,
+          "prompt_len": prompt_len, "gen": gen, "max_len": max_len, "prefill_route": "tc",
           "predicted_launches": predicted, "prefill_flops": flops, "init_seconds": init_s,
           "init_peak_gib": init_peak, "resident_gib": resident, "cache_gib": cache_gib})
 
@@ -3443,7 +3493,7 @@ def lm_cell(phase: str, arch: str, batch: int, prompt_len: int, gen: int, route:
 
     # where a prefill's and a decode step's device time goes
     cache = tf.init_cache(cfg, batch, max_len)
-    kernel = "flash_attention_tc_kernel" if route == "tc" else "flash_attention_kernel"
+    kernel = "flash_attention_tc_kernel"
     with loop.watch():
         (logits, _), prof = profiled(lambda: tf.prefill(params, prompt, cache, cfg,
                                                         use_kernels=True), ATTN_KERNELS)
@@ -4549,7 +4599,7 @@ def main() -> None:
                                 "src/repro/kernels/flash_attention.py:84", "decode_first"),
                "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                         "src/repro/kernels/flash_attention.py:84",
-                                        "mla_minicpm3_prefill"),
+                                        "prefill_f32_gate"),
                "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                                  "src/repro/kernels/embedding_bag.py:41", "serve_bulk"),
                "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",

@@ -45,9 +45,9 @@ _SIGNATURES = {
     # q, k, v, out, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
-    # q, k, v, out, lse (or null), lse row stride, b, hq, hkv, lq, lk, dh, causal, q_offset,
-    # scale, stream
-    "flash_attention_tc_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, out, lse (or null), lse row stride, b, hq, hkv, lq, lk, dqk, dv, causal,
+    # q_offset, scale, stream
+    "flash_attention_tc_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P),
     # q, k, v, out, ws, tickets, is_bf16, b, hq, hkv, lq, lk, dh, causal, q_offset, scale,
     # rows, splits, kps, stream
@@ -62,9 +62,9 @@ _SIGNATURES = {
     # dh, which kernel, out[4]
     "flash_attention_bwd_attributes": (_I, _I, _P),
     "flash_attention_bwd_tc_attributes": (_I, _I, _P),
-    # (is_bf16,) dh, (rows,) out[4]
+    # (is_bf16,) dh (tc: dqk, dv), (rows,) out[4]
     "flash_attention_attributes": (_I, _I, _P),
-    "flash_attention_tc_attributes": (_I, _P),
+    "flash_attention_tc_attributes": (_I, _I, _P),
     "flash_decode_attributes": (_I, _I, _I, _P),
     # is_bf16, dh, rows, out
     "flash_decode_occupancy": (_I, _I, _I, _P),

@@ -3,7 +3,9 @@
 Replaces ``repro/kernels/flash_attention.py`` ``flash_attention_pallas``:
 grouped-query attention, causal or not, with a query offset (query ``i``
 sees keys ``j ≤ i + q_offset``), float32 softmax and sums, the output in
-q's type. :func:`route` picks the kernel from Lq, the type and Dh alone:
+q's type. V may be narrower than Q and K (MLA: ``Dv = v_head`` under
+``Dqk = qk_nope + qk_rope``, as JAX's model reference takes it). :func:`route`
+picks the kernel from Lq, the type and the widths alone:
 
 - ``"decode"`` — ``Lq ≤ 16`` (:data:`DECODE_ROWS`), float32 or bf16:
   ``csrc/flash_decode.cu``. Bound by bytes. The grid is (b·hkv · row
@@ -15,22 +17,30 @@ q's type. :func:`route` picks the kernel from Lq, the type and Dh alone:
   :func:`decode_rows` and :func:`plan_splits` size the grid to one wave of
   the card's resident blocks. Counted in
   ``flash_attention_cuda.decode_launches``.
-- ``"tc"`` — ``Lq > 16``, bf16, Dh 64 or 128: ``csrc/flash_attention_tc.cu``.
-  Bound by operations. ``S = Q·Kᵀ`` and ``O += P·V`` on the tensor cores
-  (``wgmma``) in three free-running consumer warpgroups, K/V tiles
-  loaded by TMA from a producer warpgroup into a four-stage ring (its
+- ``"tc"`` — ``Lq > 16``, bf16, ``(Dqk, Dv)`` in :data:`TC_WIDTHS` ((64, 64),
+  (128, 128) and MLA's (96, 64) and (192, 128)): ``csrc/flash_attention_tc.cu``.
+  Bound by operations. ``S = Q·Kᵀ`` over Dqk and ``O += P·V`` over V's own
+  Dv columns on the tensor cores (``wgmma``) in three free-running
+  consumer warpgroups, K/V tiles loaded by TMA from a producer warpgroup
+  into a ring of four stages (three at (192, 128), for shared memory; its
   tensor maps made per call with ``cuTensorMapEncodeTiled``), the online
-  softmax in float32 registers. P is split into bf16 ``hi + lo`` and both products summed:
-  one bf16 rounding of P would break the float32 reference's limit (the
-  source says by how much), the split keeps it at 6·Dh tensor-core FLOP
-  per admitted pair instead of 4·Dh. Counted in ``launches`` and
-  ``tc_launches``. Asked with ``return_lse=True`` (the training forward)
+  softmax in float32 registers. P is split into bf16 ``hi + lo`` and both
+  products summed: one bf16 rounding of P would break the float32
+  reference's limit (the source says by how much), the split keeps it at
+  ``2·Dqk + 4·Dv`` tensor-core FLOP per admitted pair instead of ``2·Dqk +
+  2·Dv``. Counted in ``launches`` and ``tc_launches``. Asked with
+  ``return_lse=True`` (the training forward, at (64, 64) and (128, 128))
   it also writes each row's log-sum-exp, in the log2 domain of its scaled
   scores, for the backward's tensor-core route; such a call takes this
   kernel at any Lq.
-- ``"simt"`` — the other ``Lq > 16`` calls (float32; bf16 with another
-  Dh): ``csrc/flash_attention.cu``, a 64-row tile on the float32 CUDA
-  cores. Counted in ``launches``.
+- ``"simt"`` — the other ``Lq > 16`` calls (float32, the models' float32
+  gates; bf16 at other widths, which no model has):
+  ``csrc/flash_attention.cu``, a 64-row tile on the float32 CUDA cores.
+  Counted in ``launches``.
+
+``"decode"`` and ``"simt"`` are built for one width: there a narrower V is
+zero-padded to Dqk by this wrapper (one ``F.pad``) and their output sliced
+back to Dv, so the zero columns cost bytes and FLOP on those routes only.
 
 The backward's route, :func:`bwd_route`, is ``"tc"`` (bf16, Dh 64 or
 128: ``csrc/flash_attention_bwd_tc.cu``, from the forward's log-sum-exp)
@@ -46,6 +56,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -56,7 +67,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
 DECODE_ROWS = 16  # Lq up to this takes the decode kernel
-TC_HEAD_DIMS = (64, 128)  # bf16 Dh the tensor-core kernels are built for
+# bf16 (Dqk, Dv) the tensor-core forward is built for; its log-sum-exp and
+# the backward only at Dqk = Dv
+TC_WIDTHS = ((64, 64), (128, 128), (96, 64), (192, 128))
 LSE_ROW_ALIGN = 64  # the log-sum-exp's rows: whole boxes of the backward's TMA loads
 BWD_HEAD_DIMS = (64, 128)  # Dh the backward's kernels are built for
 DECODE_BLOCK_ROWS = 8  # query rows a decode block holds at most
@@ -75,12 +88,14 @@ def check_contract(lq: int, lk: int, *, causal: bool, q_offset: int) -> None:
         raise ValueError("queries would attend past the last real key")
 
 
-def route(lq: int, dtype: torch.dtype, dh: int) -> str:
+def route(lq: int, dtype: torch.dtype, dh: int, dv: Optional[int] = None) -> str:
     """The kernel a call takes: ``"decode"`` for ``Lq ≤ 16``, else ``"tc"``
-    for bf16 with Dh 64 or 128, else ``"simt"``."""
+    for bf16 with ``(Dqk, Dv) = (dh, dv)`` (``dv`` defaults to ``dh``) in
+    :data:`TC_WIDTHS`, else ``"simt"``."""
     if lq <= DECODE_ROWS:
         return "decode"
-    return "tc" if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS else "simt"
+    dv = dh if dv is None else dv
+    return "tc" if dtype == torch.bfloat16 and (dh, dv) in TC_WIDTHS else "simt"
 
 
 def lse_row_stride(lq: int) -> int:
@@ -96,7 +111,7 @@ def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
     built."""
     if dh not in BWD_HEAD_DIMS:
         return None
-    if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and (dh, dh) in TC_WIDTHS:
         return "tc"
     return "simt" if dtype == torch.float32 else None
 
@@ -175,55 +190,71 @@ def _workspace(key: tuple, device: torch.device, n: int) -> torch.Tensor:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, q_offset: int = 0, return_lse: bool = False):
-    """Attention of ``q [B, Hq, Lq, Dh]`` over ``k, v [B, Hkv, Lk, Dh]`` on
-    the card; returns ``[B, Hq, Lq, Dh]`` in q's type, through the kernel
-    :func:`route` names. With ``return_lse`` it returns ``(out, lse)``
-    from the tensor-core kernel at any Lq (bf16, Dh 64 or 128 only):
-    ``lse [B, Hq, Lq]`` float32, each row's ``log2 Σⱼ 2^(sⱼ/√Dh · log2 e)``
-    over its admitted keys (+inf for a row with none), a view whose head
-    rows are :func:`lse_row_stride` floats apart; ``out`` is the
-    tensor-core kernel's output bit for bit.
+    """Attention of ``q [B, Hq, Lq, Dqk]`` over ``k [B, Hkv, Lk, Dqk]`` and
+    ``v [B, Hkv, Lk, Dv]`` on the card, scores scaled by ``1/√Dqk``;
+    returns ``[B, Hq, Lq, Dv]`` in q's type, through the kernel
+    :func:`route` names (on the ``"decode"`` and ``"simt"`` routes a view of
+    the padded call's output when ``Dv < Dqk``). With ``return_lse`` it
+    returns ``(out, lse)`` from the tensor-core kernel at any Lq (bf16,
+    ``Dqk = Dv`` of 64 or 128 only): ``lse [B, Hq, Lq]`` float32, each
+    row's ``log2 Σⱼ 2^(sⱼ/√Dh · log2 e)`` over its admitted keys (+inf for
+    a row with none), a view whose head rows are :func:`lse_row_stride`
+    floats apart; ``out`` is the tensor-core kernel's output bit for bit.
+
+    ``v`` may have any strides: the one copy into the layout its route
+    reads (zero-padded to Dqk on the ``"decode"`` and ``"simt"`` routes
+    when ``Dv < Dqk``, else contiguous) is made here, and none where v
+    already has it.
 
     Raises on the TPU kernel's contracts (:func:`check_contract`), and on
-    anything but contiguous CUDA tensors of one type (float32 or bfloat16)
-    on one device with ``Hq % Hkv == 0``, ``Dh ≤ 256``, ``q_offset ≥ 0``,
-    and Dh a whole number of 16-byte chunks (a multiple of 4 in float32, of
-    8 in bfloat16) with q, k and v 16-byte aligned. ``Lq = 0`` is answered
+    anything but CUDA tensors of one type (float32 or bfloat16) on one
+    device, q and k contiguous, with ``v.shape[:3] == k.shape[:3]``,
+    ``Hq % Hkv == 0``, ``Dv ≤ Dqk ≤ 256``, ``q_offset ≥ 0``, and Dqk and Dv
+    whole numbers of 16-byte chunks (multiples of 4 in float32, of 8 in
+    bfloat16) with q, k and v 16-byte aligned. ``Lq = 0`` is answered
     without a launch.
     """
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q must be [B, Hq, Lq, Dh] and k, v one "
-                         f"[B, Hkv, Lk, Dh] shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q must be [B, Hq, Lq, Dqk], k [B, Hkv, Lk, Dqk] "
+                         f"and v [B, Hkv, Lk, Dv], got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not group over k "
                          f"{tuple(k.shape)} (batch and Dh must match, Hq % Hkv == 0)")
-    if not 1 <= dh <= _MAX_HEAD_DIM or q_offset < 0:
-        raise ValueError(f"flash_attention: needs 1 <= Dh <= {_MAX_HEAD_DIM} and "
-                         f"q_offset >= 0, got Dh={dh}, q_offset={q_offset}")
-    if dh * q.element_size() % 16:
-        raise ValueError(f"flash_attention: Dh={dh} is not a whole number of 16-byte "
-                         f"{q.dtype} chunks")
+    if not 1 <= dv <= dh <= _MAX_HEAD_DIM or q_offset < 0:
+        raise ValueError(f"flash_attention: needs 1 <= Dv <= Dh <= {_MAX_HEAD_DIM} (Dh of q "
+                         f"and k, Dv of v) and q_offset >= 0, got Dh={dh}, Dv={dv}, "
+                         f"q_offset={q_offset}")
+    if dh * q.element_size() % 16 or dv * q.element_size() % 16:
+        raise ValueError(f"flash_attention: Dh={dh} and Dv={dv} must be whole numbers of "
+                         f"16-byte {q.dtype} chunks")
     check_contract(lq, lk, causal=causal, q_offset=q_offset)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (not t.is_cuda or t.device != q.device or t.dtype != q.dtype
-                or t.dtype not in _DTYPES or not t.is_contiguous()):
-            raise ValueError(f"flash_attention: {name} must be a contiguous float32 or "
-                             f"bfloat16 CUDA tensor of q's type and device, got {t.dtype} "
-                             f"on {t.device} (contiguous: {t.is_contiguous()})")
+                or t.dtype not in _DTYPES or not (name == "v" or t.is_contiguous())):
+            raise ValueError(f"flash_attention: {name} must be a float32 or bfloat16 CUDA "
+                             f"tensor of q's type and device (q and k contiguous), got "
+                             f"{t.dtype} on {t.device} (contiguous: {t.is_contiguous()})")
+    if return_lse and not (q.dtype == torch.bfloat16 and dv == dh
+                           and (dh, dv) in TC_WIDTHS):
+        raise ValueError(f"flash_attention: the log-sum-exp comes from the tensor-core kernel "
+                         f"(bf16, Dh = Dv of 64 or 128), got {q.dtype}, Dh={dh}, Dv={dv}")
+    kind = "tc" if return_lse else route(lq, q.dtype, dh, dv)
+    if kind != "tc" and dv < dh:
+        # the one-width kernels: V zero-padded to Dqk, the output sliced back
+        out = flash_attention_cuda(q, k, F.pad(v, (0, dh - dv)), causal=causal,
+                                   q_offset=q_offset)
+        return out[..., :dv]
+    v = v.contiguous()
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
-    if return_lse and not (q.dtype == torch.bfloat16 and dh in TC_HEAD_DIMS):
-        raise ValueError(f"flash_attention: the log-sum-exp comes from the tensor-core kernel "
-                         f"(bf16, Dh {TC_HEAD_DIMS}), got {q.dtype}, Dh={dh}")
-    out = torch.empty_like(q)
+    out = torch.empty((b, hq, lq, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, lse_row_stride(lq)), dtype=torch.float32,
                        device=q.device)[..., :lq] if return_lse else None)
     if b == 0 or hq == 0 or lq == 0:
         return (out, lse) if return_lse else out
-    kind = "tc" if return_lse else route(lq, q.dtype, dh)
     lib = build.library()
     if kind != "decode":
         tile = (lib.flash_attention_tc_block_rows() if kind == "tc"
@@ -255,7 +286,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif kind == "tc":
         lse_ptr, lse_ld = (None, 0) if lse is None else (lse.data_ptr(), lse.stride(1))
         build.int32_arg("flash_attention", "b*hq*lse_ld", b * hq * lse_ld)
-        err = lib.flash_attention_tc_launch(*ptrs, lse_ptr, lse_ld, b, hq, hkv, lq, lk, dh,
+        err = lib.flash_attention_tc_launch(*ptrs, lse_ptr, lse_ld, b, hq, hkv, lq, lk, dh, dv,
                                             int(causal), q_offset, scale, stream)
         build.check_launch("flash_attention (tensor cores)", err)
         flash_attention_cuda.launches += 1
@@ -273,18 +304,20 @@ flash_attention_cuda.tc_launches = 0
 flash_attention_cuda.decode_launches = 0
 
 
-def kernel_attributes(kind: str, dtype: torch.dtype, dh: int, rows: int = 1) -> Dict[str, int]:
+def kernel_attributes(kind: str, dtype: torch.dtype, dh: int, rows: int = 1,
+                      dv: Optional[int] = None) -> Dict[str, int]:
     """Registers a thread, static shared bytes, local (spill) bytes a
     thread and dynamic shared bytes of the kernel that :func:`route`'s
     ``kind`` launches for ``dtype`` and ``dh`` (``rows``: query rows a
-    decode block), from ``cudaFuncGetAttributes``."""
+    decode block; ``dv``: the tensor-core kernel's V width, ``dh`` by
+    default), from ``cudaFuncGetAttributes``."""
     lib = build.library()
     vals = (ctypes.c_int * 4)()
     is_bf16 = int(dtype == torch.bfloat16)
     if kind == "decode":
         err = lib.flash_decode_attributes(is_bf16, dh, rows, vals)
     elif kind == "tc":
-        err = lib.flash_attention_tc_attributes(dh, vals)
+        err = lib.flash_attention_tc_attributes(dh, dh if dv is None else dv, vals)
     else:
         err = lib.flash_attention_attributes(is_bf16, dh, vals)
     build.check_launch(f"{kind} attributes", err)

@@ -262,17 +262,22 @@ class _EmbeddingBag(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     q_offset: int = 0, use_kernels: bool) -> torch.Tensor:
-    """Grouped-query attention of ``q [B, Hq, Lq, Dh]`` over ``k, v
-    [B, Hkv, Lk, Dh]``: query ``i`` sees keys ``j ≤ i + q_offset`` when
-    ``causal``. The kernel keeps the TPU kernel's contracts and raises on
-    them; the plain version, like the JAX reference, does not.
+    """Grouped-query attention of ``q [B, Hq, Lq, Dqk]`` over ``k [B, Hkv,
+    Lk, Dqk]`` and ``v [B, Hkv, Lk, Dv]`` (``Dv ≤ Dqk``; MLA's V at its own
+    ``v_head`` width), scores scaled by ``1/√Dqk``: query ``i`` sees keys
+    ``j ≤ i + q_offset`` when ``causal``; returns ``[B, Hq, Lq, Dv]``. The
+    kernels keep the TPU kernel's contracts and raise on them (and on
+    widths :func:`~repro_torch.kernels.flash_attention.flash_attention_cuda`
+    does not take); the plain version, like the JAX reference, does not.
+    ``use_kernels=True`` on a CPU tensor raises.
 
     With grad mode on and any input requiring grad it is differentiable
     (:class:`_FlashAttention`): on the card the backward is the
-    ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, Dh 64 or
-    128, the route :func:`~repro_torch.kernels.flash_attention.bwd_route`
-    names; it raises on anything else), with ``use_kernels=False`` the plain
-    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
+    ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, ``Dqk =
+    Dv`` of 64 or 128, the route
+    :func:`~repro_torch.kernels.flash_attention.bwd_route` names; it raises
+    on anything else), with ``use_kernels=False`` the plain
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref` (``Dqk = Dv``)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, q_offset, use_kernels)
     return _flash_attention(q, k, v, causal, q_offset, use_kernels)
@@ -280,8 +285,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 def _flash_attention(q, k, v, causal, q_offset, use_kernels) -> torch.Tensor:
     if _use_kernel(q, use_kernels, "flash_attention"):
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal=causal, q_offset=q_offset)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v, causal=causal,
+                                    q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 

@@ -15,9 +15,9 @@ __all__ = ["set_intersect_ref", "set_intersect_layout_ref", "set_intersect_searc
            "member_probe_ref", "probe_key", "member_probe_two_level_ref",
            "segment_sum_ref", "segment_sum_plan_ref",
            "embedding_bag_ref",
-           "flash_attention_ref", "flash_attention_bwd_ref", "split_p", "flash_attention_hilo_ref",
-           "flash_attention_lse_ref", "flash_attention_bwd_tc_ref", "split_k_partials",
-           "merge_split_k", "flash_attention_bwd_limits", "ACC_DTYPE"]
+           "flash_attention_ref", "flash_attention_limits", "flash_attention_bwd_ref", "split_p",
+           "flash_attention_hilo_ref", "flash_attention_lse_ref", "flash_attention_bwd_tc_ref",
+           "split_k_partials", "merge_split_k", "flash_attention_bwd_limits", "ACC_DTYPE"]
 
 _BIG = 2**31 - 1
 # Rows per slice of the [rows, CA, CB] broadcast compare: bounds the
@@ -334,21 +334,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Grouped-query attention: query ``i`` of head ``h`` attends to keys
     ``j ≤ i + q_offset`` (all keys if not ``causal``) of KV head
-    ``h // (Hq / Hkv)``. q: ``[B, Hq, Lq, Dh]``, k, v: ``[B, Hkv, Lk, Dh]``.
+    ``h // (Hq / Hkv)``, scores scaled by ``1/√Dqk``. q: ``[B, Hq, Lq,
+    Dqk]``, k: ``[B, Hkv, Lk, Dqk]``, v: ``[B, Hkv, Lk, Dv]`` (any Dv; MLA's
+    ``v_head``); returns ``[B, Hq, Lq, Dv]``.
 
-    Twin of ``repro.kernels.ref.flash_attention_ref``: scores, softmax and
-    sums in float32, the output in q's type. The query axis is taken
-    ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time, so the score
+    Twin of ``repro.kernels.ref.flash_attention_ref`` and, at Dv ≠ Dqk, of
+    the reference branch of ``repro.models.transformer._attention``: scores,
+    softmax and sums in float32, the output in q's type. The query axis is
+    taken ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time, so the score
     transient stays bounded whatever the prompt length.
     """
     b, hq, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     kt = k.float().transpose(-1, -2)       # [B, Hkv, Dh, Lk]
     vf = v.float()
     root = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=q.device))
     qg = q.reshape(b, hkv, group, lq, dh)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, lq, dv), dtype=q.dtype, device=q.device)
     step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
     for s in range(0, lq, step):
         rows = min(step, lq - s)
@@ -359,8 +362,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kpos = torch.arange(lk, device=q.device)[None, :]
             logits.masked_fill_(kpos > qpos, -math.inf)
         probs = torch.softmax(logits, dim=-1).view(b, hkv, group * rows, lk)
-        out[:, :, s:s + rows] = torch.matmul(probs, vf).view(b, hq, rows, dh).to(q.dtype)
+        out[:, :, s:s + rows] = torch.matmul(probs, vf).view(b, hq, rows, dv).to(q.dtype)
     return out
+
+
+def flash_attention_limits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True, q_offset: int = 0):
+    """The plain version on the inputs in float32, and the limit each
+    element of an attention kernel's output is held to: ``(want, limit)``,
+    float32 ``[B, Hq, Lq, Dv]``. A float32 evaluation of the
+    softmax-weighted mean ``Σⱼ pⱼ vⱼ`` errs by some float32 roundings of
+    ``Σⱼ pⱼ |vⱼ|`` (the plain version over ``|v|``): the float32 limit is
+    1e-5 of that. A bfloat16 output (q's type) is one rounding of such a
+    float32 value, off by at most ``2⁻⁸`` of its size."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = flash_attention_ref(q32, k32, v32, causal=causal, q_offset=q_offset)
+    limit = 1e-5 * flash_attention_ref(q32, k32, v32.abs(), causal=causal, q_offset=q_offset)
+    if q.dtype == torch.bfloat16:
+        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    return want, limit
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -448,17 +468,19 @@ def flash_attention_hilo_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores over key tiles of ``tile``, an online softmax, P split by
     :func:`split_p` and ``hi·V + lo·V`` summed in float32, ``l`` summed from
     the float32 p, the output rounded once to q's type. ``split=False``
-    rounds P once to bf16 instead (what the kernel does not do).
+    rounds P once to bf16 instead (what the kernel does not do). V may be
+    narrower than q and k (``[B, Hkv, Lk, Dv]``, the output ``[B, Hq, Lq,
+    Dv]``), as the kernel takes MLA's.
     ``return_lse`` also returns what the kernel writes for the backward:
     ``m + log2 l`` of each row, ``[B, Hq, Lq]`` float32 (+inf for a row
     with no key)."""
-    b, hq, lq, dh = q.shape
-    lk = k.shape[2]
+    b, hq, lq, _ = q.shape
+    lk, dv = k.shape[2], v.shape[-1]
     qs, kt, scale, kend = _grouped(q, k, causal, q_offset)
     vf = v.float()
     m = torch.full(qs.shape[:-1], -math.inf)
     l = torch.zeros(qs.shape[:-1])
-    acc = torch.zeros(qs.shape)
+    acc = torch.zeros(qs.shape[:-1] + (dv,))
     for k0 in range(0, lk, tile):
         s = torch.matmul(qs, kt[..., k0:k0 + tile]) * scale
         keys = torch.arange(k0, min(k0 + tile, lk))
@@ -477,7 +499,7 @@ def flash_attention_hilo_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
-    out = out.reshape(b, hq, lq, dh).to(q.dtype)
+    out = out.reshape(b, hq, lq, dv).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.where(l > 0, m + torch.log2(l), math.inf)

@@ -17,9 +17,10 @@ across unchanged (``convert.lm_params_from_numpy``).
   kernels with ``use_kernels=True`` and their plain version otherwise;
   offsets are Python ints, so the kernels serve prefill, chunked prefill and
   decode alike. MLA's materialized form expands K and V from the whole
-  latent cache and pads V with zero columns to the query width
-  ``qk_nope + qk_rope``, so one call of the one-width kernels computes the
-  attention; the padding is sliced off its output. The absorbed decode
+  latent cache, K at the query width ``qk_nope + qk_rope`` and V at its own
+  ``v_head``, as JAX does, in one call: prefill and chunked prefill take
+  the tensor-core kernel at those widths, and the decode kernel, built for
+  one width, gets V zero-padded inside the wrapper. The absorbed decode
   (``decode_absorbed`` with one new token) scores the queries against the
   latent cache itself in float32 products, as JAX does, with no kernel.
 - **Mixture of experts** (the layers after ``first_dense``): router softmax
@@ -285,22 +286,20 @@ def _mla_attention(lp, q_nope, q_rope, c_kv, k_rope, c: TransformerConfig, q_off
                    use_kernels: bool):
     """Materialized MLA: K and V expanded from the whole latent ``c_kv [B,
     Lk, kv_lora]`` (its unwritten zeros too, hidden by the causal mask),
-    ``k_rope`` broadcast to every head, V zero-padded from ``v_head`` to
-    ``qk_nope + qk_rope`` columns; one ``flash_attention`` call, its first
-    ``v_head`` output columns kept. The zero columns change no other output
-    column, and the scale stays ``1 / sqrt(qk_nope + qk_rope)``, the query's
-    width. Returns ``[B, H, Lq, v_head]``."""
+    ``k_rope`` broadcast to every head, V at its own ``v_head`` columns (a
+    head-major view of the product: the kernel wrapper makes the one copy
+    its route reads); one ``flash_attention`` call, scaled by ``1 /
+    sqrt(qk_nope + qk_rope)``, the query's width. Returns ``[B, H, Lq,
+    v_head]``."""
     b, h = q_nope.shape[:2]
     lk = c_kv.shape[1]
     width = c.qk_nope + c.qk_rope
     k = torch.empty((b, h, lk, width), dtype=c_kv.dtype, device=c_kv.device)
     k[..., :c.qk_nope] = (c_kv @ lp["wk_b"]).view(b, lk, h, c.qk_nope).transpose(1, 2)
     k[..., c.qk_nope:] = k_rope[:, None]
-    v = torch.zeros((b, h, lk, width), dtype=c_kv.dtype, device=c_kv.device)
-    v[..., :c.v_head] = (c_kv @ lp["wv_b"]).view(b, lk, h, c.v_head).transpose(1, 2)
+    v = (c_kv @ lp["wv_b"]).view(b, lk, h, c.v_head).transpose(1, 2)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset, use_kernels=use_kernels)
-    return out[..., :c.v_head]
+    return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset, use_kernels=use_kernels)
 
 
 def _mla_attention_absorbed(lp, q_nope, q_rope, c_kv, k_rope, c: TransformerConfig,

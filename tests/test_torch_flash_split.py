@@ -6,7 +6,7 @@ blocks and merges their float32 ``(m, l, acc)`` states. Their plain
 mirrors in ``kernels/ref.py`` are held here against the port's float32
 reference and against the JAX kernel in Pallas interpret mode, with
 NumPy-seeded inputs. Tolerances: each output element within the limit the
-card's checks use (``chip_smoke.py`` ``attention_limits``): 1e-5 ·
+card's checks use (``ref.flash_attention_limits``): 1e-5 ·
 Σⱼ pⱼ|vⱼ| of the float32 reference, and one bf16 rounding (2⁻⁸ · |want|)
 more for a bf16 output; against the Pallas kernel, max |mirror − JAX| ≤
 2e-5 (float32) or 2e-2 (bf16) of the largest |JAX| value, as in
@@ -48,11 +48,7 @@ def _inputs(b, hq, hkv, lq, lk, dh, dtype, seed):
 
 def _within_limit(got, q, k, v, causal, off):
     """max |got - float32 reference| / limit, element by element."""
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    want = ref.flash_attention_ref(q32, k32, v32, causal=causal, q_offset=off)
-    limit = 1e-5 * ref.flash_attention_ref(q32, k32, v32.abs(), causal=causal, q_offset=off)
-    if q.dtype == torch.bfloat16:
-        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    want, limit = ref.flash_attention_limits(q, k, v, causal=causal, q_offset=off)
     return float(((got.float() - want).abs() / limit).max())
 
 

@@ -8,7 +8,9 @@ in bfloat16), one-row bags equal; member_probe and embedding_bag on offset
 (misaligned) views and bitwise repeatable; flash_attention element by
 element within 1e-5 of sum_j p_j |v_j| of the float32 plain version in
 float32, and within one bfloat16 rounding of that in bfloat16, on each of
-its three kernels; flash_attention_bwd's dQ, dK and dV element by element
+its three kernels, at MLA's widths too (V of 64 / 128 columns under Q and
+K of 96 / 192: the tensor-core kernel at V's own width, the others on V
+padded by the wrapper); flash_attention_bwd's dQ, dK and dV element by element
 within ref.flash_attention_bwd_limits on both routes (bf16 on the tensor
 cores from the forward's log-sum-exp, float32 on the CUDA cores),
 repeatable, and through autograd; the forward's log-sum-exp within 1e-5 of
@@ -433,10 +435,13 @@ def test_embedding_bag_kernel_one_row_bags_copy_and_sizes(cuda_device):
         embedding_bag_cuda(table, idx.long(), bag, 50_000)
 
 
-def _attn_inputs(seed, b, hq, hkv, lq, lk, dh, dtype, device):
+def _attn_inputs(seed, b, hq, hkv, lq, lk, dh, dtype, device, dv=None):
+    """q [b, hq, lq, dh], k [b, hkv, lk, dh] and v [b, hkv, lk, dv] (dv
+    defaults to dh)."""
     rng = np.random.default_rng(seed)
+    dv = dh if dv is None else dv
     return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
-            for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh))]
+            for s in ((b, hq, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dv))]
 
 
 @pytest.mark.cuda
@@ -474,11 +479,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, lq, lk, d
     q, k, v = _attn_inputs(lq + lk + dh, b, hq, hkv, lq, lk, dh, dtype, cuda_device)
     got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
     assert got.dtype == dtype and got.shape == q.shape
-    q, k, v = q.float(), k.float(), v.float()
-    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
-    limit = 1e-5 * ref.flash_attention_ref(q, k, v.abs(), causal=causal, q_offset=off)
-    if dtype == torch.bfloat16:
-        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    want, limit = ref.flash_attention_limits(q, k, v, causal=causal, q_offset=off)
     worst = float(((got.float() - want).abs() / limit).max())
     assert worst <= 1.0, worst
 
@@ -497,11 +498,7 @@ def test_flash_decode_kernel_with_empty_splits(cuda_device, dtype, monkeypatch):
     q, k, v = _attn_inputs(7, 2, 6, 2, 4, 900, 128, dtype, cuda_device)
     got = fa.flash_attention_cuda(q, k, v, causal=True, q_offset=20)
     assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=True, q_offset=20))
-    q, k, v = q.float(), k.float(), v.float()
-    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=20)
-    limit = 1e-5 * ref.flash_attention_ref(q, k, v.abs(), causal=True, q_offset=20)
-    if dtype == torch.bfloat16:
-        limit = 2.0**-8 * want.abs() + (1 + 2.0**-8) * limit
+    want, limit = ref.flash_attention_limits(q, k, v, causal=True, q_offset=20)
     assert float(((got.float() - want).abs() / limit).max()) <= 1.0
 
 
@@ -568,6 +565,103 @@ def test_flash_attention_kernel_dispatch_and_contracts(cuda_device):
         ops.flash_attention(q, shifted, v, q_offset=184, use_kernels=True)
     assert ops.launch_counts()["flash_decode"] == 0
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+# MLA's widths: (Dqk, Dv) of minicpm3-4b and deepseek-v2-lite-16b
+MLA_WIDTHS = [(96, 64), (192, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,off,causal", [
+    (2, 4, 4, 300, 300, 0, True),        # group 1; Lq not a multiple of 192; keys cross tiles
+    (1, 6, 2, 150, 333, 183, True),      # group 3, q_offset > 0, the last tile crossing lk
+    (1, 6, 2, 17, 40, 23, True),         # Lq 17, the smallest tensor-core call
+    (1, 2, 2, 200, 4112, 3912, True),    # a later chunk over MLA's 4,112 keys (not 64k)
+    (2, 6, 2, 100, 256, 0, False),       # non-causal, Lk a multiple of 128, group 3
+])
+def test_flash_attention_tc_at_mla_widths_matches_plain(cuda_device, b, hq, hkv, lq, lk, off,
+                                                        causal, dqk, dv):
+    """The tensor-core kernel at MLA's widths, V at its own Dv columns:
+    the tensor-core route, one launch, ``[…, Dv]`` out, each element within
+    the limits of ``test_flash_attention_kernel_matches_plain``."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, route
+
+    q, k, v = _attn_inputs(lq + lk + dqk, b, hq, hkv, lq, lk, dqk, torch.bfloat16,
+                           cuda_device, dv)
+    assert route(lq, q.dtype, dqk, dv) == "tc"
+    before = flash_attention_cuda.tc_launches
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    assert flash_attention_cuda.tc_launches - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, lq, dv)
+    want, limit = ref.flash_attention_limits(q, k, v, causal=causal, q_offset=off)
+    assert float(((got.float() - want).abs() / limit).max()) <= 1.0
+    assert torch.equal(got, flash_attention_cuda(q, k, v, causal=causal, q_offset=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
+@pytest.mark.parametrize("dtype,lq,off,kind", [
+    (torch.bfloat16, 1, 300, "decode_launches"),    # MLA decode at group 1
+    (torch.float32, 1, 300, "decode_launches"),
+    (torch.float32, 90, 211, "launches"),            # the float32 gates' prefill (CUDA cores)
+])
+def test_flash_attention_padded_routes_at_mla_widths(cuda_device, dqk, dv, dtype, lq, off, kind):
+    """The one-width kernels at MLA's widths: V zero-padded to Dqk inside
+    the wrapper, the output ``[…, Dv]`` within the same limits, no
+    tensor-core launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(dqk + lq, 2, 4, 4, lq, 301, dqk, dtype, cuda_device, dv)
+    before = getattr(flash_attention_cuda, kind), flash_attention_cuda.tc_launches
+    got = flash_attention_cuda(q, k, v, causal=True, q_offset=off)
+    assert getattr(flash_attention_cuda, kind) - before[0] == 1
+    assert flash_attention_cuda.tc_launches == before[1]
+    assert got.dtype == dtype and got.shape == (2, 4, lq, dv)
+    want, limit = ref.flash_attention_limits(q, k, v, causal=True, q_offset=off)
+    assert float(((got.float() - want).abs() / limit).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
+@pytest.mark.parametrize("dtype,lq,off", [
+    (torch.bfloat16, 1, 300),     # decode: the wrapper pads the view
+    (torch.float32, 90, 211),     # CUDA cores: the wrapper pads the view
+    (torch.bfloat16, 90, 211),    # tensor cores: the wrapper copies the view
+])
+def test_flash_attention_takes_a_strided_v(cuda_device, dqk, dv, dtype, lq, off):
+    """V as MLA's model hands it over, a head-major view of a ``[B, Lk,
+    H·Dv]`` product, gives the contiguous V's output bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(dqk + lq + 1, 2, 4, 4, lq, 301, dqk, dtype, cuda_device, dv)
+    view = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    assert torch.equal(flash_attention_cuda(q, k, view, causal=True, q_offset=off),
+                       flash_attention_cuda(q, k, v, causal=True, q_offset=off))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_at_mla_widths(cuda_device):
+    """V wider than Q and K, V's leading dimensions not K's, a bf16 Dv that
+    is not a whole number of 16-byte chunks, and the log-sum-exp at Dqk ≠
+    Dv all raise, and launch nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(9, 1, 4, 4, 40, 40, 96, torch.bfloat16, cuda_device, 64)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="Dv <= Dh"):
+        flash_attention_cuda(q, k, torch.cat([v, v, v], -1))
+    with pytest.raises(ValueError, match="v \\[B, Hkv, Lk, Dv\\]"):
+        flash_attention_cuda(q, k, v[:, :, :39].contiguous())
+    with pytest.raises(ValueError, match="v \\[B, Hkv, Lk, Dv\\]"):
+        flash_attention_cuda(q, k, v[:, :2].contiguous())
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, k, v[..., :20].contiguous())
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_cuda(q, k, v, return_lse=True)
+    assert not any(ops.launch_counts().values())
 
 
 @pytest.mark.cuda
