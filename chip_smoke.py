@@ -330,45 +330,53 @@ since the script started (all but the last line):
    ``F.embedding_bag``; the bound counts the distinct rows) and
    ``segment_sum`` at the tables' gradient (``dlrm_table_grad``, 1,703,936
    float32 rows summed into the touched rows, row 0 of each field heavy).
-18. ``lm_train_plan`` / ``lm_train`` — phi4-mini-3.8b training at full width
-   at train_4k's sequence of 4,096, the batch cut to ``LM_TRAIN_BATCH``
-   (``lm_micro_batches`` gives 1), remat on, from ``token_batches(seed=0)``:
-   3 steps of ``launch.steps.lm_train_step`` (AdamW at 3e-4 in place):
-   losses, norms, seconds a step, peak GiB, TFLOP/s of ``lm_flops`` and the
-   launches a step (``flash_attention`` on the tensor cores twice a layer,
-   forward and recompute, each keeping its log-sum-exp;
-   ``flash_attention_bwd`` once a layer, on the tensor cores;
-   ``segment_sum`` once, the embedding's gradient); ``lm_train_profile``, one
-   more step under ``torch.profiler``; ``lm_train_equal``, the next batch's
-   loss and gradient norm (and each leaf's) from the same state with the
-   kernels and with the plain versions, within ``LM_TRAIN_LIMIT``. Then
-   ``segment_sum`` at the embedding's gradient (``lm_embed_grad``: 8,192 bf16
-   rows of 3,072 summed by token into the tokens the batch holds).
+18. ``lm_train_plan`` / ``lm_train`` — for each of ``LM_TRAIN_CELLS``
+   (phi4-mini-3.8b, minicpm3-4b with MLA, granite-moe-3b-a800m with MoE,
+   each line tagged with its ``path``) training at full width at
+   train_4k's sequence of 4,096, the batch cut to the largest at which
+   ``lm_micro_batches`` gives 1 (2, 1, 1), remat on, from
+   ``token_batches(seed=0)``: 3 steps of ``launch.steps.lm_train_step``
+   (AdamW at 3e-4 in place): losses, norms, seconds a step, peak GiB (under
+   79.2), TFLOP/s of ``lm_flops`` and the launches a step
+   (``flash_attention`` on the tensor cores twice a layer, forward and
+   recompute, each keeping its log-sum-exp; ``flash_attention_bwd`` once a
+   layer, on the tensor cores, minicpm3's at (Dqk, Dv) = (96, 64);
+   ``segment_sum`` once, the embedding's gradient); for granite also each
+   layer's routed rows past their expert's window (``moe``) and whether
+   every recompute routed as its forward; ``lm_train_profile``, one more
+   step under ``torch.profiler``; ``lm_train_equal``, the next batch's loss
+   and gradient norm (and each leaf's) from the same state with the kernels
+   and with the plain versions, within ``LM_TRAIN_LIMIT``. Then
+   ``segment_sum`` at phi4's embedding gradient (``lm_embed_grad``: 8,192
+   bf16 rows of 3,072 summed by token into the tokens the batch holds).
 19. ``kernel_check`` (``flash_attention_bwd``) — the attention backward
-   against its plain version at the training shape (q [2, 24, 4096, 128]
-   bf16 over k/v [2, 8, 4096, 128]) and at edge cases (L 1, 17, 4,095;
-   groups 1, 3, 8; Dh 64 and 128; bf16 on the tensor cores from the
-   forward's log-sum-exp, float32 on the CUDA cores): every element of dQ,
-   dK and dV within ``ref.flash_attention_bwd_limits`` of the plain version
-   on the inputs in float32, two launches bitwise equal; the forward's
-   output bitwise the same with and without its log-sum-exp, which is
-   within 1e-5 of ``torch.logsumexp``; with the kernel's, the plain
-   backward's, SDPA's forward + backward and SDPA's backward-alone median
-   ms beside the bound (five causal products at the bf16 tensor-core rate);
-   a ``flash_kernels`` line with the four kernels' registers and spills
-   (the tensor-core ones must not spill).
+   against its plain version at the training shapes (q [2, 24, 4096, 128]
+   bf16 over k/v [2, 8, 4096, 128]; minicpm3's q, k [1, 40, 4096, 96], v
+   [1, 40, 4096, 64]) and at edge cases (L 1, 17, 4,095; groups 1, 3, 8;
+   Dh 64 and 128; (96, 64) at L 4,095, 1,000 and 300; bf16 on the tensor
+   cores from the forward's log-sum-exp, float32 on the CUDA cores): every
+   element of dQ, dK and dV within ``ref.flash_attention_bwd_limits`` of
+   the plain version on the inputs in float32, two launches bitwise equal;
+   the forward's output bitwise the same with and without its log-sum-exp,
+   which is within 1e-5 of ``torch.logsumexp``; with the kernel's, the
+   plain backward's, SDPA's forward + backward and SDPA's backward-alone
+   median ms beside the bound (five causal products at the bf16
+   tensor-core rate); a ``flash_kernels`` line with the five kernels'
+   registers and spills (the tensor-core ones must not spill).
 
 Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
 the molecule and full_graph_sm kernel requests, the chunked forward,
-the four GNN training paths' 10 steps and ``dlrm_train`` and ``lm_train``,
-each counted from 0; the three attention kernels' ``launches_by_path``: the
-five LM kernel serves, phi4, minicpm3, deepseek, granite and command_r, the
-four float32 gates' kernel serves, ``<path>_f32_gate`` (none for
-command_r), and ``lm_train``, their sum in ``launches``; ``embedding_bag``'s
-``dlrm_serve`` and ``dlrm_train``; ``flash_attention_bwd``'s ``lm_train``
-and ``launches_by_route``, ``tc`` or ``simt``),
+the four GNN training paths' 10 steps, ``dlrm_train`` and the three LM
+training paths, each counted from 0; the three attention kernels'
+``launches_by_path``: the five LM kernel serves, phi4, minicpm3, deepseek,
+granite and command_r, the four float32 gates' kernel serves,
+``<path>_f32_gate`` (none for command_r), and ``lm_train``,
+``lm_train_minicpm3-4b`` and ``lm_train_granite-moe-3b-a800m``, their sum in
+``launches``; ``embedding_bag``'s ``dlrm_serve`` and ``dlrm_train``;
+``flash_attention_bwd``'s three LM training paths and
+``launches_by_route``, ``tc`` or ``simt``),
 and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
 failed phase exits nonzero without that line.
@@ -498,6 +506,15 @@ DLRM_TRAIN_STEPS, DLRM_TRAIN_LR, DLRM_TRAIN_LIMIT = 10, 1e-3, 1e-6
 # rounding), and over 32 bf16 layers those differences add to a few roundings.
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 4096, 3, 3e-4
 LM_TRAIN_LIMIT = 2e-2
+# The same cell for minicpm3-4b (MLA: the backward at (Dqk, Dv) = (96, 64))
+# and granite-moe-3b-a800m (GQA + 40 experts, top-8: the routed training sum
+# with its expert windows), each at the largest batch with one microbatch
+# (``one_micro_batch``): 1 for both (a minicpm3 example's saved residuals are
+# 1.30e9 bytes against the 2e9 target, a granite one's 4.03e8 against 5e8);
+# bf16 weights and gradients and float32 moments take 51 / 48 GB. Each as
+# (arch, its key in the kernels line's launches_by_path).
+LM_TRAIN_CELLS = ((LM_ARCH, "lm_train"), ("minicpm3-4b", "lm_train_minicpm3-4b"),
+                  ("granite-moe-3b-a800m", "lm_train_granite-moe-3b-a800m"))
 
 
 _START = time.perf_counter()
@@ -3997,11 +4014,56 @@ def lm_train_value_and_norm(params, tok, lab, cfg, use_kernels: bool):
     return float(loss), norm, leaf
 
 
-def lm_train_phase():
-    """phi4-mini-3.8b training at full width at train_4k's sequence (the
-    batch cut to LM_TRAIN_BATCH): LM_TRAIN_STEPS in-place AdamW steps with
-    remat, a profiled step, then the loss and gradient of the next batch
-    with the kernels and with the plain versions from the same state.
+class TrainRouting:
+    """While ``watch`` is on, each MoE layer's per-expert row counts as the
+    routed training sum reads them (``transformer._expert_rows``, in call
+    order: a step's forward, then its recompute, layers backwards) and the
+    host seconds of each ``_moe_routed`` call."""
+
+    def __init__(self):
+        self.counts, self.loop_s = [], []
+
+    @contextlib.contextmanager
+    def watch(self):
+        from repro_torch.models import transformer as tf
+
+        rows, routed = tf._expert_rows, tf._moe_routed
+        self.counts, self.loop_s = [], []
+
+        def spy_rows(experts, n):
+            out = rows(experts, n)
+            self.counts.append(out)
+            return out
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = routed(*args)
+            self.loop_s.append(time.perf_counter() - t0)
+            return out
+
+        tf._expert_rows, tf._moe_routed = spy_rows, timed
+        try:
+            yield self
+        finally:
+            tf._expert_rows, tf._moe_routed = rows, routed
+
+
+def one_micro_batch(cfg, spec, seq: int) -> int:
+    """The largest batch up to train_4k's published one at which
+    ``lm_micro_batches`` gives one microbatch."""
+    from repro_torch.launch.steps import lm_micro_batches
+
+    top = spec.shape("train_4k").global_batch
+    return max(b for b in range(1, top + 1) if lm_micro_batches(cfg, b, seq) == 1)
+
+
+def lm_train_phase(arch: str, path: str):
+    """``arch`` training at full width at train_4k's sequence (the batch cut
+    to the largest with one microbatch): LM_TRAIN_STEPS in-place AdamW steps
+    with remat, a profiled step, then the loss and gradient of the next
+    batch with the kernels and with the plain versions from the same state.
+    For MoE also each layer's rows past their expert's window and whether
+    each recompute routed as its forward. Lines are tagged with ``path``.
     Returns the steps' launches and the first batch's tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.data import token_batches
@@ -4010,12 +4072,14 @@ def lm_train_phase():
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw_init
 
-    spec = get_arch(LM_ARCH)
+    spec = get_arch(arch)
     cfg = spec.config
-    shape = dataclasses.replace(spec.shape("train_4k"), global_batch=LM_TRAIN_BATCH)
-    b, s = shape.global_batch, shape.seq_len
+    s = LM_TRAIN_SEQ
+    b = one_micro_batch(cfg, spec, s)
+    check(arch != LM_ARCH or b == LM_TRAIN_BATCH, f"{path}: batch {b} != {LM_TRAIN_BATCH}")
+    shape = dataclasses.replace(spec.shape("train_4k"), global_batch=b)
     n_micro = lm_micro_batches(cfg, b, s)
-    check(n_micro == 1, f"lm training: {n_micro} microbatches at batch {b}, expected 1")
+    check(n_micro == 1, f"{path}: {n_micro} microbatches at batch {b}, expected 1")
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4030,64 +4094,103 @@ def lm_train_phase():
     per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_tc": 2 * cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers, "flash_attention_bwd_tc": cfg.n_layers,
                 "segment_sum": 1}
-    emit({"phase": "lm_train_plan", "arch": cfg.name, "params": cfg.param_count(),
+    widths = ((cfg.qk_nope + cfg.qk_rope, cfg.v_head) if cfg.attn == "mla"
+              else (cfg.d_head, cfg.d_head))
+    emit({"phase": "lm_train_plan", "path": path, "arch": cfg.name,
+          "params": cfg.param_count(), "active_params": cfg.active_param_count(),
           "batch": b, "seq": s, "global_batch_published": spec.shape("train_4k").global_batch,
           "n_micro": n_micro, "remat": cfg.remat, "dtype": cfg.dtype, "lr": LM_TRAIN_LR,
-          "steps": LM_TRAIN_STEPS, "model_flops_per_step": flops,
-          "predicted_launches_per_step": per_step, "init_seconds": init_s,
-          "resident_gib": torch.cuda.memory_allocated() / 2**30})
+          "steps": LM_TRAIN_STEPS, "attention_widths": widths,
+          "model_flops_per_step": flops, "predicted_launches_per_step": per_step,
+          "init_seconds": init_s, "resident_gib": torch.cuda.memory_allocated() / 2**30})
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    routing = TrainRouting()
     losses, norms, times = [], [], []
-    for tok, lab in batches[:LM_TRAIN_STEPS]:
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        params, opt, loss, gnorm = lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
-                                                 use_kernels=True, n_micro=1)
-        ev1.record()
-        torch.cuda.synchronize()
-        times.append(ev0.elapsed_time(ev1) / 1e3)
-        losses.append(float(loss))
-        norms.append(float(gnorm))
+    with routing.watch():
+        for tok, lab in batches[:LM_TRAIN_STEPS]:
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            params, opt, loss, gnorm = lm_train_step(params, opt, tok, lab, cfg,
+                                                     lr=LM_TRAIN_LR, use_kernels=True, n_micro=1)
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1) / 1e3)
+            losses.append(float(loss))
+            norms.append(float(gnorm))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(x) for x in losses + norms),
-          f"lm training: a loss or norm is not finite: {losses} {norms}")
+          f"{path}: a loss or norm is not finite: {losses} {norms}")
+    check(peak < 79.2, f"{path}: peak {peak} GiB")
     for name, n in per_step.items():
         check(counts[name] == n * LM_TRAIN_STEPS,
-              f"lm training: {name} launched {counts[name]} times, predicted "
-              f"{n * LM_TRAIN_STEPS}")
+              f"{path}: {name} launched {counts[name]} times, predicted {n * LM_TRAIN_STEPS}")
     others = {k: n for k, n in counts.items() if k not in per_step and n}
-    check(not others, f"lm training: other kernels launched: {others}")
+    check(not others, f"{path}: other kernels launched: {others}")
     med = statistics.median(times)
-    emit({"phase": "lm_train", "run": "kernels", "losses": losses, "gnorms": norms,
-          "step_seconds": times, "median_step_seconds": med, "peak_gib": peak,
-          "model_tflop_per_s": flops / med / 1e12, "tokens_per_s": b * s / med,
-          "launches_per_step": {k: n // LM_TRAIN_STEPS for k, n in counts.items() if n}})
+    rec = {"phase": "lm_train", "path": path, "arch": cfg.name, "run": "kernels",
+           "losses": losses, "gnorms": norms, "step_seconds": times,
+           "median_step_seconds": med, "peak_gib": peak,
+           "model_tflop_per_s": flops / med / 1e12, "tokens_per_s": b * s / med,
+           "launches_per_step": {k: n // LM_TRAIN_STEPS for k, n in counts.items() if n}}
+    if cfg.moe:
+        # a step reads the counts in its forward (layers in order) and in its
+        # recompute (layers backwards); the recompute must route as the
+        # forward did, or checkpoint would have raised on the saved shapes
+        n = cfg.n_moe_layers
+        check(len(routing.counts) == 2 * n * LM_TRAIN_STEPS,
+              f"{path}: {len(routing.counts)} routings in {LM_TRAIN_STEPS} steps")
+        fwd = [routing.counts[i * 2 * n:i * 2 * n + n] for i in range(LM_TRAIN_STEPS)]
+        recomp = [routing.counts[i * 2 * n + n:(i + 1) * 2 * n][::-1]
+                  for i in range(LM_TRAIN_STEPS)]
+        mismatch = sum(a != r for f, rc in zip(fwd, recomp) for a, r in zip(f, rc))
+        total, window = tf.moe_window(cfg, b * s)
+        masked = [sum(c) - sum(tf.moe_windows(c, total, window)) for f in fwd for c in f]
+        rec["moe"] = {"routed_rows_per_layer": b * s * cfg.top_k, "total": total,
+                      "window": window, "mean_rows_per_expert": b * s * cfg.top_k
+                      / cfg.n_experts, "max_rows_per_expert": max(max(c) for f in fwd for c in f),
+                      "masked_rows_per_layer": {"mean": statistics.mean(masked),
+                                                "max": max(masked),
+                                                "layers_masking": sum(1 for m in masked if m),
+                                                "of_layers": len(masked)},
+                      "recompute_routing_equal": mismatch == 0,
+                      "recompute_routing_mismatches": mismatch,
+                      "routed_sum_host_s_per_step": sum(routing.loop_s) / LM_TRAIN_STEPS}
+        check(mismatch == 0, f"{path}: {mismatch} layers recomputed with other routing")
+    emit(rec)
 
     tok, lab = batches[LM_TRAIN_STEPS]
     _, prof = profiled(lambda: lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
                                              use_kernels=True, n_micro=1),
                        kernels=("flash_attention_bwd", "flash_attention_tc", "segment_sum"))
-    emit({"phase": "lm_train_profile", "arch": cfg.name, **prof})
+    emit({"phase": "lm_train_profile", "path": path, "arch": cfg.name, **prof})
 
     # the gate: the next batch's loss and gradient from the same state, with
     # the kernels and with the plain versions (attention forward and backward,
     # the embedding's segment sum)
     tok, lab = batches[LM_TRAIN_STEPS + 1]
-    loss_k, norm_k, leaf_k = lm_train_value_and_norm(params, tok, lab, cfg, True)
-    loss_p, norm_p, leaf_p = lm_train_value_and_norm(params, tok, lab, cfg, False)
+    with routing.watch():
+        loss_k, norm_k, leaf_k = lm_train_value_and_norm(params, tok, lab, cfg, True)
+        routed_k = list(routing.counts)
+    with routing.watch():
+        loss_p, norm_p, leaf_p = lm_train_value_and_norm(params, tok, lab, cfg, False)
+        routed_p = list(routing.counts)
     loss_ratio = abs(loss_k - loss_p) / abs(loss_p)
     norm_ratio = abs(norm_k - norm_p) / norm_p
     leaf_ratio = max(abs(leaf_k[k] - leaf_p[k]) / max(leaf_p[k], 1e-30) for k in leaf_p)
-    emit({"phase": "lm_train_equal", "limit": LM_TRAIN_LIMIT, "loss_kernels": loss_k,
-          "loss_plain": loss_p, "loss_ratio": loss_ratio, "gnorm_kernels": norm_k,
-          "gnorm_plain": norm_p, "gnorm_ratio": norm_ratio,
-          "leaf_norm_max_ratio": leaf_ratio})
+    extra = {}
+    if cfg.moe:
+        extra["routing_counts_equal"] = routed_k == routed_p
+        extra["routing_layers_differing"] = sum(a != c for a, c in zip(routed_k, routed_p))
+    emit({"phase": "lm_train_equal", "path": path, "arch": cfg.name, "limit": LM_TRAIN_LIMIT,
+          "loss_kernels": loss_k, "loss_plain": loss_p, "loss_ratio": loss_ratio,
+          "gnorm_kernels": norm_k, "gnorm_plain": norm_p, "gnorm_ratio": norm_ratio,
+          "leaf_norm_max_ratio": leaf_ratio, **extra})
     check(loss_ratio <= LM_TRAIN_LIMIT and norm_ratio <= LM_TRAIN_LIMIT,
-          f"lm training: kernel against plain loss {loss_ratio}, gnorm {norm_ratio} "
+          f"{path}: kernel against plain loss {loss_ratio}, gnorm {norm_ratio} "
           f"> {LM_TRAIN_LIMIT}")
     first = batches[0][0]
     del params, opt, batches, tok, lab
@@ -4095,21 +4198,24 @@ def lm_train_phase():
     return counts, first
 
 
-def attention_bwd_work(b, hq, hkv, l, dh, elem):
+def attention_bwd_work(b, hq, hkv, l, dh, elem, dv=None):
     """The backward's operations and bytes: five causal products of
-    2 * b * hq * (l * (l + 1) / 2) * dh FLOP (S, dP, dV, dQ, dK); q, k, v,
-    O and dO read once and dQ, dK, dV written once."""
+    2 * b * hq * (l * (l + 1) / 2) FLOP a column, S, dQ and dK over Dqk
+    ``dh``, dP and dV over ``dv`` (``dh`` by default); q, k, v, O and dO read
+    once and dQ, dK, dV written once."""
+    dv = dh if dv is None else dv
     pairs = l * (l + 1) // 2
-    flops = 5 * 2 * b * hq * pairs * dh
-    n_bytes = elem * dh * l * (3 * b * hq + 2 * b * hkv + 2 * b * hkv + b * hq)
+    flops = 2 * b * hq * pairs * (3 * dh + 2 * dv)
+    n_bytes = elem * l * 2 * (b * hq * (dh + dv) + b * hkv * (dh + dv))
     return flops, n_bytes
 
 
 def flash_attention_bwd_phase(train_batch: int):
     """The attention backward kernels against their plain version at the LM
-    training shape and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64
-    and 128; bf16 on the tensor cores from the forward's log-sum-exp,
-    float32 on the CUDA cores), each element of dQ, dK and dV within
+    training shapes (phi4-mini's, and minicpm3-4b's MLA at (Dqk, Dv) = (96,
+    64)) and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64 and 128;
+    (96, 64) at L 4,095, 1,000 and 300; bf16 on the tensor cores from the
+    forward's log-sum-exp, float32 on the CUDA cores), each element of dQ, dK and dV within
     ``ref.flash_attention_bwd_limits``, two launches bitwise equal; the
     forward's output bitwise the same with and without the log-sum-exp, and
     the log-sum-exp against ``torch.logsumexp`` of the scores; timed beside
@@ -4123,34 +4229,39 @@ def flash_attention_bwd_phase(train_batch: int):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = {"train": (train_batch, 24, 8, LM_TRAIN_SEQ, 128, (bf16,)),
-             "l1": (2, 6, 2, 1, 128, (f32, bf16)),
-             "l17_group3": (2, 6, 2, 17, 128, (f32, bf16)),
-             "l4095_group1": (1, 4, 4, 4095, 64, (f32, bf16)),
-             "group8_dh64": (1, 16, 2, 300, 64, (f32, bf16)),
-             "group3_dh128": (2, 24, 8, 1000, 128, (f32, bf16)),
-             "group1_dh128": (1, 4, 4, 600, 128, (bf16,)),
-             "group8_dh128": (1, 16, 2, 300, 128, (bf16,))}
+    # name: b, hq, hkv, l, Dqk, Dv, types
+    cases = {"train": (train_batch, 24, 8, LM_TRAIN_SEQ, 128, 128, (bf16,)),
+             "mla_minicpm3_train": (1, 40, 40, LM_TRAIN_SEQ, 96, 64, (bf16,)),
+             "l1": (2, 6, 2, 1, 128, 128, (f32, bf16)),
+             "l17_group3": (2, 6, 2, 17, 128, 128, (f32, bf16)),
+             "l4095_group1": (1, 4, 4, 4095, 64, 64, (f32, bf16)),
+             "group8_dh64": (1, 16, 2, 300, 64, 64, (f32, bf16)),
+             "group3_dh128": (2, 24, 8, 1000, 128, 128, (f32, bf16)),
+             "group1_dh128": (1, 4, 4, 600, 128, 128, (bf16,)),
+             "group8_dh128": (1, 16, 2, 300, 128, 128, (bf16,)),
+             "mla_l4095_group1": (1, 4, 4, 4095, 96, 64, (bf16,)),
+             "mla_l1000_group3": (2, 6, 2, 1000, 96, 64, (bf16,)),
+             "mla_l300": (1, 40, 40, 300, 96, 64, (bf16,))}
     out = []
-    for name, (b, hq, hkv, l, dh, dtypes) in cases.items():
+    for name, (b, hq, hkv, l, dh, dv, dtypes) in cases.items():
         for dtype in dtypes:
             q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
-                             for sh in ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dh),
-                                        (b, hq, l, dh)))
-            kind = bwd_route(dtype, dh)
+                             for sh in ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dv),
+                                        (b, hq, l, dv)))
+            kind = bwd_route(dtype, dh, dv)
             tag = str(dtype).split(".")[-1]
             rec = {"case": name, "dtype": tag, "route": kind, "b": b, "hq": hq, "hkv": hkv,
-                   "l": l, "dh": dh}
+                   "l": l, "dh": dh, "dv": dv}
             lse = None
             if kind == "tc":
                 o, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
-                if route(l, dtype, dh) == "tc":
+                if route(l, dtype, dh, dv) == "tc":
                     # serving's call (no log-sum-exp) on the same kernel: the same output
                     rec["forward_bitwise_without_lse"] = torch.equal(
                         o, flash_attention_cuda(q, k, v, causal=True, q_offset=0))
                     check(rec["forward_bitwise_without_lse"],
                           f"flash_attention {name}: the output differs with the log-sum-exp")
-                if name != "train":
+                if "train" not in name:
                     kg = k.float().repeat_interleave(hq // hkv, dim=1)
                     sc = torch.matmul(q.float(), kg.transpose(-1, -2)) / math.sqrt(dh)
                     sc.masked_fill_(torch.ones(l, l, dtype=torch.bool, device="cuda").triu(1),
@@ -4180,11 +4291,11 @@ def flash_attention_bwd_phase(train_batch: int):
                         "max_abs_ref": max(float(w.abs().max()) for w in want),
                         "max_err_over_limit": worst, "repeat_bitwise": repeat})
             del want, limit, plain, got
-            flops, n_bytes = attention_bwd_work(b, hq, hkv, l, dh, q.element_size())
+            flops, n_bytes = attention_bwd_work(b, hq, hkv, l, dh, q.element_size(), dv)
             rec["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, dout, lse),
-                                reps=5 if name == "train" else 10)
+                                reps=5 if "train" in name else 10)
             rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), reps=3)
-            if name == "train":
+            if "train" in name:
                 # the forward with and without the log-sum-exp it keeps for this kernel
                 rec["forward_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v))
                 rec["forward_lse_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v,
@@ -4210,11 +4321,12 @@ def flash_attention_bwd_phase(train_batch: int):
     free_device_memory()
     attrs = {f"{kind}_dh{dh}": kernel_attributes(kind, dh)
              for kind in ("tc", "simt") for dh in (64, 128)}
+    attrs["tc_dqk96_dv64"] = kernel_attributes("tc", 96, 64)
     emit({"phase": "flash_kernels", "flash_attention_bwd": attrs})
-    # the tensor-core kernels (the training path's) keep everything in registers
-    for dh in (64, 128):
-        check(all(a["local_bytes"] == 0 for a in attrs[f"tc_dh{dh}"].values()),
-              f"flash_attention_bwd tc Dh {dh} spills: {attrs[f'tc_dh{dh}']}")
+    # the tensor-core kernels (the training paths') keep everything in registers
+    for key in ("tc_dh64", "tc_dh128", "tc_dqk96_dv64"):
+        check(all(a["local_bytes"] == 0 for a in attrs[key].values()),
+              f"flash_attention_bwd {key} spills: {attrs[key]}")
     return out
 
 
@@ -4556,8 +4668,14 @@ def main() -> None:
 
     # 17. dlrm-rm2 training; launches counted over the kernel run's steps
     dlrm_train_counts, bag_case, table_case = dlrm_train_phase()
-    # 18. phi4-mini-3.8b training; launches counted over the training steps
-    lm_train_counts, train_tokens = lm_train_phase()
+    # 18. LM training: phi4-mini-3.8b, minicpm3-4b (MLA) and
+    #     granite-moe-3b-a800m (MoE); launches counted over each one's steps
+    train_counts = {}
+    for arch, path in LM_TRAIN_CELLS:
+        train_counts[path], tokens = lm_train_phase(arch, path)
+        if arch == LM_ARCH:
+            train_tokens = tokens
+        del tokens
     embed_case = lm_embed_grad_case(train_tokens)
     del train_tokens
     # 19. the attention backward against its plain version
@@ -4566,16 +4684,17 @@ def main() -> None:
     checks["segment_sum"] += [table_case, embed_case]
     emit({"phase": "kernel_check", "flash_attention_bwd": checks["flash_attention_bwd"],
           "embedding_bag": [bag_case], "segment_sum": [table_case, embed_case]})
-    segment_paths.update(dlrm_train=dlrm_train_counts["segment_sum"],
-                         lm_train=lm_train_counts["segment_sum"])
-    attention_paths["flash_attention"]["lm_train"] = lm_train_counts["flash_attention_tc"]
-    attention_paths["flash_decode"]["lm_train"] = lm_train_counts["flash_decode"]
-    attention_paths["flash_attention_simt"]["lm_train"] = (
-        lm_train_counts["flash_attention"] - lm_train_counts["flash_attention_tc"])
-    attention_paths["flash_attention_bwd"] = {"lm_train": lm_train_counts["flash_attention_bwd"]}
-    bwd_routes = {"tc": lm_train_counts["flash_attention_bwd_tc"],
-                  "simt": lm_train_counts["flash_attention_bwd"]
-                  - lm_train_counts["flash_attention_bwd_tc"]}
+    segment_paths["dlrm_train"] = dlrm_train_counts["segment_sum"]
+    attention_paths["flash_attention_bwd"] = {}
+    for path, c in train_counts.items():
+        segment_paths[path] = c["segment_sum"]
+        attention_paths["flash_attention"][path] = c["flash_attention_tc"]
+        attention_paths["flash_decode"][path] = c["flash_decode"]
+        attention_paths["flash_attention_simt"][path] = (c["flash_attention"]
+                                                         - c["flash_attention_tc"])
+        attention_paths["flash_attention_bwd"][path] = c["flash_attention_bwd"]
+    bwd_routes = {"tc": sum(c["flash_attention_bwd_tc"] for c in train_counts.values())}
+    bwd_routes["simt"] = sum(attention_paths["flash_attention_bwd"].values()) - bwd_routes["tc"]
     for name, paths in attention_paths.items():
         launches[name] = sum(paths.values())
     bag_paths = {"dlrm_serve": launches["embedding_bag"],

@@ -4,6 +4,8 @@ restart. Twin of examples/train_lm.py: a thin wrapper over the driver
 
     PYTHONPATH=src python examples/torch_train_lm.py --steps 200
     PYTHONPATH=src python examples/torch_train_lm.py --device cpu   # plain versions
+    PYTHONPATH=src python examples/torch_train_lm.py --arch minicpm3-4b   # MLA (or
+        # granite-moe-3b-a800m, MoE; deepseek-v2-lite-16b, both)
 
 Without a card the default device raises.
 """
@@ -27,7 +29,7 @@ def main() -> None:
         sys.executable, "-m", "repro_torch.launch.train",
         "--arch", args.arch, "--steps", str(args.steps),
         "--smoke", "--batch", "8", "--seq", "64", "--device", args.device,
-        "--ckpt-dir", os.path.join(tempfile.gettempdir(), "repro_torch_lm_ckpt"),
+        "--ckpt-dir", os.path.join(tempfile.gettempdir(), f"repro_torch_lm_ckpt_{args.arch}"),
     ]
     path = os.pathsep.join(p for p in (SRC, os.environ.get("PYTHONPATH")) if p)
     raise SystemExit(subprocess.call(cmd, env=dict(os.environ, PYTHONPATH=path)))

@@ -56,12 +56,13 @@ _SIGNATURES = {
     # q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq, hkv, l, dh, scale, stream
     "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P),
-    # q, k, v, o, dout, lse, lse row stride, dq, dk, dv, delta, b, hq, hkv, l, dh, scale, stream
+    # q, k, v, o, dout, lse, lse row stride, dq, dk, dv, delta, b, hq, hkv, l, dqk, dv, scale,
+    # stream
     "flash_attention_bwd_tc_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, ctypes.c_float, _P),
-    # dh, which kernel, out[4]
+                                      _I, _I, _I, ctypes.c_float, _P),
+    # dh (tc: dqk, dv), which kernel, out[4]
     "flash_attention_bwd_attributes": (_I, _I, _P),
-    "flash_attention_bwd_tc_attributes": (_I, _I, _P),
+    "flash_attention_bwd_tc_attributes": (_I, _I, _I, _P),
     # (is_bf16,) dh (tc: dqk, dv), (rows,) out[4]
     "flash_attention_attributes": (_I, _I, _P),
     "flash_attention_tc_attributes": (_I, _I, _P),

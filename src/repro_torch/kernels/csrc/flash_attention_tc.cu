@@ -61,8 +61,9 @@
 // - Only a tile that crosses a warpgroup's causal diagonal or lk is
 //   masked; a warpgroup skips the tiles wholly past its last row (and
 //   releases them once loaded).
-// - On request (training, at (64, 64) and (128, 128) only) each row's
-//   log-sum-exp m + log2 l, in the log2 domain of the scaled scores, is
+// - On request (training; at any width, the backward built for (64, 64),
+//   (128, 128) and (96, 64)) each row's log-sum-exp m + log2 l, in the log2
+//   domain of the scaled scores, is
 //   written to a float32 [b, hq, lq] vector after the output (rows lse_ld
 //   apart, a multiple of 64: the backward's TMA loads it in boxes of 64
 //   that must start 16-byte aligned); the backward
@@ -372,19 +373,18 @@ int attributes(int* out) {
 // q: [b, hq, lq, dqk], k: [b, hkv, lk, dqk], v: [b, hkv, lk, dv], out:
 // [b, hq, lq, dv], all contiguous bfloat16, 16-byte aligned, (dqk, dv) one
 // of (64, 64), (128, 128), (96, 64), (192, 128); scale 1/sqrt(dqk); lse:
-// null, or (at dqk = dv only) float32 [b * hq] rows of lse_ld >= lq
+// null, or float32 [b * hq] rows of lse_ld >= lq
 // elements that receive each query row's log-sum-exp of its scaled scores
 // in the log2 domain (the output is the same either way). The caller
 // guarantees b, hq, hkv, lq, lk >= 1, hq % hkv == 0, b * hq < 2**31,
 // ceil(lq / kBQ) <= 65,535 (kBQ = 192 at every width,
 // flash_attention_tc_block_rows) and, when causal, q_offset + lq <= lk.
 // Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for another pair, or an lse at dqk != dv).
+// cudaErrorInvalidValue for another pair).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
                                          float* lse, int lse_ld, int b, int hq, int hkv,
                                          int lq, int lk, int dqk, int dv, int causal,
                                          int q_offset, float scale, cudaStream_t stream) {
-  if (lse != nullptr && dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
   if (dqk == 128 && dv == 128)
     return launch<128, 128>(q, k, v, out, lse, lse_ld, b, hq, hkv, lq, lk, causal, q_offset,
                             scale, stream);

@@ -29,10 +29,10 @@ picks the kernel from Lq, the type and the widths alone:
   reference's limit (the source says by how much), the split keeps it at
   ``2·Dqk + 4·Dv`` tensor-core FLOP per admitted pair instead of ``2·Dqk +
   2·Dv``. Counted in ``launches`` and ``tc_launches``. Asked with
-  ``return_lse=True`` (the training forward, at (64, 64) and (128, 128))
-  it also writes each row's log-sum-exp, in the log2 domain of its scaled
-  scores, for the backward's tensor-core route; such a call takes this
-  kernel at any Lq.
+  ``return_lse=True`` (the training forward, at the widths of
+  :data:`BWD_WIDTHS`) it also writes each row's log-sum-exp, in the log2
+  domain of its scaled scores, for the backward's tensor-core route; such a
+  call takes this kernel at any Lq.
 - ``"simt"`` — the other ``Lq > 16`` calls (float32, the models' float32
   gates; bf16 at other widths, which no model has):
   ``csrc/flash_attention.cu``, a 64-row tile on the float32 CUDA cores.
@@ -42,9 +42,10 @@ picks the kernel from Lq, the type and the widths alone:
 zero-padded to Dqk by this wrapper (one ``F.pad``) and their output sliced
 back to Dv, so the zero columns cost bytes and FLOP on those routes only.
 
-The backward's route, :func:`bwd_route`, is ``"tc"`` (bf16, Dh 64 or
-128: ``csrc/flash_attention_bwd_tc.cu``, from the forward's log-sum-exp)
-or ``"simt"`` (float32: ``csrc/flash_attention_bwd.cu``).
+The backward's route, :func:`bwd_route`, is ``"tc"`` (bf16, ``(Dqk, Dv)``
+in :data:`BWD_WIDTHS`: (64, 64), (128, 128) and minicpm3-4b's MLA (96, 64);
+``csrc/flash_attention_bwd_tc.cu``, from the forward's log-sum-exp) or
+``"simt"`` (float32, Dqk = Dv of 64 or 128: ``csrc/flash_attention_bwd.cu``).
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
@@ -67,11 +68,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
 DECODE_ROWS = 16  # Lq up to this takes the decode kernel
-# bf16 (Dqk, Dv) the tensor-core forward is built for; its log-sum-exp and
-# the backward only at Dqk = Dv
+# bf16 (Dqk, Dv) the tensor-core forward is built for (its log-sum-exp at
+# each), and those the tensor-core backward is built for; the float32
+# backward takes Dqk = Dv of BWD_SIMT_DIMS
 TC_WIDTHS = ((64, 64), (128, 128), (96, 64), (192, 128))
+BWD_WIDTHS = ((64, 64), (128, 128), (96, 64))
+BWD_SIMT_DIMS = (64, 128)
 LSE_ROW_ALIGN = 64  # the log-sum-exp's rows: whole boxes of the backward's TMA loads
-BWD_HEAD_DIMS = (64, 128)  # Dh the backward's kernels are built for
 DECODE_BLOCK_ROWS = 8  # query rows a decode block holds at most
 DECODE_MIN_KEYS = 256  # keys a split takes at least
 
@@ -104,16 +107,16 @@ def lse_row_stride(lq: int) -> int:
     return -(-lq // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
 
 
-def bwd_route(dtype: torch.dtype, dh: int) -> Optional[str]:
-    """The backward kernel a call takes: ``"tc"`` for bf16 with Dh 64 or
-    128 (the tensor cores, from the forward's log-sum-exp), ``"simt"`` for
-    float32 with Dh 64 or 128 (the CUDA cores); None where no kernel is
-    built."""
-    if dh not in BWD_HEAD_DIMS:
-        return None
-    if dtype == torch.bfloat16 and (dh, dh) in TC_WIDTHS:
+def bwd_route(dtype: torch.dtype, dh: int, dv: Optional[int] = None) -> Optional[str]:
+    """The backward kernel a call takes: ``"tc"`` for bf16 with ``(Dqk, Dv)
+    = (dh, dv)`` (``dv`` defaults to ``dh``) in :data:`BWD_WIDTHS` (the
+    tensor cores, from the forward's log-sum-exp), ``"simt"`` for float32
+    with Dqk = Dv in :data:`BWD_SIMT_DIMS` (the CUDA cores); None where no
+    kernel is built (a float32 MLA gradient among them)."""
+    dv = dh if dv is None else dv
+    if dtype == torch.bfloat16 and (dh, dv) in BWD_WIDTHS:
         return "tc"
-    return "simt" if dtype == torch.float32 else None
+    return "simt" if dtype == torch.float32 and dh == dv and dh in BWD_SIMT_DIMS else None
 
 
 def plan_splits(heads: int, admitted: int, slots: int, max_splits: int) -> tuple[int, int]:
@@ -196,7 +199,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`route` names (on the ``"decode"`` and ``"simt"`` routes a view of
     the padded call's output when ``Dv < Dqk``). With ``return_lse`` it
     returns ``(out, lse)`` from the tensor-core kernel at any Lq (bf16,
-    ``Dqk = Dv`` of 64 or 128 only): ``lse [B, Hq, Lq]`` float32, each
+    ``(Dqk, Dv)`` in :data:`TC_WIDTHS`): ``lse [B, Hq, Lq]`` float32, each
     row's ``log2 Σⱼ 2^(sⱼ/√Dh · log2 e)`` over its admitted keys (+inf for
     a row with none), a view whose head rows are :func:`lse_row_stride`
     floats apart; ``out`` is the tensor-core kernel's output bit for bit.
@@ -237,10 +240,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be a float32 or bfloat16 CUDA "
                              f"tensor of q's type and device (q and k contiguous), got "
                              f"{t.dtype} on {t.device} (contiguous: {t.is_contiguous()})")
-    if return_lse and not (q.dtype == torch.bfloat16 and dv == dh
-                           and (dh, dv) in TC_WIDTHS):
+    if return_lse and not (q.dtype == torch.bfloat16 and (dh, dv) in TC_WIDTHS):
         raise ValueError(f"flash_attention: the log-sum-exp comes from the tensor-core kernel "
-                         f"(bf16, Dh = Dv of 64 or 128), got {q.dtype}, Dh={dh}, Dv={dv}")
+                         f"(bf16, (Dqk, Dv) in {TC_WIDTHS}), got {q.dtype}, Dh={dh}, Dv={dv}")
     kind = "tc" if return_lse else route(lq, q.dtype, dh, dv)
     if kind != "tc" and dv < dh:
         # the one-width kernels: V zero-padded to Dqk, the output sliced back

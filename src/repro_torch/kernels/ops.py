@@ -273,11 +273,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
     With grad mode on and any input requiring grad it is differentiable
     (:class:`_FlashAttention`): on the card the backward is the
-    ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, ``Dqk =
-    Dv`` of 64 or 128, the route
-    :func:`~repro_torch.kernels.flash_attention.bwd_route` names; it raises
-    on anything else), with ``use_kernels=False`` the plain
-    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref` (``Dqk = Dv``)."""
+    ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, the
+    route :func:`~repro_torch.kernels.flash_attention.bwd_route` names: bf16
+    at ``(Dqk, Dv)`` (64, 64), (128, 128) and MLA's (96, 64) on the tensor
+    cores, float32 at Dqk = Dv of 64 or 128; it raises on anything else, a
+    float32 MLA gradient among them), with ``use_kernels=False`` the plain
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref` (any Dv)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, q_offset, use_kernels)
     return _flash_attention(q, k, v, causal, q_offset, use_kernels)
@@ -291,17 +292,18 @@ def _flash_attention(q, k, v, causal, q_offset, use_kernels) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """:func:`flash_attention` as a function of q, k and v. The kernel
-    route saves the output, whose ``rowsum(dO ∘ O)`` the backward kernel
-    reads, and, where the backward takes the tensor cores, the forward
-    kernel's log-sum-exp of each row (under remat, the recompute's); the
-    plain backward recomputes everything from q, k and v."""
+    """:func:`flash_attention` as a function of q, k and v (V at its own
+    width). The kernel route saves the output, whose ``rowsum(dO ∘ O)`` the
+    backward kernel reads, and, where the backward takes the tensor cores,
+    the forward kernel's log-sum-exp of each row (under remat, the
+    recompute's); the plain backward recomputes everything from q, k and
+    v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, use_kernels):
         lse = None
         if (_use_kernel(q, use_kernels, "flash_attention") and causal and q_offset == 0
-                and bwd_route(q.dtype, q.shape[-1]) == "tc"):
+                and bwd_route(q.dtype, q.shape[-1], v.shape[-1]) == "tc"):
             out, lse = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                             causal=True, q_offset=0, return_lse=True)
         else:

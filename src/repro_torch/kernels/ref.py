@@ -388,32 +388,33 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``, the gradient of :func:`flash_attention_ref` at
     ``q, k, v`` given ``dout``, the output's gradient, each in its input's
-    type.
+    type. V and ``dout`` may be narrower than q and k (``[B, Hkv, Lk, Dv]``
+    and ``[B, Hq, Lq, Dv]``, MLA's ``v_head``).
 
     The plain version of ``csrc/flash_attention_bwd.cu`` and
     ``csrc/flash_attention_bwd_tc.cu``, written as
     autograd differentiates the forward: in float32, a query slice of
     ``_ATTN_CELLS // (B · Hq · Lk)`` rows at a time (as JAX recomputes each
     query chunk's softmax in its backward), the scores and ``P`` are
-    recomputed, ``dV += Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘ (dP −
-    rowsum(P ∘ dP))`` divided by ``√Dh``, ``dQ = dS K`` and ``dK += dSᵀ Q``;
-    ``dK`` and ``dV`` sum over each KV head's query heads.
+    recomputed, ``dV += Pᵀ dO``, ``dP = dO Vᵀ`` over Dv, ``dS = P ∘ (dP −
+    rowsum(P ∘ dP))`` divided by ``√Dqk``, ``dQ = dS K`` and ``dK += dSᵀ Q``
+    over Dqk; ``dK`` and ``dV`` sum over each KV head's query heads.
     """
     b, hq, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, dvw = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     kf, vf = k.float(), v.float()
     root = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=q.device))
     qg = q.reshape(b, hkv, group, lq, dh)
-    dg = dout.reshape(b, hkv, group, lq, dh)
+    dg = dout.reshape(b, hkv, group, lq, dvw)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
-    dv = torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, hkv, lk, dvw), dtype=torch.float32, device=q.device)
     step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
     for s in range(0, lq, step):
         rows = min(step, lq - s)
         qs = qg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
-        ds = dg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
+        ds = dg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dvw)
         logits = (torch.matmul(qs, kf.transpose(-1, -2)) / root).view(b, hkv, group, rows, lk)
         if causal:
             qpos = torch.arange(s, s + rows, device=q.device)[:, None] + q_offset
@@ -528,33 +529,34 @@ def flash_attention_bwd_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                split: bool = True):
     """The tensor-core backward's arithmetic (``csrc/flash_attention_bwd_tc.cu``)
     in plain PyTorch, causal at offset 0, ``(dq, dk, dv)`` each in its
-    input's type: over 64-row query tiles, S and dP in float32
-    from the operands, ``P = 2^(S · scale · log2 e − lse)`` from the given
-    log2-domain log-sum-exp (``lse [B, Hq, L]``, as the forward kernel
-    writes it; 0 past the diagonal), ``D = rowsum(dO ∘ O)`` in float32 from
-    ``out``, ``dS = P ∘ (dP − D)``; ``dV = Σ Pᵀ dO`` with P split by
-    :func:`split_p` into ``hi + lo`` (``split=False`` rounds P once to
-    bf16, what the kernel does not do); dS rounded once to bf16 for
+    input's type: over 64-row query tiles, S (over Dqk) and dP (over Dv) in
+    float32 from the operands, ``P = 2^(S · scale · log2 e − lse)`` from the
+    given log2-domain log-sum-exp (``lse [B, Hq, L]``, as the forward kernel
+    writes it; 0 past the diagonal), ``D = rowsum(dO ∘ O)`` over Dv in
+    float32 from ``out``, ``dS = P ∘ (dP − D)``; ``dV = Σ Pᵀ dO`` with P
+    split by :func:`split_p` into ``hi + lo`` (``split=False`` rounds P
+    once to bf16, what the kernel does not do); dS rounded once to bf16 for
     ``dQ = scale · dS K`` and ``dK = scale · Σ dSᵀ Q``; dK and dV summed over
-    each KV head's query heads in float32."""
+    each KV head's query heads in float32. V, ``out`` and ``dout`` may be
+    narrower than q and k (MLA's Dv)."""
     b, hq, l, dh = q.shape
-    hkv = k.shape[1]
+    hkv, dvw = k.shape[1], v.shape[-1]
     group = hq // hkv
     scale = 1.0 / math.sqrt(dh)
     c = torch.tensor(scale * _LOG2E, dtype=torch.float32)
     kf, vf = k.float(), v.float()
     qg = q.float().reshape(b, hkv, group, l, dh)
-    dg = dout.float().reshape(b, hkv, group, l, dh)
+    dg = dout.float().reshape(b, hkv, group, l, dvw)
     delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, group, l)
     lg = lse.reshape(b, hkv, group, l)
     dq = torch.empty((b, hkv, group, l, dh), dtype=torch.float32)
     dk = torch.zeros((b, hkv, l, dh), dtype=torch.float32)
-    dv = torch.zeros((b, hkv, l, dh), dtype=torch.float32)
+    dv = torch.zeros((b, hkv, l, dvw), dtype=torch.float32)
     keys = torch.arange(l)
     for s0 in range(0, l, 64):
         rows = min(64, l - s0)
         qs = qg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, dh)
-        ds_ = dg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, dh)
+        ds_ = dg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, dvw)
         st = lg[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, 1)
         dd = delta[:, :, :, s0:s0 + rows].reshape(b, hkv, group * rows, 1)
         pos = torch.arange(s0, s0 + rows).repeat(group)
@@ -620,7 +622,8 @@ def flash_attention_bwd_limits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     bounded by a few float32 roundings of the same sum over absolute values
     (``M``): ``Pᵀ|dO|`` for dV, and for dQ and dK the sums of ``|dS|``'s
     bound ``P ∘ (|dO||V|ᵀ + Dmag) / √Dh`` times ``|K|`` and ``|Q|``, where
-    ``Dmag = rowsum(|dO| ∘ P|V|)`` bounds ``D``. The kernel reads D from
+    ``Dmag = rowsum(|dO| ∘ P|V|)`` bounds ``D`` (rows over Dv, which may
+    be narrower than Dqk: MLA's V; scaled by ``1/√Dqk``). The kernel reads D from
     the forward's output, itself within the forward's limit, and recomputes
     P and dP before its products: the float32 limit is ``2e-5 · M``, the
     forward's 1e-5 twice. In bfloat16 the output O it reads was rounded (off
@@ -637,21 +640,22 @@ def flash_attention_bwd_limits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float())
     b, hq, lq, dh = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, dvw = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     kf, vf = k.float(), v.float()
     ka, va = kf.abs(), vf.abs()
     root = math.sqrt(dh)
     mq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     mdq = torch.empty_like(mq)
-    mk, mdk, mv = (torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
-                   for _ in range(3))
-    qg, dg = q.reshape(b, hkv, group, lq, dh), dout.reshape(b, hkv, group, lq, dh)
+    mk, mdk = (torch.zeros((b, hkv, lk, dh), dtype=torch.float32, device=q.device)
+               for _ in range(2))
+    mv = torch.zeros((b, hkv, lk, dvw), dtype=torch.float32, device=q.device)
+    qg, dg = q.reshape(b, hkv, group, lq, dh), dout.reshape(b, hkv, group, lq, dvw)
     step = max(1, _ATTN_CELLS // max(1, b * hq * lk))
     for s in range(0, lq, step):
         rows = min(step, lq - s)
         qs = qg[:, :, :, s:s + rows].float().reshape(b, hkv, group * rows, dh)
-        da = dg[:, :, :, s:s + rows].float().abs().reshape(b, hkv, group * rows, dh)
+        da = dg[:, :, :, s:s + rows].float().abs().reshape(b, hkv, group * rows, dvw)
         logits = (torch.matmul(qs, kf.transpose(-1, -2)) / root).view(b, hkv, group, rows, lk)
         qpos = torch.arange(s, s + rows, device=q.device)[:, None]
         logits.masked_fill_(torch.arange(lk, device=q.device)[None, :] > qpos, -math.inf)

@@ -4,7 +4,8 @@ steps, their FLOP counts and their inputs.
 Twins of ``repro/launch/steps.py``'s cells on one device: the
 ``recsys_train``, ``recsys_serve`` and ``retrieval`` branches of
 ``_dlrm_cell`` and ``_dlrm_flops``; the train branch of ``_lm_cell`` (its
-microbatch count and float32 gradient accumulation, dense GQA layers) and
+microbatch count and float32 gradient accumulation; GQA or MLA, dense or
+MoE layers, the MoE sum as ``_lm_cell``'s mesh routes it) and
 ``_lm_flops``; the ``step`` of ``_gnn_cell``, ``_gnn_counts`` and
 ``_gnn_flops``. Each step's loss and gradient are JAX's; the DLRM and LM
 steps then run :func:`~repro_torch.optim.adamw_update_`, in place (their
@@ -96,7 +97,7 @@ def dlrm_train_step(params, opt: AdamWState, dense, sparse, labels, cfg: dlrm.DL
 
 
 # ---------------------------------------------------------------------------
-# LM training (dense GQA layers, one device)
+# LM training (one device)
 # ---------------------------------------------------------------------------
 
 def lm_flops(cfg: tf.TransformerConfig, shape: ShapeSpec) -> Dict[str, float]:
@@ -161,11 +162,13 @@ def lm_loss(params, tokens, labels, cfg: tf.TransformerConfig, *,
 
 def _lm_grads(params, tokens, labels, cfg, use_kernels):
     """One loss and its gradient by flat parameter name. Each layer of a
-    stacked group is its own leaf, a view of the stacked tensor; as each
-    layer's gradient arrives it is copied into that layer's slice of the
-    stacked gradient (allocated at the first) and freed, so no ``[L, …]``
-    gradient is made once a layer, and none is held while the head's
-    backward runs."""
+    stacked group (``"dense"``, ``"moe"``) is its own leaf, a view of the
+    stacked tensor; as each layer's gradient arrives it is copied into that
+    layer's slice of the stacked gradient (allocated at the first) and
+    freed, so no ``[L, …]`` gradient is made once a layer, and none is held
+    while the head's backward runs. A layer's experts no row reached get
+    exact zeros (the routed sum takes its experts apart with one
+    ``unbind``)."""
     leaves, grads, model = [], {}, {}
 
     def into_slice(key, stacked, i):

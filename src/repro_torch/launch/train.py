@@ -1,7 +1,7 @@
 """Fault-tolerant LM training driver (twin of ``repro/launch/train.py``).
 
-Trains a dense-GQA LM of the registry at smoke or full width on one device
-with:
+Trains an LM of the registry (GQA or MLA, dense or MoE) at smoke or full
+width on one device with:
 - checkpoint/restart (atomic saves; auto-resume from the newest intact
   step — kill -9 mid-run and relaunch to test); the files interchange with
   the JAX driver's;
@@ -11,11 +11,14 @@ with:
 Each step is :func:`repro_torch.launch.steps.lm_train_step` (one batch, no
 microbatches, as the JAX driver's step) at the warm-up cosine rate
 (peak 3e-4, 10 warm-up steps). On the card the attention runs the CUDA
-kernels forward and backward and the embedding's backward the
-``segment_sum`` kernel; ``--device cpu`` runs their plain versions.
-Without a card the default device raises.
+kernels forward and backward (MLA's at its own V width, (96, 64) for
+minicpm3-4b) and the embedding's backward the ``segment_sum`` kernel; MoE
+layers take the routed sum JAX trains with; ``--device cpu`` runs the
+kernels' plain versions. Without a card the default device raises (so does
+a float32 MLA gradient on the card: no kernel takes it).
 
-Usage (CPU smoke):
+Usage (CPU smoke; ``--arch minicpm3-4b`` or ``granite-moe-3b-a800m`` for MLA
+or MoE):
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
         --steps 20 --smoke --device cpu --ckpt-dir /tmp/ckpt
 """

@@ -3,11 +3,11 @@
 Single-device port of ``repro/models/transformer.py`` (RoPE, SwiGLU,
 layer-stacked ``[L, …]`` parameters): for inference ``forward`` (teacher
 forcing), ``prefill``, ``prefill_chunked`` and ``decode_step`` over a
-layer-stacked cache; for training ``train_forward`` (dense GQA layers),
-the same layer body with grad, each layer recomputed in the backward when
-``remat`` is set. Parameters are a nested dict keyed by the JAX names,
-weights in JAX's ``[in, out]`` layout, so the JAX package's parameters carry
-across unchanged (``convert.lm_params_from_numpy``).
+layer-stacked cache; for training ``train_forward`` (GQA or MLA, dense or
+MoE layers), the same layer body with grad, each layer recomputed in the
+backward when ``remat`` is set. Parameters are a nested dict keyed by the
+JAX names, weights in JAX's ``[in, out]`` layout, so the JAX package's
+parameters carry across unchanged (``convert.lm_params_from_numpy``).
 
 - **Attention.** Grouped-query (``attn="gqa"``), or MLA (``"mla"``,
   DeepSeek-V2 §2.1): low-rank query and key/value projections, and a cache
@@ -25,15 +25,21 @@ across unchanged (``convert.lm_params_from_numpy``).
   latent cache itself in float32 products, as JAX does, with no kernel.
 - **Mixture of experts** (the layers after ``first_dense``): router softmax
   in float32, top-k by a stable descending sort (ties go to the lower expert
-  id, as ``jax.lax.top_k`` sends them), weights renormalized; then each
-  expert's SwiGLU on only the rows routed to it, added into a zero
-  accumulator in the model's type in ascending expert order, and the shared
-  experts after. JAX's one-device path runs every expert on every token and
-  adds ``y · 0`` for the unrouted ones, so each token's sum has the same
-  terms in the same order; only the products' own rounding differs. The
-  loop reads the per-expert row counts to the host once a layer to skip the
-  empty experts. The expert-parallel path (``_moe_routed``) and the sharding
-  specs need a mesh and are not ported (ROADMAP).
+  id, as ``jax.lax.top_k`` sends them), weights renormalized, then the
+  shared experts after the routed ones. The routed sum differs between the
+  entry points as JAX's does, which routes by whether it has a mesh:
+  serving (JAX passes none) takes ``_moe_experts``, each expert's SwiGLU
+  on only the rows routed to it, added into a zero accumulator in the
+  model's type in ascending expert order (JAX's one-device path runs every
+  expert on every token and adds ``y · 0`` for the unrouted ones, so each
+  token's sum has the same terms in the same order; only the products' own
+  rounding differs). Training (JAX's ``_lm_cell`` runs on a mesh, so
+  ``_moe_routed``) takes ``_moe_routed``: its one-shard body at ep = 1,
+  rows sorted by expert, each expert's rows in a static window with the
+  rows past it masked to zero, each token's k weighted outputs summed in
+  float32 and rounded once. Both read the per-expert row counts to the host
+  once a layer. Expert parallelism over several devices and the sharding specs
+  need a mesh and are not ported (ROADMAP).
 
 Every serving entry point runs under ``torch.inference_mode()``. The serving
 functions write the new keys and values (or latents) into the cache **in
@@ -54,14 +60,16 @@ from ..kernels import ops
 from .common import apply_rope, rms_norm, rope, swiglu
 
 __all__ = ["TransformerConfig", "param_shapes", "init_params", "forward", "train_forward",
-           "init_cache", "prefill", "prefill_chunked", "decode_step"]
+           "init_cache", "prefill", "prefill_chunked", "decode_step", "moe_window",
+           "moe_windows"]
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Twin of ``repro.models.transformer.TransformerConfig``, field for
-    field. ``attn_backend``, ``q_chunk``, ``moe_capacity_factor`` and
-    ``attn_seq_shard`` steer JAX's compilation and sharding and are not
-    read here: the port chooses its attention by ``use_kernels=``.
+    field. ``attn_backend``, ``q_chunk`` and ``attn_seq_shard`` steer JAX's
+    compilation and sharding and are not read here: the port chooses its
+    attention by ``use_kernels=``. ``moe_capacity_factor`` sizes the
+    routed training sum's rows (:func:`moe_window`).
     ``remat`` checkpoints each layer of ``train_forward``."""
 
     name: str
@@ -382,12 +390,74 @@ def _moe_experts(lp, x, weights, sel, c: TransformerConfig) -> torch.Tensor:
     return out
 
 
-def _moe_ffn(lp, x, c: TransformerConfig):
-    """``x [B, L, D]`` → the routed experts' SwiGLU plus the shared experts'."""
+def moe_windows(counts: List[int], total: int, window: int) -> List[int]:
+    """Rows ``_moe_routed`` keeps of each expert: expert ``e``'s ``counts[e]``
+    rows lie at offset ``o = Σ counts[:e]`` of the expert-sorted rows
+    (``total`` of them with the exchange's padding, which sorts last), and
+    only those before ``start + window`` are computed, ``start = min(o,
+    total − window)`` (JAX clips the window's start into the rows)."""
+    kept, o = [], 0
+    for n in counts:
+        kept.append(max(0, min(n, min(o, total - window) + window - o)))
+        o += n
+    return kept
+
+
+def moe_window(c: TransformerConfig, tokens: int) -> Tuple[int, int]:
+    """``(total, window)`` of ``_moe_routed`` over ``tokens`` tokens at ep =
+    1: the exchange's ``t · k · capacity_factor`` rows (its capacity, real
+    rows first), and each expert's static window ``min(total, max(128, 2 ·
+    total // n_experts_padded))``."""
+    total = max(1, int(tokens * c.top_k * c.moe_capacity_factor))
+    return total, min(total, max(128, (2 * total) // c.n_experts_padded))
+
+
+def _moe_routed(lp, x, weights, sel, c: TransformerConfig) -> torch.Tensor:
+    """JAX's ``_moe_routed`` body on one shard (ep = 1, no collective) for
+    ``x [T, D]``: the ``T · k`` (token, choice) rows in token-major order
+    (the exchange keeps them all, its capacity :func:`moe_window`'s
+    ``total``), sorted stably by expert; of each expert the rows inside its
+    window (:func:`moe_windows`) through its SwiGLU, the rest zero;
+    unsorted, each row times its weight in the model's type, and each
+    token's k rows summed (in float32, rounded once to the model's type, as
+    XLA sums them).
+
+    Deterministic with grad: the rows are gathered once by a permutation
+    and unsorted by its inverse (no index meets two rows), the experts'
+    weights taken apart by one ``unbind`` (an expert no row reaches gets an
+    exact zero gradient)."""
+    t, d = x.shape
+    k = c.top_k
+    total, window = moe_window(c, t)
+    if total < t * k:
+        raise NotImplementedError(f"{c.name}: moe_capacity_factor "
+                                  f"{c.moe_capacity_factor} < 1 drops routed rows")
+    experts = sel.reshape(-1)
+    order = torch.argsort(experts, stable=True)
+    counts = _expert_rows(experts, c.n_experts_padded)
+    kept = moe_windows(counts, total, window)
+    rows = x.unsqueeze(1).expand(t, k, d).reshape(t * k, d).index_select(0, order)
+    sizes = [m for nk, ne in zip(kept, counts) for m in (nk, ne - nk)]
+    pieces = rows.split(sizes)
+    wg, wu, wd = (lp[name].unbind(0) for name in ("e_wg", "e_wu", "e_wd"))
+    ys = []
+    for e, (nk, ne) in enumerate(zip(kept, counts)):
+        if nk:
+            ys.append(swiglu(pieces[2 * e], wg[e], wu[e], wd[e]))
+        if ne > nk:
+            ys.append(x.new_zeros((ne - nk, d)))
+    y = torch.cat(ys).index_select(0, torch.argsort(order))
+    return (y * weights.reshape(-1, 1).to(x.dtype)).view(t, k, d).sum(1)
+
+
+def _moe_ffn(lp, x, c: TransformerConfig, routed: bool = False):
+    """``x [B, L, D]`` → the routed experts' SwiGLU plus the shared experts':
+    ``_moe_experts`` (JAX without a mesh, as it serves) or with ``routed``
+    ``_moe_routed`` (JAX on a mesh, as ``_lm_cell`` trains)."""
     b, l, d = x.shape
     flat = x.reshape(-1, d)
     weights, sel = _moe_route(lp, flat, c)
-    out = _moe_experts(lp, flat, weights, sel, c)
+    out = (_moe_routed if routed else _moe_experts)(lp, flat, weights, sel, c)
     if c.n_shared:
         out = out + swiglu(flat, lp["s_wg"], lp["s_wu"], lp["s_wd"])
     return out.view(b, l, d)
@@ -398,12 +468,13 @@ def _moe_ffn(lp, x, c: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bool,
-           cache=None, pos: int = 0):
+           cache=None, pos: int = 0, routed: bool = False):
     """One block. With ``cache`` (this layer's views: GQA ``(k, v)`` ``[B,
     Hkv, S, Dh]``, MLA ``(c_kv [B, S, kv_lora], k_rope [B, S, qk_rope])``) the
     chunk's entries are written at ``pos … pos + Lq - 1`` in place and the
     queries attend over the whole cache with ``q_offset = pos``: the causal
-    mask hides the entries not written yet."""
+    mask hides the entries not written yet. ``routed`` picks the MoE sum
+    JAX trains with (:func:`_moe_ffn`)."""
     h = rms_norm(x, lp["attn_norm"])
     if c.attn == "gqa":
         q, k, v = _gqa_qkv(lp, h, c, positions)
@@ -430,7 +501,7 @@ def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bo
     x = x + attn @ lp["wo"]
     h2 = rms_norm(x, lp["mlp_norm"])
     if moe:
-        return x + _moe_ffn(lp, h2, c)
+        return x + _moe_ffn(lp, h2, c, routed)
     return x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
 
 
@@ -471,21 +542,23 @@ def forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch
 
 def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch.Tensor:
     """Teacher-forcing forward with grad: tokens ``[B, S]`` → logits ``[B,
-    S, V]``, for dense GQA layers (JAX's ``forward`` under
-    ``jax.value_and_grad``).
+    S, V]`` (JAX's ``forward`` on ``_lm_cell``'s mesh under
+    ``jax.value_and_grad``), GQA or MLA, dense or MoE layers.
 
     The embedding goes through :func:`ops.gather_rows` (its transpose a
     segment sum into the rows the tokens touch), each layer through
     :func:`_layer` (serving's body, no cache), its attention through the
-    differentiable :func:`ops.flash_attention`. With ``c.remat`` and grad
-    mode on each layer is checkpointed and recomputed in the backward, as
-    JAX's ``jax.checkpoint`` of its scan step. A layer group of ``params``
+    differentiable :func:`ops.flash_attention` (MLA's K assembled by slice
+    writes, V at its own width), a MoE layer's routed sum through
+    :func:`_moe_routed`, as JAX trains (not serving's sum). With
+    ``c.remat`` and grad mode on each layer is checkpointed and recomputed
+    in the backward, as JAX's ``jax.checkpoint`` of its scan step; the
+    recompute reads the same row counts to the host and routes as the
+    forward did (a recompute that routed otherwise would save tensors of
+    other shapes, and ``checkpoint`` raises). A layer group of ``params``
     may be a list of per-layer dicts instead of stacked ``[L, …]`` tensors,
     so that a caller can take each layer's gradient on its own leaves.
     """
-    if c.attn != "gqa" or c.moe:
-        raise NotImplementedError(f"{c.name}: training runs dense GQA layers only; MLA and "
-                                  "MoE training wait in ROADMAP Queue 1")
     b, s = tokens.shape
     x = ops.gather_rows(params["embed"], tokens.reshape(-1).to(torch.int32),
                         use_kernels=use_kernels).view(b, s, -1).to(c.tdtype)
@@ -496,7 +569,7 @@ def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) ->
         for i in range(n):
             lp = layers[i] if isinstance(layers, list) else {k: t[i] for k, t in layers.items()}
             fn = functools.partial(_layer, lp, c=c, positions=positions, moe=moe,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, routed=True)
             x = (checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
                  if remat else fn(x))
     return _logits(params, x)

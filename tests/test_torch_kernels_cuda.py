@@ -12,9 +12,10 @@ its three kernels, at MLA's widths too (V of 64 / 128 columns under Q and
 K of 96 / 192: the tensor-core kernel at V's own width, the others on V
 padded by the wrapper); flash_attention_bwd's dQ, dK and dV element by element
 within ref.flash_attention_bwd_limits on both routes (bf16 on the tensor
-cores from the forward's log-sum-exp, float32 on the CUDA cores),
-repeatable, and through autograd; the forward's log-sum-exp within 1e-5 of
-torch.logsumexp, its output bitwise unchanged by it). Imports no
+cores from the forward's log-sum-exp, at minicpm3's MLA widths (96, 64)
+too; float32 on the CUDA cores), repeatable, and through autograd; the
+forward's log-sum-exp within 1e-5 of torch.logsumexp, at (96, 64) too, its
+output bitwise unchanged by it; a float32 MLA gradient raising). Imports no
 JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -644,8 +645,9 @@ def test_flash_attention_takes_a_strided_v(cuda_device, dqk, dv, dtype, lq, off)
 @pytest.mark.cuda
 def test_flash_attention_refuses_at_mla_widths(cuda_device):
     """V wider than Q and K, V's leading dimensions not K's, a bf16 Dv that
-    is not a whole number of 16-byte chunks, and the log-sum-exp at Dqk ≠
-    Dv all raise, and launch nothing."""
+    is not a whole number of 16-byte chunks, and the log-sum-exp at MLA's
+    widths in float32 (it comes from the bf16 tensor-core kernel) all
+    raise, and launch nothing."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -660,7 +662,7 @@ def test_flash_attention_refuses_at_mla_widths(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_cuda(q, k, v[..., :20].contiguous())
     with pytest.raises(ValueError, match="log-sum-exp"):
-        flash_attention_cuda(q, k, v, return_lse=True)
+        flash_attention_cuda(q.float(), k.float(), v.float(), return_lse=True)
     assert not any(ops.launch_counts().values())
 
 
@@ -746,6 +748,88 @@ def test_flash_attention_bwd_kernel_through_autograd(cuda_device):
     _, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
     want = flash_attention_bwd_cuda(q, k, v, out.detach(), dout, lse)
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,l", [
+    (1, 40, 40, 300),    # minicpm3's heads, MHA
+    (2, 6, 2, 37),       # group 3, a partial tile
+    (1, 4, 4, 1000),     # the last tile crossing l
+    (1, 8, 1, 129),      # group 8, one row past two tiles
+])
+def test_flash_attention_bwd_kernel_at_mla_widths(cuda_device, b, hq, hkv, l):
+    """bf16 at (Dqk, Dv) = (96, 64), V and dO at their own width, on the
+    tensor cores from the forward's log-sum-exp: dQ, dK and dV element by
+    element within ``ref.flash_attention_bwd_limits``, two launches bitwise
+    equal."""
+    from repro_torch.kernels.flash_attention import bwd_route, flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    bf16 = torch.bfloat16
+    assert bwd_route(bf16, 96, 64) == "tc"
+    q, k, v = _attn_inputs(l + 7, b, hq, hkv, l, l, 96, bf16, cuda_device, 64)
+    (dout,) = _attn_inputs(l + 8, b, hq, hkv, l, l, 64, bf16, cuda_device)[:1]
+    out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    before = flash_attention_bwd_cuda.tc_launches
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    assert flash_attention_bwd_cuda.tc_launches - before == 1
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    want, limit = ref.flash_attention_bwd_limits(q, k, v, dout)
+    for g, w, lim in zip(got, want, limit):
+        assert float(((g.float() - w).abs() / lim).max()) <= 1.0
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [17, 300, 1000])
+def test_flash_attention_forward_lse_at_mla_widths(cuda_device, l):
+    """The tensor-core forward's log-sum-exp at (96, 64) within 1e-5 of
+    max(1, |lse|) of ``torch.logsumexp`` of the masked scores (scaled by
+    1/√96); the output bitwise the same as without it."""
+    import math
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _attn_inputs(l + 3, 2, 6, 2, l, l, 96, torch.bfloat16, cuda_device, 64)
+    out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=True, q_offset=0))
+    assert lse.shape == (2, 6, l) and lse.stride(1) % 64 == 0
+    s = torch.matmul(q.float(), k.float().repeat_interleave(3, dim=1).transpose(-1, -2))
+    s = (s / math.sqrt(96)).masked_fill(
+        torch.ones(l, l, dtype=torch.bool, device=cuda_device).triu(1), -math.inf)
+    want = torch.logsumexp(s, -1) / math.log(2.0)
+    assert float(((lse - want).abs() / want.abs().clamp(min=1.0)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_takes_tc_at_mla_widths(cuda_device):
+    """``ops.flash_attention`` with grad at (96, 64) in bf16, V a
+    head-major view as MLA makes it: the forward keeps the log-sum-exp
+    (the tensor-core route), the backward launches the tensor-core kernels
+    once, with the kernel's gradients; in float32 the backward raises (no
+    kernel takes a float32 MLA gradient) instead of falling back."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    q, k, v = _attn_inputs(21, 1, 8, 8, 150, 150, 96, torch.bfloat16, cuda_device, 64)
+    (dout,) = _attn_inputs(22, 1, 8, 8, 150, 150, 64, torch.bfloat16, cuda_device)[:1]
+    view = v.transpose(1, 2).contiguous().transpose(1, 2)   # [b, h, l, 64], head-major
+    ops.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, view)]
+    out = ops.flash_attention(*leaves, use_kernels=True)
+    out.backward(dout)
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_tc"]) == (1, 1)
+    assert (counts["flash_attention_bwd"], counts["flash_attention_bwd_tc"]) == (1, 1)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = flash_attention_bwd_cuda(q, k, v, o, dout, lse)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(*leaves, use_kernels=True).backward(dout.float())
 
 
 @pytest.mark.cuda

@@ -252,13 +252,6 @@ def test_train_forward_equals_serving_forward_and_remat():
     assert all(torch.equal(on[1][k], off[1][k]) for k in off[1])
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-3b-a800m"])
-def test_train_forward_refuses_mla_and_moe(arch):
-    cfg = get_arch(arch).smoke
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.train_forward({}, torch.zeros((1, 2), dtype=torch.int32), cfg, use_kernels=False)
-
-
 def test_cross_entropy_matches_jax():
     rng = np.random.default_rng(0)
     logits = rng.normal(size=(3, 5, 40)).astype(np.float32)
