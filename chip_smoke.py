@@ -41,13 +41,28 @@ since the script started (all but the last line):
 4. ``audit`` — stage 1 listed again from scratch on the final partitions;
    its count and store must equal the maintained ones.
 5. ``plain``   — the same path with ``use_kernels=False`` on the card,
-   replaying the profiled batch and the small batches; the counts and the
+   replaying the profiled batch and the first small batch; the counts and the
    MatchStore tensors must equal the kernel run's.
 6. ``multi`` — q1_square and q2_triangle maintained by one megastep on
    WT~ (``run.WT_MULTI``), stage 1 and three batches with the kernels; the
    q1_square store must equal the single-pattern run's at every stage, and
    ``multi_audit`` lists each pattern from scratch on the final partitions
    (count and store equal to the maintained ones).
+6b. ``mesh`` — the service on a ``torch.distributed`` mesh: a process
+   group of world size 1 on NCCL started in the script (two NCCL ranks
+   cannot share one card), ``ListingService(backend="sharded",
+   mesh=ProcessMesh(8))`` over WT~ / q1_square (``run.WT_Q1``'s caps, the
+   seeds of ``service``), stage 1 and two 64 + 64 updates committed as
+   four 64-op batches, against the same service on the backend's own
+   ``LocalMesh`` run first: counts ``WT_COUNTS`` / ``SERVICE_DELETE_COUNTS``
+   at every watermark, overflow and host bytes 0, every store snapshot
+   equal, each batch's NCCL calls and bytes by kind (``all_gather``,
+   ``all_reduce``), the ranks' agreement checks, seconds and peak of
+   both runs; the batches' launches are ``launches_by_path["mesh"]``.
+   Then the collectives of ``repro_torch.dist`` (bucketed and routed
+   exchange at a capacity that holds every row and one that overflows, the
+   ring and the compressed butterfly) at world 1 on NCCL, equal to the same
+   functions on a ``LocalMesh(1)``.
 7. ``reference`` — the example graph of examples/distributed_listing.py,
    whose host-engine counts are known, checked on the card.
 8. The generic-join (WCOJ) executor. ``wcoj_plan`` / ``wcoj``:
@@ -302,7 +317,8 @@ since the script started (all but the last line):
    ``torch.nn.functional.embedding_bag``'s median ms (one call at a time
    and 20 in a row) beside the byte bound; ``serve_bulk_1gib`` times
    serve_bulk's lookups folded into the table's first GiB (a TLB limit
-   would show as a gap), with the library call beside it too.
+   would show as a gap), with the plain version and the library call
+   beside it too.
 16. ``dlrm_plan`` / ``dlrm_serve`` — dlrm-rm2 serving at its full config
    (26 tables of 1,000,000 x 64, float32, 1,664,762,177 parameters,
    random weights from seed 0; TF32 off) through
@@ -915,14 +931,14 @@ def timed_stage(fn):
     return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
-def small_batches(pipe, label: str):
-    """N_SMALL batches of 1 + 1 edges on the pipeline's current state, each
+def small_batches(pipe, label: str, n: int = N_SMALL):
+    """``n`` batches of 1 + 1 edges on the pipeline's current state, each
     with the partitions whose unit tables it listed again out of ``m``;
     returns their records and store snapshots."""
     from repro_torch.data.graphs import sample_update
 
     recs, snaps = [], []
-    for i in range(N_SMALL):
+    for i in range(n):
         upd = sample_update(pipe.graph, 1, 1, seed=SMALL_SEED + i)
         d, seconds, peak = timed_stage(lambda: {k: int(v) for k, v in pipe.apply(upd).items()})
         rec = {"phase": "small_batches", "run": label, "batch": i, **d,
@@ -1009,6 +1025,159 @@ def multi_phase(single_snaps):
     del pipe
     torch.cuda.empty_cache()
     return q2_counts
+
+
+# ---------------------------------------------------------------------------
+# The service on a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+MESH_UPDATES = 2
+
+
+def mesh_service_run(mesh, label: str):
+    """``ListingService(backend="sharded")`` over WT~ / q1_square at m = 8
+    (``run.WT_Q1``'s caps, 64 + 64 updates committed as batches of 64 ops,
+    the seeds of ``service``), on ``mesh`` (a ``ProcessMesh``) or on the
+    backend's own ``LocalMesh`` (None): stage 1, then MESH_UPDATES updates,
+    one ``advance`` a 64-op batch. Returns the per-stage records and store
+    snapshots (stage 1, then every batch) and the DDSL kernels' launches
+    over the batches."""
+    from repro_torch.core.pattern import PATTERN_LIBRARY
+    from repro_torch.data.graphs import rmat_graph, sample_update
+    from repro_torch.kernels import ops
+    from repro_torch.run import WT_Q1 as c
+    from repro_torch.stream import BatchScheduler, ListingService
+
+    graph = rmat_graph(c.n_log2, c.n_edges, seed=c.graph_seed)
+    kw = {} if mesh is None else {"mesh": mesh}
+
+    def stage1():
+        svc = ListingService(graph, backend="sharded", m=c.m, caps=config_caps(c),
+                             max_add=c.n_add, max_del=c.n_del, executor=c.executor,
+                             scheduler=BatchScheduler(min_ops=64, max_ops=64), **kw)
+        svc.register("q1_square", PATTERN_LIBRARY["q1_square"])
+        return svc
+
+    svc, seconds, peak = timed_stage(stage1)
+    store = lambda: svc.backend.entries["q1_square"].store  # noqa: E731
+    recs = [{"phase": "mesh", "run": label, "stage": "stage1", "count": svc.count("q1_square"),
+             "seconds": seconds, "peak_gib": peak}]
+    snaps = [store_snapshot(store())]
+    for b in range(MESH_UPDATES):
+        svc.ingest(sample_update(svc.projected_graph(), c.n_del, c.n_add,
+                                 seed=c.update_seed + b))
+    ops.reset_launch_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    for i in range(2 * MESH_UPDATES):
+        (bm,), seconds, peak = timed_stage(lambda: svc.advance(64 * (i + 1)))
+        rec = {"phase": "mesh", "run": label, "stage": "batch", "batch": i, "hi": bm.hi,
+               "count": bm.patterns["q1_square"].count_after, "seconds": seconds,
+               "latency_s": bm.latency_s, "peak_gib": peak, "overflow": bm.overflow,
+               "storage_overflow": bm.storage_overflow, "host_bytes": bm.host_bytes}
+        if mesh is not None:
+            rec["collective_calls"] = dict(mesh.calls)
+            rec["collective_bytes"] = dict(mesh.bytes)
+            mesh.reset_counts()
+        recs.append(rec)
+        snaps.append(store_snapshot(store()))
+    launches = {k: ops.launch_counts()[k] for k in DDSL_KERNELS}
+    if mesh is not None:
+        recs[-1]["agree_checks"] = svc.backend.agree_checks
+    del svc
+    free_device_memory()
+    return recs, snaps, launches
+
+
+def mesh_collectives(mesh) -> dict:
+    """The collectives of ``repro_torch.dist`` at world 1 on NCCL (one
+    partition a rank) against the same functions on a ``LocalMesh(1)``, on
+    the inputs of tests/spmd/run_collectives.py for one device."""
+    from repro_torch.dist import (bucketed_all_to_all, butterfly_compressed_all_reduce,
+                                  ring_all_reduce, routed_exchange)
+    from repro_torch.mesh import LocalMesh
+
+    rng = np.random.default_rng(0)
+    rows = torch.from_numpy(rng.integers(0, 1000, (32, 2)).astype(np.int32)).cuda()
+    targets = torch.zeros(32, dtype=torch.int32, device="cuda")
+    valid = torch.from_numpy(rng.random(32) < 0.8).cuda()
+    x = torch.from_numpy(rng.normal(size=16).astype(np.float32)).cuda()
+
+    def run(m):
+        out = {}
+        for cap in (32, 3):
+            rec, rv, ovf = bucketed_all_to_all([[rows]], [targets], [valid], m, cap)
+            out[f"a2a_{cap}"] = (rec[0][0], rv[0], ovf)
+            rec, rv, restore, ovf = routed_exchange([[rows]], [targets], [valid], m, cap)
+            out[f"routed_{cap}"] = (rec[0][0], rv[0], restore([rec[0][0] * 2])[0], ovf)
+        out["ring"] = (ring_all_reduce([x], m)[0],)
+        out["butterfly"] = (butterfly_compressed_all_reduce([x], m)[0],)
+        return out
+
+    got, want = run(mesh), run(LocalMesh(1))
+    equal = {k: all(torch.equal(a, b) for a, b in zip(got[k], want[k])) for k in want}
+    overflow = {cap: int(want[f"a2a_{cap}"][2]) for cap in (32, 3)}
+    restored = bool(torch.equal(got["routed_32"][2], torch.where(valid[:, None], rows * 2, 0)))
+    return {"equal": equal, "overflow_by_capacity": overflow, "restored": restored}
+
+
+def mesh_phase():
+    """``mesh``: the service of ``mesh_service_run`` on a
+    ``repro_torch.mesh.ProcessMesh`` of 8 partitions on one NCCL rank (a
+    process group of world size 1 started here: two NCCL ranks cannot share
+    a card), against the same run on the backend's ``LocalMesh``: counts
+    ``WT_COUNTS`` / ``SERVICE_DELETE_COUNTS`` at every watermark, overflow
+    and host bytes 0, every store snapshot equal, the collectives' calls and
+    bytes per batch; then the collectives of ``repro_torch.dist`` at world 1
+    against a ``LocalMesh(1)``. Returns the DDSL kernels' launches over the
+    process mesh's batches."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.mesh import ProcessMesh
+
+    t_phase = time.perf_counter()
+    ref_recs, ref_snaps, _ = mesh_service_run(None, "local")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    mesh = init_process_mesh(8, "cuda", timeout_s=300)
+    init_s = time.perf_counter() - t0
+    try:
+        check(dist.get_backend() == "nccl" and mesh.world == 1 and mesh.local == 8,
+              f"mesh: backend {dist.get_backend()}, world {mesh.world}, local {mesh.local}")
+        recs, snaps, launches = mesh_service_run(mesh, "process")
+        coll = mesh_collectives(ProcessMesh(1, mesh.device))
+    finally:
+        dist.destroy_process_group()
+    want = [WT_COUNTS[0]] + [v for k in range(MESH_UPDATES) for v in (
+        SERVICE_DELETE_COUNTS["q1_square"][k], WT_COUNTS[k + 1])]
+    for i, (rec, ref) in enumerate(zip(recs, ref_recs)):
+        rec["store_equal_local"] = snapshots_equal(snaps[i], ref_snaps[i])
+        emit(ref)
+        emit(rec)
+        check(rec["count"] == ref["count"] == want[i],
+              f"mesh: counts {rec['count']} / {ref['count']} at stage {i} != {want[i]}")
+        check(rec["store_equal_local"], f"mesh: the store differs from LocalMesh's at stage {i}")
+        check(rec.get("overflow", 0) == rec.get("host_bytes", 0) == 0, f"mesh: {rec}")
+        if i:
+            check(rec["collective_calls"].get("all_gather", 0) > 0
+                  and rec["collective_calls"].get("all_reduce", 0) > 0,
+                  f"mesh: batch {i} made no NCCL collective: {rec['collective_calls']}")
+    check(recs[-1]["agree_checks"] == 1 + 2 * MESH_UPDATES, f"mesh: {recs[-1]}")
+    for k in DDSL_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the mesh path")
+    emit({"phase": "mesh", "launches": launches, "backend": "nccl", "world": 1, "m": 8,
+          "init_process_group_s": init_s, "collectives": coll,
+          "seconds": time.perf_counter() - t_phase})
+    check(all(coll["equal"].values()) and coll["restored"]
+          and coll["overflow_by_capacity"][32] == 0 and coll["overflow_by_capacity"][3] > 0,
+          f"mesh: collectives {coll}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3690,6 +3859,7 @@ def embedding_bag_phase():
                "empty_bags": int((cnt == 0).sum())}
         if name == "serve_bulk_1gib":
             rec["ms"] = cuda_ms(lambda: embedding_bag_cuda(table, idx, bag, nb))
+            rec["plain_ms"] = cuda_ms(lambda: ref.embedding_bag_ref(table, idx, bag, nb), reps=3)
             offsets = torch.searchsorted(bag, torch.arange(nb, device="cuda", dtype=torch.int32))
             lib = functools.partial(F.embedding_bag, idx.long(), table, offsets, mode="sum")
             rec["library_equal"] = torch.equal(lib(), want)
@@ -4565,18 +4735,22 @@ def main() -> None:
           f"plain profiled batch {d}")
     check(snapshots_equal(store_snapshot(pipe.store), profiled_snap),
           "profiled batch: MatchStore tensors differ")
-    small_p, small_snaps_p = small_batches(pipe, "plain")
+    # the first small batch only: a plain one takes ~19 s on the card
+    small_p, small_snaps_p = small_batches(pipe, "plain", n=1)
     for i, (a, b) in enumerate(zip(small_k, small_p)):
         check(a["count"] == b["count"] and a["unit_refreshes"] == b["unit_refreshes"],
               f"small batch {i}: kernel {a} vs plain {b}")
         check(snapshots_equal(small_snaps[i], small_snaps_p[i]),
               f"small batch {i}: MatchStore tensors differ")
-    emit({"phase": "plain_equal", "steps": len(recs_k) + 1 + len(small_k)})
+    emit({"phase": "plain_equal", "steps": len(recs_k) + 1 + len(small_p)})
     del pipe
     torch.cuda.empty_cache()
 
     # 6. two patterns in one megastep
     q2_tree_counts = multi_phase(snaps_k)
+
+    # 6b. the service on a process mesh (NCCL, one rank), against LocalMesh
+    mesh_launches = mesh_phase()
 
     # 7. small reference: host-engine counts of the example graph
     for pname, want in EXAMPLE_COUNTS.items():
@@ -4738,6 +4912,7 @@ def main() -> None:
                 "wt_q1": launches[name], "wt_clique": wcoj_launches[name],
                 "wt_multi_auto": auto_launches[name], "backend": backend_launches[name],
                 "service": service_launches[name], "rebalance": rebalance_launches[name],
+                "mesh": mesh_launches[name],
                 **{path: n[name] for path, n in planted_launches.items()}}
         elif name == "segment_sum":
             entry["launches_by_path"] = segment_paths

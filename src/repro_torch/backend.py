@@ -1,4 +1,4 @@
-"""`TorchBackend` — the streaming service's device backend on one card.
+"""`TorchBackend` — the streaming service's device backend.
 
 Twin of ``ShardedBackend`` (``repro/stream/service.py``): a subclass of
 the port's :class:`~repro_torch.stream.service.StreamBackend`, which the
@@ -9,10 +9,22 @@ runs one candidate-restricted storage update
 (:func:`~repro_torch.sharded.make_storage_update_step`) and one fused
 maintain megastep for every registered pattern
 (:func:`~repro_torch.sharded.make_maintain_mega_step`) over the ``m``
-partitions of :class:`~repro_torch.mesh.LocalMesh`, stacked on one device.
+partitions of :class:`~repro_torch.mesh.LocalMesh`, stacked on one device,
+or over a :class:`~repro_torch.mesh.ProcessMesh`, each rank holding its
+``m / world`` partitions on its own card.
 Running match sets stay on the device: a count-only batch pulls scalars,
 and tables reach the host only through :meth:`TorchBackend.materialize`
-(valid prefix only, byte-accounted through ``_pull``).
+(valid prefix only, byte-accounted through ``_pull``; on a process mesh
+gathered first, so that every rank holds the same host table).
+
+On a process mesh every rank builds the same backend over the same graph
+and is handed the same calls: every host decision (the planner, the cap
+sizing, a fallback, a resize, a retry, a materialization) reads values
+that are replicated, either computed on the host from replicated inputs
+or summed over the mesh, so the ranks issue their collectives in one
+order. After every registration and batch the ranks compare a digest of
+their counts, caps, plans and store shapes (``agree_checks`` counts the
+checks); a mismatch raises.
 
 Beside it: :func:`_default_caps`, a copy from the same module.
 :class:`PatternMeta` and :class:`PatternReport` are the port's service's
@@ -35,6 +47,8 @@ committed state until a batch commits.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -49,7 +63,7 @@ from .core.incremental import removed_rows
 from .core.pattern import Pattern
 from .core.storage import build_np_storage
 from .core.vcbc import CompressedTable, Ragged, compress_table
-from .mesh import LocalMesh
+from .mesh import LocalMesh, ProcessMesh
 from .obs import ProfiledStep
 from .planner import CompileContext, CompiledPlan, calibrate_wcoj_caps, compile_plan
 from .planner.sizing import quantize_store_caps
@@ -121,6 +135,13 @@ def _as_table(table, pattern: Pattern) -> CompressedTable:
               for v, r in table.comp.items()})
 
 
+def _plan_key(plan: CompiledPlan) -> str:
+    """A plan's JSON form less its passes' timings: equal on every rank
+    that compiled the same plan."""
+    return json.dumps({k: v for k, v in plan.to_json().items() if k != "passes"},
+                      sort_keys=True, default=str)
+
+
 @dataclasses.dataclass
 class _TorchEntry:
     meta: PatternMeta
@@ -159,7 +180,9 @@ class TorchBackend(StreamBackend):
     ``device`` defaults to the card and raises without CUDA; pass
     ``device="cpu"`` to run the plain versions of the kernels on the CPU.
     ``use_kernels`` (default: on a card, off on the CPU) is set on the
-    engine caps, whether they are given or sized here.
+    engine caps, whether they are given or sized here. ``mesh``, a
+    :class:`~repro_torch.mesh.ProcessMesh`, spreads the partitions over
+    its ranks: ``m`` is then the mesh's and the device the rank's.
     """
 
     kind = "torch"
@@ -171,21 +194,29 @@ class TorchBackend(StreamBackend):
     cap_fallbacks: int = 0
     #: MatchStore ×2-cap rebuilds after store overflow
     store_resizes: int = 0
+    #: digest comparisons between the ranks of a process mesh
+    #: (registrations and batches)
+    agree_checks: int = 0
     _max_store_resizes: int = 4
 
     def __init__(self, graph, m: int = 8, caps=None, max_add: int = 64, max_del: int = 64,
                  use_kernels: Optional[bool] = None, update_mode: str = "delta",
                  cap_sizing: str = "estimator", store_headroom: float = 4.0,
                  strict_overflow: bool = False, executor: str = "tree",
-                 level_headroom: float = 1.5, device="cuda"):
+                 level_headroom: float = 1.5, device="cuda",
+                 mesh: Optional[ProcessMesh] = None):
         self.device = _require_device(device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"a mesh on {mesh.device} for a backend on {self.device}")
+            self.device, m = mesh.device, mesh.size
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         self._sharded = sharded
         self._je = je
         self.executor = executor
         self.m = int(m)
-        self.mesh = LocalMesh(self.m)
+        self.mesh = LocalMesh(self.m) if mesh is None else mesh
         graph = _as_graph(graph)
         storage = build_np_storage(graph, self.m)
         if caps is None:
@@ -224,7 +255,8 @@ class TorchBackend(StreamBackend):
             sharded.make_storage_update_step(self.mesh, self.caps, self.ushapes,
                                              mode=update_mode),
             self._jaxprof)
-        self.pt = sharded.stack_partitions(storage, self.caps, self.device)
+        self.pt = sharded.stack_partitions(storage, self.caps, self.device,
+                                           parts=self.mesh.indices())
         self.entries: Dict[str, _TorchEntry] = {}
         self._counts: Dict[str, int] = {}
         #: entries removed since the last batch, kept for carry reuse on a
@@ -232,6 +264,10 @@ class TorchBackend(StreamBackend):
         self._carry_stash: Dict[str, _TorchEntry] = {}
         self.last_host_bytes = 0
         self.total_host_bytes = 0
+
+    @property
+    def writes_files(self) -> bool:
+        return self.mesh.rank == 0
 
     # ------------------------------------------------------------ plumbing
     def _pull(self, arr) -> np.ndarray:
@@ -245,27 +281,71 @@ class TorchBackend(StreamBackend):
         ).inc(int(a.nbytes))
         return a
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Stacked ``[k, ...]`` tensors of this process's partitions as the
+        ``[m, ...]`` of the whole mesh (the tensor itself on one process)."""
+        if self.mesh.world == 1:
+            return x
+        return self.mesh.all_gather(list(x)).reshape((self.m,) + tuple(x.shape[1:]))
+
     def _flatten(self, tc) -> je.CompTensors:
         """Pull stacked [M, G, ...] compressed tensors to host form."""
-        skel = self._pull(tc.skeleton).reshape(-1, tc.skeleton.shape[-1])
-        valid = self._pull(tc.valid).reshape(-1)
-        sets = {k: self._pull(v).reshape(-1, v.shape[-1]) for k, v in tc.sets.items()}
+        skel = self._pull(self._gather(tc.skeleton)).reshape(-1, tc.skeleton.shape[-1])
+        valid = self._pull(self._gather(tc.valid)).reshape(-1)
+        sets = {k: self._pull(self._gather(v)).reshape(-1, v.shape[-1])
+                for k, v in tc.sets.items()}
         return je.CompTensors(skeleton=skel, valid=valid, sets=sets)
 
     def _flatten_live(self, tc) -> je.CompTensors:
         """Pull only each shard's valid prefix of stacked [M, G, ...]
         compressed tensors: the store packs live groups first, so the pull
         costs O(live table), not O(StoreCaps). A shard that is not
-        prefix-packed falls back to the exact full-tensor pull."""
-        valid = self._pull(tc.valid)
+        prefix-packed falls back to the exact full-tensor pull. On a
+        process mesh the valid masks and then the prefixes are gathered,
+        so every rank decides alike and gets the same table."""
+        valid = self._pull(self._gather(tc.valid))
         m = valid.shape[0]
         ks = [int(k) for k in valid.reshape(m, -1).sum(axis=1)]
         if not all(bool(valid[i, :ks[i]].all()) for i in range(m)):
             return self._flatten(tc)
-        skel = np.concatenate([self._pull(tc.skeleton[i, :ks[i]]) for i in range(m)], axis=0)
-        sets = {key: np.concatenate([self._pull(v[i, :ks[i]]) for i in range(m)], axis=0)
-                for key, v in tc.sets.items()}
+        mine = [(i, ks[j]) for i, j in enumerate(self.mesh.indices())]
+
+        def live(a):
+            return self._pull(self.mesh.all_gather_ragged([a[i, :k] for i, k in mine]))
+
+        skel = live(tc.skeleton)
+        sets = {key: live(v) for key, v in tc.sets.items()}
         return je.CompTensors(skeleton=skel, valid=np.ones(skel.shape[0], bool), sets=sets)
+
+    # ------------------------------------------------------------ the ranks
+    def _digest(self) -> int:
+        """A 64-bit digest of what every rank must hold alike: the mesh
+        width, the engine and candidate caps, and per pattern its count,
+        plan, store and carry caps, level caps and store shapes."""
+        per = []
+        for name in sorted(self.entries):
+            e = self.entries[name]
+            per.append((name, self._counts[name],
+                        _plan_key(e.meta.plan) if e.meta.plan is not None else None,
+                        e.store_caps, e.unit_caps, e.wcoj_level_caps,
+                        tuple(e.store.skeleton.shape),
+                        tuple((v, tuple(a.shape)) for v, a in sorted(e.store.sets.items()))))
+        text = repr((self.m, self.caps, self.ushapes, per))
+        return int.from_bytes(hashlib.sha256(text.encode()).digest()[:8], "little", signed=True)
+
+    def _check_ranks_agree(self, where: str) -> None:
+        """Gather every rank's :meth:`_digest` and raise unless they are
+        equal (counted in ``agree_checks``; a :class:`LocalMesh` backend
+        has no other rank and skips the check)."""
+        if not isinstance(self.mesh, ProcessMesh):
+            return
+        self.agree_checks += 1
+        self._obs().metrics.counter(
+            "mesh_agree_checks_total", "digest comparisons between the mesh's ranks").inc()
+        mine = torch.tensor([self._digest()], dtype=torch.int64, device=self.device)
+        got = self.mesh.all_gather([mine] * self.mesh.local).tolist()
+        if len(set(got)) != 1:
+            raise RuntimeError(f"the mesh's ranks disagree {where}: digests {got}")
 
     # ------------------------------------------------------------ planning
     def compile(self, pattern, cover=None, stats=None,
@@ -312,8 +392,7 @@ class TorchBackend(StreamBackend):
                 f"initial match store overflowed caps ({int(idiag['overflow'])} "
                 "entries); re-register with a larger store_headroom")
         self._make_entry(name, meta, store, store_caps, list_step=list_step)
-        self._counts[name] = int(idiag["count"])
-        return self._counts[name]
+        return self._registered(name, int(idiag["count"]))
 
     def _register_wcoj(self, name: str, meta: PatternMeta) -> int:
         """Register under the generic-join executor: anchored WCOJ listing
@@ -348,8 +427,13 @@ class TorchBackend(StreamBackend):
                 "larger store_headroom")
         self._make_entry(name, meta, store, store_caps, list_step=list_step,
                          wcoj_level_caps=level_caps)
-        self._counts[name] = int(idiag["count"])
-        return self._counts[name]
+        return self._registered(name, int(idiag["count"]))
+
+    def _registered(self, name: str, count: int) -> int:
+        """Record a new pattern's count and check that the ranks agree."""
+        self._counts[name] = count
+        self._check_ranks_agree(f"after registering {name!r}")
+        return count
 
     def _calibrate_wcoj_caps(self, plan: CompiledPlan):
         """Register-time calibration: the observed per-partition level sizes
@@ -463,10 +547,10 @@ class TorchBackend(StreamBackend):
             table = compress_table(plan.pattern, plan.storage_cover, cols, rows)
         meta = _meta_from_plan(name, plan)
         store_caps = quantize_store_caps(self._fit_store_caps(plan.store_caps, table))
-        store = sharded.stack_matches(table, self.m, store_caps, self.device)
+        store = sharded.stack_matches(table, self.m, store_caps, self.device,
+                                      parts=self.mesh.indices())
         self._make_entry(name, meta, store, store_caps)
-        self._counts[name] = table.count_matches(plan.ord)
-        return self._counts[name]
+        return self._registered(name, table.count_matches(plan.ord))
 
     def remove_pattern(self, name: str) -> None:
         """Forget a pattern. Its entry is stashed until the next batch, so a
@@ -663,6 +747,7 @@ class TorchBackend(StreamBackend):
         probe_inc("cache_hits", self.last_cache_hits, metrics=obs.metrics)
         probe_inc("cache_misses", self.last_cache_misses, metrics=obs.metrics)
         probe_inc("invalidated_parts", self.last_invalidated_parts, metrics=obs.metrics)
+        self._check_ranks_agree(f"after the batch ending at op {delta.hi}")
         return reports
 
     # ------------------------------------------------------------ recovery

@@ -45,7 +45,7 @@ from .core.plan import WcojPlan
 from .core.storage import build_np_storage
 from .data.graphs import PLANTED_M_BG, PLANTED_N, planted_graph, rmat_graph, sample_update
 from .engine import EngineCaps
-from .mesh import LocalMesh
+from .mesh import LocalMesh, ProcessMesh
 from .planner.compiler import CompileContext, compile_plan
 from .planner.lowering import TreeProgram
 from .planner.sizing import calibrate_wcoj_caps, quantize_store_caps
@@ -211,7 +211,8 @@ class PatternPlan:
                 "carry_gib": m * carry / 2**30}
 
 
-def plan_pattern(name: str, stats: GraphStats, storage, caps: EngineCaps, mesh: LocalMesh,
+def plan_pattern(name: str, stats: GraphStats, storage, caps: EngineCaps,
+                 mesh: LocalMesh | ProcessMesh,
                  executor: str = "tree") -> PatternPlan:
     """Compile one library pattern for ``mesh.size`` partitions, as the
     service's registration does: :func:`~repro_torch.planner.compile_plan`
@@ -247,11 +248,20 @@ def plan_pattern(name: str, stats: GraphStats, storage, caps: EngineCaps, mesh: 
 
 class Pipeline:
     """Stage 1 and stage 2 of the configuration's patterns over one graph,
-    on one device."""
+    on one device, or on this rank's share of a
+    :class:`~repro_torch.mesh.ProcessMesh` of ``config.m`` partitions
+    (``mesh``; every rank builds the same pipeline and runs the same
+    stages; its stores, carries and partitions hold its own partitions)."""
 
-    def __init__(self, config: RunConfig, device="cuda", use_kernels: bool = True):
+    def __init__(self, config: RunConfig, device="cuda", use_kernels: bool = True,
+                 mesh: Optional[ProcessMesh] = None):
         self.config = config
         self.device = _require_device(device)
+        if mesh is not None:
+            if mesh.size != config.m or mesh.device.type != self.device.type:
+                raise ValueError(f"a mesh of {mesh.size} partitions on {mesh.device} does "
+                                 f"not run {config.m} partitions on {self.device}")
+            self.device = mesh.device
         if config.graph == "planted":
             self.graph = planted_graph(seed=config.graph_seed)
         else:
@@ -262,7 +272,7 @@ class Pipeline:
                                match_cap=c.match_cap, group_cap=c.group_cap,
                                set_cap=c.set_cap, pair_cap=c.pair_cap,
                                use_kernels=use_kernels)
-        self.mesh = LocalMesh(c.m)
+        self.mesh = LocalMesh(c.m) if mesh is None else mesh
         storage = build_np_storage(self.graph, c.m)
         self.plans = {name: plan_pattern(name, stats, storage, self.caps, self.mesh,
                                          c.executor)
@@ -277,7 +287,8 @@ class Pipeline:
                                                              self.ushapes)
         self.maintain_step = sharded.make_maintain_mega_step(
             [p.spec() for p in self.plans.values()], self.mesh, self.caps)
-        self.pt = sharded.stack_partitions(storage, self.caps, self.device)
+        self.pt = sharded.stack_partitions(storage, self.caps, self.device,
+                                           parts=self.mesh.indices())
         self.stores = None
         self.carries = None
         self.batches = 0

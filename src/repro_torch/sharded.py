@@ -1,15 +1,17 @@
-"""Whole join-tree programs over ``m`` NP partitions on one card.
+"""Whole join-tree programs over ``m`` NP partitions.
 
-Port of ``repro/dist/sharded.py`` (its ``*_specs`` helpers have no role on
-:class:`~repro_torch.mesh.LocalMesh`).
-The partitions are a leading ``[m]`` axis of every input and output
-(partition ``j`` holds the centers ``h(v) = v mod m``); each step loops
-over them and meets the other partitions only through
-:class:`~repro_torch.mesh.LocalMesh` collectives, where the JAX step calls
-``lax.all_gather`` / ``lax.psum``. Work that the JAX step repeats on every
-device on replicated values (the candidate sets of the storage update, the
-common-neighbour test of the full rebuild, the ownership hash of gathered
-groups) runs once.
+Port of ``repro/dist/sharded.py`` (its ``*_specs`` helpers have no role
+here). Partition ``j`` holds the centers ``h(v) = v mod m``. A process
+holds the partitions ``mesh.indices()`` of its mesh as a leading axis of
+every input and output (all ``m`` on a
+:class:`~repro_torch.mesh.LocalMesh`, ``m / world`` on each rank of a
+:class:`~repro_torch.mesh.ProcessMesh`, indexed there by local position);
+each step loops over them and meets the other partitions only through the
+mesh's collectives, where the JAX step calls ``lax.all_gather`` /
+``lax.psum``, and compares ownership against the global ids. Work that
+the JAX step repeats on every device on replicated values (the candidate
+sets of the storage update, the common-neighbour test of the full
+rebuild, the ownership hash of gathered groups) runs once a process.
 
 - :func:`make_list_step` — stage 1: unit listing per partition, then each
   CC-join redistributes groups by join-key ownership and joins locally.
@@ -40,7 +42,7 @@ dict (0-d tensors, summed over partitions like the JAX ``psum``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,9 +55,11 @@ from .core.plan import JoinPlan, UnitPlan, WcojPlan, build_unit_plan
 from .core.storage import NPStorage
 from .engine import (PAD, CompTensors, EngineCaps, PaddedPartition, _BIG, _I32, _isum,
                      _isum_rows)
-from .mesh import LocalMesh
+from .mesh import LocalMesh, ProcessMesh
 from .planner.lowering import TreeProgram
 from .planner.sizing import StoreCaps, match_caps, unit_table_caps
+
+Mesh = Union[LocalMesh, ProcessMesh]
 
 __all__ = [
     "stack_partitions", "make_list_step", "UpdateShapes", "make_storage_update_step",
@@ -70,9 +74,12 @@ __all__ = [
 # Stacked inputs
 # ---------------------------------------------------------------------------
 
-def stack_partitions(storage: NPStorage, caps: EngineCaps, device="cuda") -> PaddedPartition:
-    """Pad every partition and stack along a leading partition axis [m, ...]."""
-    return _stack([je.pad_partition(p, caps, device) for p in storage.parts])
+def stack_partitions(storage: NPStorage, caps: EngineCaps, device="cuda",
+                     parts: Optional[Sequence[int]] = None) -> PaddedPartition:
+    """Pad the partitions ``parts`` (default: all of them, in order) and
+    stack them along a leading partition axis."""
+    ids = range(len(storage.parts)) if parts is None else parts
+    return _stack([je.pad_partition(storage.parts[j], caps, device) for j in ids])
 
 
 def _stack(xs):
@@ -87,13 +94,13 @@ def _stack(xs):
     return type(xs[0])(**out)
 
 
-def _put(out, m: int, j: int, x):
-    """Write ``x`` as partition ``j`` of a stacked dataclass of ``m``
+def _put(out, k: int, j: int, x):
+    """Write ``x`` as local partition ``j`` of a stacked dataclass of ``k``
     partitions (allocated on first write, ``out=None``) and return it, so
-    a step holds one shard's result at a time instead of ``m``."""
+    a step holds one shard's result at a time instead of ``k``."""
     if out is None:
         out = je.map_tensors(
-            lambda a: torch.empty((m,) + tuple(a.shape), dtype=a.dtype, device=a.device), x)
+            lambda a: torch.empty((k,) + tuple(a.shape), dtype=a.dtype, device=a.device), x)
     _copy_into(out, j, x)
     return out
 
@@ -111,8 +118,19 @@ def _copy_into(dst, j: int, x) -> None:
 
 
 def _part(x, j: int):
-    """Partition ``j`` of a stacked dataclass."""
+    """Local partition ``j`` of a stacked dataclass."""
     return je.map_tensors(lambda a: a[j], x)
+
+
+def _parts(x, mesh: Mesh) -> list:
+    """Every local partition of a stacked dataclass, in ``mesh.indices()``
+    order."""
+    return [_part(x, j) for j in range(mesh.local)]
+
+
+def _psum_flags(flags: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The number of set per-partition flags over the whole mesh."""
+    return mesh.psum([_isum(f) for f in flags])
 
 
 def _comp(x) -> CompTensors:
@@ -131,11 +149,22 @@ def _owner_of(skel: torch.Tensor, key_idx: Sequence[int], m: int) -> torch.Tenso
     return ((h % m) + m) % m
 
 
-def _gather_groups(tcs: Sequence[CompTensors], mesh: LocalMesh) -> CompTensors:
+def _gather_groups(tcs: Sequence[CompTensors], mesh: Mesh) -> CompTensors:
     return CompTensors(
         skeleton=mesh.all_gather([t.skeleton for t in tcs]),
         valid=mesh.all_gather([t.valid for t in tcs]),
         sets={v: mesh.all_gather([t.sets[v] for t in tcs]) for v in tcs[0].sets})
+
+
+def _gather_group_list(tcs: Sequence[CompTensors], mesh: Mesh) -> List[CompTensors]:
+    """Every partition's table, partition 0 first: the local tables
+    themselves on a :class:`LocalMesh`, views of one gather on a
+    :class:`ProcessMesh`."""
+    if mesh.world == 1:
+        return list(tcs)
+    g = _gather_groups(tcs, mesh)
+    n = tcs[0].valid.shape[0]
+    return [je.map_tensors(lambda a: a[d * n:(d + 1) * n], g) for d in range(mesh.size)]
 
 
 def _compact_groups(tc: CompTensors, ok: torch.Tensor, cap: int):
@@ -151,7 +180,7 @@ def _compact_groups(tc: CompTensors, ok: torch.Tensor, cap: int):
 
 
 def _dist_join(tcAs: Sequence[CompTensors], tcBs: Sequence[CompTensors], plan: JoinPlan,
-               caps: EngineCaps, mesh: LocalMesh):
+               caps: EngineCaps, mesh: Mesh):
     """Redistribute both sides by join-key ownership, then join locally on
     every partition. Returns the per-partition outputs and overflows."""
     m = mesh.size
@@ -173,12 +202,12 @@ def _dist_join(tcAs: Sequence[CompTensors], tcBs: Sequence[CompTensors], plan: J
 # Stage 1: distributed initial calculation
 # ---------------------------------------------------------------------------
 
-def make_list_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps):
+def make_list_step(prog: TreeProgram, mesh: Mesh, caps: EngineCaps):
     """Step: stacked partitions → (stacked root CompTensors, diag) with
     ``diag`` = ``overflow``, ``matches_lower_bound`` (valid root groups)."""
 
     def step(pt_st: PaddedPartition):
-        pts = [_part(pt_st, j) for j in mesh.indices()]
+        pts = _parts(pt_st, mesh)
         ovf = [je._zero(pt_st.vertices) for _ in pts]
         res: List[List[CompTensors]] = []
         for node in prog.nodes:
@@ -254,7 +283,7 @@ class UpdateShapes:
 
 
 def _delta_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: torch.Tensor,
-                       mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateShapes):
+                       mesh: Mesh, caps: EngineCaps, ushapes: UpdateShapes):
     """Candidate-restricted Alg. 4 (C1–C3): ``Φ(d) → Φ(d')`` from the delta.
 
     C1 = endpoints of the batch, C2 = C1 ∪ N_{d'}(C1) (rows gathered from
@@ -331,7 +360,7 @@ def _delta_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: torc
 
 
 def _storage_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: torch.Tensor,
-                         mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateShapes):
+                         mesh: Mesh, caps: EngineCaps, ushapes: UpdateShapes):
     """Alg. 4 in full, ``Φ(d) → Φ(d')``: the exact oracle that the delta
     update is held against.
 
@@ -366,25 +395,25 @@ def _storage_update_body(pts: List[PaddedPartition], add: torch.Tensor, dele: to
     # ---- replicated: z ∈ N(v) ∩ N(w) per valid (v, w), by z's home -------
     pv, pj = wvalid.nonzero(as_tuple=True)
     flat = pv * D + pj
-    cond = torch.zeros((m, nv_glob * D), dtype=torch.bool, device=gm.device)
+    cond = torch.zeros((mesh.local, nv_glob * D), dtype=torch.bool, device=gm.device)
     for s in je._row_slices(pv.shape[0], 2 * D):
         a = gm[pv[s]]
         w = gm[pv[s], pj[s]].clamp(0, nv_glob - 1).long()
         z = je.ops.set_intersect(a, gm[w], pad=_BIG,
                                  use_kernels=caps.use_kernels)
         home = torch.where(z, a % m, m)
-        for me in mesh.indices():
-            cond[me, flat[s]] = (home == me).any(dim=1)
+        for i, me in enumerate(mesh.indices()):
+            cond[i, flat[s]] = (home == me).any(dim=1)
         del a, w, z, home
-    cond = cond.reshape(m, nv_glob, D)
+    cond = cond.reshape(mesh.local, nv_glob, D)
     gm_home = gm % m
 
     # ---- per partition: the rule, then the rebuilt partition -------------
     out, ovf = [], []
-    for me, pt in zip(mesh.indices(), pts):
+    for i, (me, pt) in enumerate(zip(mesh.indices(), pts)):
         o_own = _isum(pt.center & (pt.vertices >= 0) & (pt.vertices >= nv_glob))
         m1 = ((ids % m) == me)[:, None] | (wvalid & (gm_home == me))
-        memb = (m1 | cond[me]) & wvalid
+        memb = (m1 | cond[i]) & wvalid
         vertices, vvalid, o_v = je._compact_vec(ids, memb.any(dim=1), caps.v_cap, fill=PAD)
         vsafe = torch.where(vertices >= 0, vertices, 0).long()
         ladj = torch.where(memb[vsafe] & vvalid[:, None], gm[vsafe], _BIG)
@@ -413,13 +442,14 @@ def _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode: str):
     raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
 
 
-def make_storage_update_step(mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateShapes,
+def make_storage_update_step(mesh: Mesh, caps: EngineCaps, ushapes: UpdateShapes,
                              mode: str = "delta"):
     """Step: (partitions, E_a, E_d) → (partitions', diag).
 
-    ``diag``: ``overflow``, ``stored_edges`` and ``part_dirty`` ([m] bool:
-    the partition's edge list changed, so every per-partition artifact
-    derived from it, such as the unit-table carry, is stale), plus
+    ``diag``: ``overflow``, ``stored_edges`` and ``part_dirty`` (a bool for
+    each partition of this process: its edge list changed, so every
+    per-partition artifact derived from it, such as the unit-table carry,
+    is stale; local, never gathered), plus
     ``cand_vertices``, ``cand_edges`` and ``cand_overflow`` for
     ``mode="delta"``. ``mode="full"`` is the full-gather rebuild; the two
     are byte-equal.
@@ -428,7 +458,7 @@ def make_storage_update_step(mesh: LocalMesh, caps: EngineCaps, ushapes: UpdateS
         raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
 
     def step(pt_st: PaddedPartition, add: torch.Tensor, dele: torch.Tensor):
-        pts = [_part(pt_st, j) for j in mesh.indices()]
+        pts = _parts(pt_st, mesh)
         pts2, ovf, counters = _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode)
         dirty = torch.stack([(a.edge_hi != b.edge_hi).any() | (a.edge_lo != b.edge_lo).any()
                              for a, b in zip(pts2, pts)])
@@ -542,7 +572,7 @@ def _purge_nonparticipating(cur: CompTensors, comp_labels, ord_, set_cap: int):
 
 
 def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgram,
-                chains: Tuple[_ChainPlan, ...], mesh: LocalMesh, caps: EngineCaps,
+                chains: Tuple[_ChainPlan, ...], mesh: Mesh, caps: EngineCaps,
                 unit_tables: Optional[Dict[Tuple, "UnitCarry"]] = None):
     """Nav-join patch chains (Lemma 6.2 + Thm. 6.1) over the updated
     partitions, merged onto their full-skeleton owners. Returns the
@@ -568,7 +598,7 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
         key = up.pattern.key()
         if unit_tables is not None:
             comp = unit_tables[key].comp
-            return [_part(comp, j) for j in mesh.indices()], [je._zero(add) for _ in pts2]
+            return _parts(comp, mesh), [je._zero(add) for _ in pts2]
         if key not in unit_cache:
             tcs, os_ = [], []
             for pt in pts2:
@@ -628,14 +658,17 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
         povf = [a + b for a, b in zip(povf, os_)]
 
     # ---- merge chains: co-locate equal skeletons, union sets ------------
+    # every partition's chain tables gathered, each partition folding the
+    # groups it owns from all of them, chain by chain in partition order
     skel_idx = tuple(range(len(full_skel)))
-    owners = [[_owner_of(tc.skeleton, skel_idx, m) for tc in outs] for outs in chain_out]
+    tables = [tc for outs in chain_out for tc in _gather_group_list(outs, mesh)]
+    del chain_out
+    owners = [_owner_of(tc.skeleton, skel_idx, m) for tc in tables]
     patches = []
-    for me in mesh.indices():
+    for i, me in enumerate(mesh.indices()):
         blocks = [CompTensors(skeleton=tc.skeleton, valid=tc.valid & (own == me),
                               sets=tc.sets)
-                  for outs, owns in zip(chain_out, owners)
-                  for tc, own in zip(outs, owns)]
+                  for tc, own in zip(tables, owners)]
         if len(blocks) == 1:
             blk = blocks[0]
             blocks.append(CompTensors(skeleton=blk.skeleton,
@@ -645,7 +678,7 @@ def _patch_body(pts2: List[PaddedPartition], add: torch.Tensor, prog: TreeProgra
             patch, o = je.merge_tables_dev(patch, blk, caps.group_cap, caps.set_cap)
             om = om + o
         patches.append(patch)
-        povf[me] = povf[me] + om
+        povf[i] = povf[i] + om
     return patches, povf
 
 
@@ -702,7 +735,7 @@ def _refresh_units(pt: PaddedPartition, plans: Dict[str, UnitPlan], cover: Tuple
     return out, ovf
 
 
-def make_unit_refresh_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+def make_unit_refresh_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Mesh,
                            caps: EngineCaps, ucaps: StoreCaps):
     """Step: partitions → ({name: UnitCarry}, diag), the cold fill of a
     pattern's carry on every partition. ``diag``: ``overflow``."""
@@ -711,10 +744,10 @@ def make_unit_refresh_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Loc
     def step(pt_st: PaddedPartition):
         carry: Dict[str, UnitCarry] = {name: None for name in sorted(plans)}
         ovfs = []
-        for j in mesh.indices():
-            fresh, ovf = _refresh_units(_part(pt_st, j), plans, prog.cover, caps, ucaps)
+        for j, pt in enumerate(_parts(pt_st, mesh)):
+            fresh, ovf = _refresh_units(pt, plans, prog.cover, caps, ucaps)
             for name, uc in fresh.items():
-                carry[name] = _put(carry[name], mesh.size, j, uc)
+                carry[name] = _put(carry[name], mesh.local, j, uc)
             del fresh
             ovfs.append(ovf)
         return carry, {"overflow": mesh.psum(ovfs)}
@@ -723,9 +756,10 @@ def make_unit_refresh_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Loc
 
 
 def _dirty_flags(dirty: torch.Tensor) -> List[bool]:
-    """The storage step's ``part_dirty`` on the host: the one device-to-host
-    read of a carried step (a CUDA graph of the step would branch on the
-    device instead)."""
+    """The storage step's ``part_dirty`` of this process's partitions on the
+    host: the one device-to-host read of a carried step (a CUDA graph of the
+    step would branch on the device instead). The refresh it steers is
+    local work with no collective in it, so ranks may branch apart here."""
     return [bool(x) for x in dirty.tolist()]
 
 
@@ -751,7 +785,7 @@ def _carry_by_key(carry: Dict[str, UnitCarry], names: Dict[Tuple, str]):
     return {k: carry[n] for k, n in names.items()}
 
 
-def make_patch_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+def make_patch_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Mesh,
                     caps: EngineCaps, unit_caps: Optional[StoreCaps] = None):
     """Step: (Φ(d'), E_a) → (patch, diag), the Nav-join patch chains over
     the partitions of :func:`make_storage_update_step`. ``diag``:
@@ -769,7 +803,7 @@ def make_patch_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
 
     if unit_caps is None:
         def step(pt2_st: PaddedPartition, add: torch.Tensor):
-            pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+            pts2 = _parts(pt2_st, mesh)
             patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps)
             diag = {"overflow": mesh.psum(povf),
                     "patch_groups": mesh.psum([_isum(p.valid) for p in patches])}
@@ -781,19 +815,19 @@ def make_patch_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
 
     def step_carry(pt2_st: PaddedPartition, carry: Dict[str, UnitCarry],
                    dirty: torch.Tensor, add: torch.Tensor):
-        pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+        pts2 = _parts(pt2_st, mesh)
         rovf = _refresh_dirty(pts2, carry, _dirty_flags(dirty), prog, plans, caps, unit_caps)
         patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps,
                                     unit_tables=_carry_by_key(carry, names))
         diag = {"overflow": mesh.psum([a + b for a, b in zip(povf, rovf)]),
                 "patch_groups": mesh.psum([_isum(p.valid) for p in patches]),
-                "unit_refreshes": _isum(dirty)}
+                "unit_refreshes": _psum_flags(dirty, mesh)}
         return _stack(patches), carry, diag
 
     return step_carry
 
 
-def make_update_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+def make_update_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Mesh,
                      caps: EngineCaps, ushapes: UpdateShapes, mode: str = "delta"):
     """Step: (partitions, E_a, E_d) → (partitions', patch, diag): the
     storage update (``mode`` as in :func:`make_storage_update_step`) and
@@ -806,7 +840,7 @@ def make_update_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh
         raise ValueError(f"unknown update mode {mode!r} (expected 'delta' or 'full')")
 
     def step(pt_st: PaddedPartition, add: torch.Tensor, dele: torch.Tensor):
-        pts = [_part(pt_st, j) for j in mesh.indices()]
+        pts = _parts(pt_st, mesh)
         pts2, ovf, counters = _run_storage_update(pts, add, dele, mesh, caps, ushapes, mode)
         del pts
         patches, povf = _patch_body(pts2, add, prog, chains, mesh, caps)
@@ -855,14 +889,17 @@ def _owner_rows_np(skel: np.ndarray, m: int) -> np.ndarray:
     return ((h.astype(np.int64) % m) + m) % m
 
 
-def stack_matches(table, m: int, store: StoreCaps, device="cuda") -> MatchStore:
+def stack_matches(table, m: int, store: StoreCaps, device="cuda",
+                  parts: Optional[Sequence[int]] = None) -> MatchStore:
     """Shard a host :class:`~repro_torch.core.vcbc.CompressedTable` into a
     stacked :class:`MatchStore` on ``device`` by full-skeleton ownership
     (the restore path; registration builds the store on the card through
     :func:`make_init_store_step`). Shard ``j`` holds the groups that hash to
-    ``j``, in table order, with PAD tails. The caps must hold every owner's
-    shard: a misfit is a sizing error and raises instead of truncating (the
-    first misfit in shard order, as ``sharded.stack_matches`` finds it).
+    ``j``, in table order, with PAD tails; only the shards ``parts`` (default:
+    all ``m``) are built, stacked in that order. The caps must hold every
+    owner's shard: a misfit is a sizing error and raises instead of
+    truncating (the first misfit in shard order, as
+    ``sharded.stack_matches`` finds it).
 
     The padded tensors are built on ``device`` and only the table's values
     cross from the host (a WT~ store is tens of GiB once padded)."""
@@ -884,26 +921,33 @@ def stack_matches(table, m: int, store: StoreCaps, device="cuda") -> MatchStore:
             if over.size:
                 raise ValueError(f"group set has {int(over[0])} values > set_cap={C}")
 
+    ids = np.arange(m) if parts is None else np.asarray(list(parts), np.int64)
+    local = np.full(m, -1, np.int64)
+    local[ids] = np.arange(ids.shape[0])
+    keep = local[shard] >= 0          # the groups of the shards built here
+
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-    sh, sl = put(shard, torch.long), put(slot, torch.long)
-    skel = torch.full((m, G, S), PAD, dtype=torch.int32, device=device)
-    skel[sh, sl] = put(table.skeleton[order])
-    valid = torch.zeros((m, G), dtype=torch.bool, device=device)
+    k = ids.shape[0]
+    sh, sl = put(local[shard][keep], torch.long), put(slot[keep], torch.long)
+    skel = torch.full((k, G, S), PAD, dtype=torch.int32, device=device)
+    skel[sh, sl] = put(table.skeleton[order][keep])
+    valid = torch.zeros((k, G), dtype=torch.bool, device=device)
     valid[sh, sl] = True
     sets = {}
     for v in comp_labels:
         r = table.comp[v]
-        rep, vals = ragged_expand(r.offsets[order], counts[v], r.values)
-        col = np.arange(rep.shape[0]) - np.repeat(np.cumsum(counts[v]) - counts[v], counts[v])
+        rep, vals = ragged_expand(r.offsets[order][keep], counts[v][keep], r.values)
+        cnt = counts[v][keep]
+        col = np.arange(rep.shape[0]) - np.repeat(np.cumsum(cnt) - cnt, cnt)
         rep_t = put(rep, torch.long)
-        sets[v] = torch.full((m, G, C), PAD, dtype=torch.int32, device=device)
+        sets[v] = torch.full((k, G, C), PAD, dtype=torch.int32, device=device)
         sets[v][sh[rep_t], sl[rep_t], put(col, torch.long)] = put(vals)
     return MatchStore(skeleton=skel, valid=valid, sets=sets)
 
 
-def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: LocalMesh, store: StoreCaps):
+def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: Mesh, store: StoreCaps):
     """Step: a stacked listing → (MatchStore, diag): every group gathered,
     placed by the ownership hash over its whole skeleton, merged into its
     owner's shard and counted there."""
@@ -911,17 +955,17 @@ def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: LocalMesh, store: StoreC
     n_s = len(skel_cols)
 
     def step(tc_st: CompTensors):
-        g = _gather_groups([_part(tc_st, j) for j in mesh.indices()], mesh)
+        g = _gather_groups(_parts(tc_st, mesh), mesh)
         own = _owner_of(g.skeleton, tuple(range(n_s)), m)
         out, cnts, ngroups, ovfs = None, [], [], []
-        for me in mesh.indices():
+        for j, me in enumerate(mesh.indices()):
             st, ovf = je.merge_groups(g.skeleton, g.valid & (own == me), g.sets,
                                       store.group_cap, store.set_cap)
             cnts.append(je.count_matches_dev(st, skel_cols, ord_))
             ngroups.append(_isum(st.valid))
             ovfs.append(ovf)
-            out = _put(out, m, me, MatchStore(skeleton=st.skeleton, valid=st.valid,
-                                              sets=st.sets))
+            out = _put(out, mesh.local, j, MatchStore(skeleton=st.skeleton, valid=st.valid,
+                                                      sets=st.sets))
             del st
         diag = {"count": mesh.psum(cnts), "store_groups": mesh.psum(ngroups),
                 "overflow": mesh.psum(ovfs)}
@@ -930,7 +974,7 @@ def _init_store(skel_cols: Tuple[int, ...], ord_, mesh: LocalMesh, store: StoreC
     return step
 
 
-def make_init_store_step(prog: TreeProgram, mesh: LocalMesh, caps: EngineCaps,
+def make_init_store_step(prog: TreeProgram, mesh: Mesh, caps: EngineCaps,
                          store: StoreCaps):
     """Step: stacked root CompTensors of the list step → (MatchStore, diag)
     with ``diag`` = ``count``, ``store_groups``, ``overflow``."""
@@ -942,7 +986,7 @@ def _cover_all(pattern: Pattern) -> Tuple[int, ...]:
     return tuple(sorted(int(v) for v in pattern.vertices))
 
 
-def make_wcoj_list_step(pattern: Pattern, plan: WcojPlan, mesh: LocalMesh,
+def make_wcoj_list_step(pattern: Pattern, plan: WcojPlan, mesh: Mesh,
                         caps: EngineCaps, level_caps: Sequence[int]):
     """Step: stacked partitions → (stacked CompTensors, diag), stage 1 of
     the generic-join executor: :func:`~repro_torch.engine.wcoj_list` on
@@ -955,19 +999,19 @@ def make_wcoj_list_step(pattern: Pattern, plan: WcojPlan, mesh: LocalMesh,
 
     def step(pt_st: PaddedPartition):
         out, ovfs, nvalid = None, [], []
-        for j in mesh.indices():
-            tbl, valid, o1 = je.wcoj_list(_part(pt_st, j), plan, caps, level_caps)
+        for j, pt in enumerate(_parts(pt_st, mesh)):
+            tbl, valid, o1 = je.wcoj_list(pt, plan, caps, level_caps)
             tc, _, o2 = je.compress_plain(tbl, valid, plan.cols, cover_all, ccaps)
             ovfs.append(o1 + o2)
             nvalid.append(_isum(tc.valid))
-            out = _put(out, mesh.size, j, tc)
+            out = _put(out, mesh.local, j, tc)
             del tbl, valid, tc
         return out, {"overflow": mesh.psum(ovfs), "matches_lower_bound": mesh.psum(nvalid)}
 
     return step
 
 
-def make_wcoj_init_store_step(pattern: Pattern, ord_, mesh: LocalMesh, store: StoreCaps):
+def make_wcoj_init_store_step(pattern: Pattern, ord_, mesh: Mesh, store: StoreCaps):
     """Step: the listing of :func:`make_wcoj_list_step` → (MatchStore,
     diag), :func:`make_init_store_step` for plain rows: the ownership hash
     runs over every column. ``diag``: ``count``, ``store_groups``,
@@ -977,7 +1021,7 @@ def make_wcoj_init_store_step(pattern: Pattern, ord_, mesh: LocalMesh, store: St
 
 
 def _wcoj_seed_masks(pts2: List[PaddedPartition], add: torch.Tensor,
-                     mesh: LocalMesh) -> List[torch.Tensor]:
+                     mesh: Mesh) -> List[torch.Tensor]:
     """Each partition's ``[v_cap]`` anchor-seed mask for the delta-seeded
     WCOJ patch: the candidates ``C1 ∪ N_{d'}(C1)`` over the inserted
     endpoints. A new match holds an inserted edge ``(a, b)``, and its
@@ -1021,17 +1065,17 @@ def _maintain_local(st: CompTensors, patch: CompTensors, d_tbl: torch.Tensor,
 
 def _maintain_shards(st_st: MatchStore, patches: List[CompTensors], d_tbl: torch.Tensor,
                      prog: TreeProgram, store: StoreCaps, skel_pairs, comp_pairs, skel_cols,
-                     caps: EngineCaps, mesh: LocalMesh):
+                     caps: EngineCaps, mesh: Mesh):
     """Filter ∘ merge ∘ count on every shard, each shard of the store
     overwritten in place by its result. Returns the per-partition counts,
     removed groups, store groups and merge overflows."""
     cnts, removed, ngroups, movfs = [], [], [], []
-    for me in mesh.indices():
+    for j in range(mesh.local):
         merged, rem, movf, cnt = _maintain_local(
-            _comp(_part(st_st, me)), patches[me], d_tbl, prog, store,
+            _comp(_part(st_st, j)), patches[j], d_tbl, prog, store,
             skel_pairs, comp_pairs, skel_cols, caps)
         ngroups.append(_isum(merged.valid))
-        _put(st_st, mesh.size, me, MatchStore(skeleton=merged.skeleton,
+        _put(st_st, mesh.local, j, MatchStore(skeleton=merged.skeleton,
                                               valid=merged.valid, sets=merged.sets))
         del merged
         cnts.append(cnt)
@@ -1040,7 +1084,7 @@ def _maintain_shards(st_st: MatchStore, patches: List[CompTensors], d_tbl: torch
     return cnts, removed, ngroups, movfs
 
 
-def _maintain_diag(mesh: LocalMesh, patches, povf, rovf, shards) -> Dict[str, torch.Tensor]:
+def _maintain_diag(mesh: Mesh, patches, povf, rovf, shards) -> Dict[str, torch.Tensor]:
     cnts, removed, ngroups, movfs = shards
     return {
         "count": mesh.psum(cnts),
@@ -1052,7 +1096,7 @@ def _maintain_diag(mesh: LocalMesh, patches, povf, rovf, shards) -> Dict[str, to
     }
 
 
-def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMesh,
+def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: Mesh,
                        caps: EngineCaps, store: StoreCaps,
                        unit_caps: Optional[StoreCaps] = None):
     """Step: (Φ(d'), store, E_a, E_d) → (store', patch, diag).
@@ -1088,7 +1132,7 @@ def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMe
     if unit_caps is None:
         def step(pt2_st: PaddedPartition, st_st: MatchStore, add: torch.Tensor,
                  dele: torch.Tensor):
-            pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+            pts2 = _parts(pt2_st, mesh)
             zero = [je._zero(add) for _ in pts2]
             patches, diag = maintain(pts2, st_st, None, zero, add, dele)
             return st_st, _stack(patches), diag
@@ -1099,10 +1143,10 @@ def make_maintain_step(prog: TreeProgram, units: Sequence[R1Unit], mesh: LocalMe
 
     def step_carry(pt2_st: PaddedPartition, st_st: MatchStore, carry: Dict[str, UnitCarry],
                    dirty: torch.Tensor, add: torch.Tensor, dele: torch.Tensor):
-        pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+        pts2 = _parts(pt2_st, mesh)
         rovf = _refresh_dirty(pts2, carry, _dirty_flags(dirty), prog, plans, caps, unit_caps)
         patches, diag = maintain(pts2, st_st, _carry_by_key(carry, names), rovf, add, dele)
-        diag["unit_refreshes"] = _isum(dirty)
+        diag["unit_refreshes"] = _psum_flags(dirty, mesh)
         return st_st, _stack(patches), carry, diag
 
     return step_carry
@@ -1131,7 +1175,7 @@ class MaintainSpec:
 
 
 def _wcoj_patch(pts2: List[PaddedPartition], add: torch.Tensor, seed_masks, sp: MaintainSpec,
-                skel_cols: Tuple[int, ...], caps: EngineCaps, mesh: LocalMesh):
+                skel_cols: Tuple[int, ...], caps: EngineCaps, mesh: Mesh):
     """A WCOJ slot's patch: on every partition, exactly the matches of
     Φ(d') that hold an inserted edge and whose anchor is a delta candidate
     (one pass over the whole pattern, so a match with several inserted
@@ -1161,7 +1205,7 @@ def _wcoj_patch(pts2: List[PaddedPartition], add: torch.Tensor, seed_masks, sp: 
     return patches, povf, govf
 
 
-def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
+def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: Mesh,
                             caps: EngineCaps):
     """One step maintaining every registered pattern.
 
@@ -1205,11 +1249,11 @@ def make_maintain_mega_step(specs: Sequence[MaintainSpec], mesh: LocalMesh,
     def step(pt2_st: PaddedPartition, stores: Dict[str, MatchStore],
              carries: Dict[str, Dict[str, UnitCarry]], dirty: torch.Tensor,
              add: torch.Tensor, dele: torch.Tensor):
-        pts2 = [_part(pt2_st, j) for j in mesh.indices()]
+        pts2 = _parts(pt2_st, mesh)
         flags = _dirty_flags(dirty) if any_tree else None
         d_tbl = _delete_table(dele)
         seed_masks = _wcoj_seed_masks(pts2, add, mesh) if any_wcoj else None
-        refreshes = _isum(dirty)
+        refreshes = _psum_flags(dirty, mesh)
         zero = [je._zero(add) for _ in pts2]
         patches, diag = {}, {}
         for sp, skel_cols, chains, skel_pairs, comp_pairs, plans, names in pre:

@@ -187,6 +187,9 @@ class StreamBackend:
 
     #: scheduler batch ceiling imposed by static shapes (None = unbounded)
     max_batch_ops: Optional[int] = None
+    #: whether this process writes the service's files (snapshots): of the
+    #: ranks of a process mesh, which all run the same service, rank 0 alone
+    writes_files: bool = True
     #: the owning service's observability object. The service assigns it
     #: in ``__init__`` (before any pattern registers); a backend driven
     #: standalone lazily grows its own default (registry on, tracing
@@ -795,25 +798,33 @@ class ListingService:
         accept — and re-snapshotting into a used directory deletes the
         old ``meta.json`` *first*, so a crash mid-rewrite can never
         leave a stale commit record pointing at newer artifacts.
+
+        On the ranks of a process mesh every rank materializes (a
+        collective) and rank 0 alone writes (``backend.writes_files``).
         """
-        os.makedirs(path, exist_ok=True)
+        write = self.backend.writes_files
         meta_path = os.path.join(path, "meta.json")
-        if os.path.exists(meta_path):
-            os.remove(meta_path)
-        self.journal.save(os.path.join(path, "journal.jsonl"))
-        np.savez(os.path.join(path, "graph.npz"),
-                 codes=np.asarray(self._graph.codes, np.int64),
-                 n=np.int64(self._graph.n))
+        if write:
+            os.makedirs(path, exist_ok=True)
+            if os.path.exists(meta_path):
+                os.remove(meta_path)
+            self.journal.save(os.path.join(path, "journal.jsonl"))
+            np.savez(os.path.join(path, "graph.npz"),
+                     codes=np.asarray(self._graph.codes, np.int64),
+                     n=np.int64(self._graph.n))
         patterns = []
         for name in self.backend.names():
             meta = self.backend.meta(name)
-            _save_table(os.path.join(path, f"matches_{name}.npz"),
-                        self.backend.materialize(name))
+            table = self.backend.materialize(name)
+            if write:
+                _save_table(os.path.join(path, f"matches_{name}.npz"), table)
             patterns.append({
                 "name": name,
                 "edges": sorted([int(a), int(b)] for a, b in meta.pattern.edges),
                 "cover": [int(c) for c in meta.cover],
             })
+        if not write:
+            return path
         head = {"kind": self._SNAP_MAGIC, "version": 1,
                 "watermark": int(self._committed), "patterns": patterns}
         tmp = f"{meta_path}.tmp"

@@ -136,6 +136,28 @@ with tempfile.TemporaryDirectory() as ck:
                            "--seq", "8", "--ckpt-dir", ck, "--ckpt-every", "1"])) == 1
     from repro_torch.checkpoint import CheckpointManager
     assert CheckpointManager(ck).latest_step() == 1
+# the mesh of processes (gloo, one rank here), its builders, the collectives
+# and compression on a local mesh
+import os
+import torch.distributed as dist
+from repro_torch.dist import (bucketed_all_to_all, butterfly_compressed_all_reduce,
+                              ef_compress, ef_residual_init, ring_all_reduce)
+from repro_torch.launch.mesh import init_process_mesh, make_local_mesh
+with tempfile.TemporaryDirectory() as rdv:
+    os.environ.update(RANK="0", WORLD_SIZE="1")
+    pm = init_process_mesh(8, "cpu", timeout_s=30, init_method=f"file://{rdv}/store")
+    (m1,) = stages(Pipeline(EXAMPLE_Q1, "cpu", use_kernels=False, mesh=pm), 0)
+    assert m1["count"] == 1282 and m1["overflow"] == 0 and pm.calls["all_gather"] > 0, m1
+    dist.destroy_process_group()
+lm4 = make_local_mesh(4)
+assert torch.equal(ring_all_reduce([torch.ones(3)] * 4, lm4)[2], torch.full((3,), 4.0))
+assert torch.equal(butterfly_compressed_all_reduce([torch.ones(3)] * 4, lm4)[0],
+                   torch.full((3,), 4.0))
+_, _, ovf = bucketed_all_to_all([[torch.arange(6)]] * 4, [torch.zeros(6, dtype=torch.int32)] * 4,
+                                [torch.ones(6, dtype=torch.bool)] * 4, lm4, 4)
+assert int(ovf) == 8, ovf
+q, _, _ = ef_compress({"w": torch.ones(4)}, ef_residual_init({"w": torch.ones(4)}))
+assert q["w"].dtype == torch.int8
 assert not any(m == "repro" or m.startswith(("repro.", "jax")) for m in sys.modules
                if sys.modules[m] is not None), "repro or jax was imported"
 print("standalone OK")
