@@ -365,6 +365,18 @@ since the script started (all but the last line):
    and with the plain versions, within ``LM_TRAIN_LIMIT``. Then
    ``segment_sum`` at phi4's embedding gradient (``lm_embed_grad``: 8,192
    bf16 rows of 3,072 summed by token into the tokens the batch holds).
+18b. ``lm_mesh`` — the sharded training step (``lm_train_step(...,
+   mesh=grid)``: tensor-parallel layers, the embedding and head split by
+   vocabulary, ``_moe_routed`` expert parallel with its exchange, ZeRO-1
+   AdamW) on a ``(1, 1)`` ``GridMesh`` at NCCL world 1, so every collective
+   runs on one rank: granite-moe-3b-a800m at full width with its depth cut
+   from 32 to ``LM_MESH_LAYERS`` layers (the script's time), one step with
+   the kernels on 1 × 4,096 tokens, against the one-device
+   ``lm_train_step`` on the same parameters and tokens: loss and gradient
+   norm within ``LM_TRAIN_LIMIT``, the updated parameters and both AdamW
+   moments bit for bit the one-device step's, the exchange's overflow 0, the
+   launches a step as the one-device step's, the collectives' calls and
+   bytes by kind and axis.
 19. ``kernel_check`` (``flash_attention_bwd``) — the attention backward
    against its plain version at the training shapes (q [2, 24, 4096, 128]
    bf16 over k/v [2, 8, 4096, 128]; minicpm3's q, k [1, 40, 4096, 96], v
@@ -384,14 +396,14 @@ Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
 the molecule and full_graph_sm kernel requests, the chunked forward,
-the four GNN training paths' 10 steps, ``dlrm_train`` and the three LM
-training paths, each counted from 0; the three attention kernels'
-``launches_by_path``: the five LM kernel serves, phi4, minicpm3, deepseek,
-granite and command_r, the four float32 gates' kernel serves,
+the four GNN training paths' 10 steps, ``dlrm_train``, the three LM
+training paths and ``lm_mesh``, each counted from 0; the three attention
+kernels' ``launches_by_path``: the five LM kernel serves, phi4, minicpm3,
+deepseek, granite and command_r, the four float32 gates' kernel serves,
 ``<path>_f32_gate`` (none for command_r), and ``lm_train``,
-``lm_train_minicpm3-4b`` and ``lm_train_granite-moe-3b-a800m``, their sum in
-``launches``; ``embedding_bag``'s ``dlrm_serve`` and ``dlrm_train``;
-``flash_attention_bwd``'s three LM training paths and
+``lm_train_minicpm3-4b``, ``lm_train_granite-moe-3b-a800m`` and ``lm_mesh``,
+their sum in ``launches``; ``embedding_bag``'s ``dlrm_serve`` and
+``dlrm_train``; ``flash_attention_bwd``'s four LM training paths and
 ``launches_by_route``, ``tc`` or ``simt``),
 and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
@@ -531,6 +543,8 @@ LM_TRAIN_LIMIT = 2e-2
 # (arch, its key in the kernels line's launches_by_path).
 LM_TRAIN_CELLS = ((LM_ARCH, "lm_train"), ("minicpm3-4b", "lm_train_minicpm3-4b"),
                   ("granite-moe-3b-a800m", "lm_train_granite-moe-3b-a800m"))
+# The sharded step on a (1, 1) grid: granite at full width, 4 of its 32 layers.
+LM_MESH_ARCH, LM_MESH_LAYERS = "granite-moe-3b-a800m", 4
 
 
 _START = time.perf_counter()
@@ -4368,6 +4382,131 @@ def lm_train_phase(arch: str, path: str):
     return counts, first
 
 
+def lm_mesh_phase():
+    """``lm_mesh``: one step of ``lm_train_step(..., mesh=grid)`` on a ``(1,
+    1)`` ``GridMesh`` over a process group of world size 1 started here
+    (NCCL), granite-moe-3b-a800m at full width cut to ``LM_MESH_LAYERS``
+    layers, 1 × 4,096 tokens, with the kernels; against the one-device
+    ``lm_train_step`` on the same parameters and tokens: loss and gradient
+    norm, and after the update every parameter and both moments, which the
+    grid must reproduce bit for bit (at world 1 it does the same arithmetic
+    in the same order). Returns the mesh step's launches."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_shard
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_grid_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    published = get_arch(LM_MESH_ARCH).config
+    cfg = dataclasses.replace(published, n_layers=LM_MESH_LAYERS)
+    b, s = 1, LM_TRAIN_SEQ
+    tok, lab = (torch.from_numpy(a).cuda() for a in next(token_batches(cfg.vocab, b, s, seed=0)))
+
+    def params0():
+        return tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    params = params0()
+    opt = adamw_init(steps.flat_params(params))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, loss1, norm1 = steps.lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
+                                             use_kernels=True, n_micro=1)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = ops.launch_counts()
+    loss1, norm1 = float(loss1), float(norm1)
+    # the updated state, kept on the host while the grid's step runs
+    after1 = {"param": {k: v.cpu() for k, v in steps.flat_params(params).items()},
+              "mu": {k: v.cpu() for k, v in opt.mu.items()},
+              "nu": {k: v.cpu() for k, v in opt.nu.items()}}
+    del params, opt
+    free_device_memory()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    mesh = init_grid_mesh(1, 1, "cuda", timeout_s=300)
+    init_s = time.perf_counter() - t0
+    try:
+        whole = params0()
+        params = lm_params_shard(whole, cfg, mesh, device="cuda")
+        del whole
+        opt = steps.lm_adamw_init(params, cfg, mesh)
+        stats = tf.RoutedStats()
+        free_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        _, _, loss, norm = steps.lm_train_step(params, opt, tok, lab, cfg, lr=LM_TRAIN_LR,
+                                               use_kernels=True, n_micro=1, mesh=mesh,
+                                               stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        calls, nbytes = dict(mesh.calls), dict(mesh.bytes)
+        moe = stats.summary()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    loss, norm = float(loss), float(norm)
+    # at (1, 1) a rank's shards and ZeRO-1 moments are the whole leaves
+    after = {"param": steps.flat_params(params), "mu": opt.mu, "nu": opt.nu}
+    state_gap = {}
+    for kind, leaves in after.items():
+        check(sorted(leaves) == sorted(after1[kind]), f"lm_mesh: {kind} leaves differ")
+        gaps = {k: float((v.float() - after1[kind][k].to(v.device).float()).abs().max())
+                for k, v in leaves.items()}
+        state_gap[kind] = {"max_abs_diff": max(gaps.values()),
+                           "leaves_differing": sorted(k for k, g in gaps.items() if g != 0)}
+    del params, opt, after, after1
+    free_device_memory()
+    rec = {"phase": "lm_mesh", "arch": cfg.name, "grid": [1, 1], "backend": backend,
+           "layers": LM_MESH_LAYERS, "layers_published": published.n_layers,
+           "batch": b, "seq": s, "loss_mesh": loss, "loss_single": loss1,
+           "loss_ratio": abs(loss - loss1) / abs(loss1), "gnorm_mesh": norm,
+           "gnorm_single": norm1, "gnorm_ratio": abs(norm - norm1) / norm1,
+           "limit": LM_TRAIN_LIMIT, "state_after_step": state_gap,
+           "step_seconds": seconds, "single_step_seconds": single_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "exchange_overflow": moe["overflow"], "routed_calls": moe["calls"],
+           "masked_rows_per_call": moe["masked_per_call"],
+           "launches": {k: n for k, n in launches.items() if n},
+           "collective_calls": calls, "collective_bytes": nbytes,
+           "init_process_group_s": init_s, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    check(backend == "nccl", f"lm_mesh: backend {backend}")
+    check(math.isfinite(loss) and math.isfinite(norm), f"lm_mesh: loss {loss}, norm {norm}")
+    check(rec["loss_ratio"] <= LM_TRAIN_LIMIT and rec["gnorm_ratio"] <= LM_TRAIN_LIMIT,
+          f"lm_mesh: against one device loss {rec['loss_ratio']}, gnorm {rec['gnorm_ratio']} "
+          f"> {LM_TRAIN_LIMIT}")
+    for kind, gap in state_gap.items():
+        check(not gap["leaves_differing"],
+              f"lm_mesh: the updated {kind} differs from one device's in "
+              f"{gap['leaves_differing']} (max |diff| {gap['max_abs_diff']})")
+    check(moe["overflow"] == 0 and moe["calls"] == 2 * LM_MESH_LAYERS,
+          f"lm_mesh: exchange {moe}")
+    check(launches == single, f"lm_mesh: launches {launches} != one device's {single}")
+    for name, n in (("flash_attention_tc", 2 * LM_MESH_LAYERS),
+                    ("flash_attention_bwd_tc", LM_MESH_LAYERS), ("segment_sum", 1)):
+        check(launches[name] == n, f"lm_mesh: {name} launched {launches[name]} times, not {n}")
+    for kind in ("all_reduce/model", "all_to_all/model", "all_gather/model",
+                 "all_reduce/data"):
+        check(calls.get(kind, 0) > 0, f"lm_mesh: no {kind} collective: {calls}")
+    return launches
+
+
 def attention_bwd_work(b, hq, hkv, l, dh, elem, dv=None):
     """The backward's operations and bytes: five causal products of
     2 * b * hq * (l * (l + 1) / 2) FLOP a column, S, dQ and dK over Dqk
@@ -4852,6 +4991,8 @@ def main() -> None:
         del tokens
     embed_case = lm_embed_grad_case(train_tokens)
     del train_tokens
+    # 18b. the sharded step on a (1, 1) grid at NCCL world 1
+    train_counts["lm_mesh"] = lm_mesh_phase()
     # 19. the attention backward against its plain version
     checks["flash_attention_bwd"] = flash_attention_bwd_phase(LM_TRAIN_BATCH)
     checks["embedding_bag"].append(bag_case)

@@ -8,9 +8,11 @@ arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
 :func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
 parameters and a ``build_graph_data`` dict across, :func:`dlrm_params_from_numpy`
 the DLRM parameters, :func:`lm_params_from_numpy` the transformer's nested
-parameter dict. :func:`adamw_state_from_numpy` carries a JAX
-``AdamWState`` across, so that a JAX run's optimizer state continues in
-the port.
+parameter dict; :func:`lm_params_shard` cuts one rank's shards of it on a
+grid mesh, and :func:`lm_params_unshard` puts every rank's shards (of the
+parameters, or of the ZeRO-1 moments) back together whole.
+:func:`adamw_state_from_numpy` carries a JAX ``AdamWState`` across, so that
+a JAX run's optimizer state continues in the port.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
            "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "dlrm_params_from_numpy",
-           "lm_params_from_numpy", "graph_from_numpy", "adamw_state_from_numpy"]
+           "lm_params_from_numpy", "lm_params_shard", "lm_params_unshard", "graph_from_numpy",
+           "adamw_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -94,6 +97,55 @@ def lm_params_from_numpy(params, device="cuda"):
     dicts (each where the config has such layers), leaf for leaf."""
     return {name: lm_params_from_numpy(v, device) if isinstance(v, dict) else _param(v, device)
             for name, v in params.items()}
+
+
+def lm_params_shard(params, cfg, mesh, rank: int | None = None, device="cuda"):
+    """Rank ``rank``'s shards (``mesh.rank`` by default) of a whole
+    transformer parameter dict, JAX's (NumPy-convertible leaves) or the
+    port's tensors, cut by the fixed specs (``models.transformer.lm_placements``
+    on the grid ``mesh``, a :class:`~repro_torch.mesh.GridShape`): the same
+    nested dict, each leaf its slice, a tensor of its own on ``device``. The
+    model layer is imported here, as in :func:`graph_from_numpy`."""
+    from .models.transformer import lm_placements
+
+    place = lm_placements(cfg, mesh)
+    rank = mesh.rank if rank is None else rank
+
+    def cut(name, v):
+        sl = mesh.slices(place[name].spec, place[name].shape, rank)
+        if isinstance(v, torch.Tensor):
+            return v[sl].to(device, copy=True)
+        return _param(np.asarray(v)[sl], device)
+
+    return {k: ({n: cut(f"{k}/{n}", t) for n, t in v.items()} if isinstance(v, dict)
+                else cut(k, v)) for k, v in params.items()}
+
+
+def lm_params_unshard(pieces, cfg, mesh, moments: bool = False):
+    """The whole leaves, by flat name, from ``pieces[r]``, rank ``r``'s flat
+    dict of NumPy shards: of the parameters by their fixed specs, or with
+    ``moments`` of AdamW's ZeRO-1 moments by theirs. Ranks that hold the
+    same slice must hold the same values; a difference raises."""
+    from .models.transformer import lm_placements
+
+    out = {}
+    for name, p in lm_placements(cfg, mesh).items():
+        spec = p.moment_spec if moments else p.spec
+        whole, seen = None, set()
+        for r, piece in enumerate(pieces):
+            part = np.asarray(piece[name])
+            if whole is None:
+                whole = np.empty(p.shape, part.dtype)
+            sl = mesh.slices(spec, p.shape, r)
+            key = tuple((s.start, s.stop) for s in sl)
+            if key in seen:
+                if not np.array_equal(whole[sl], part):
+                    raise ValueError(f"{name}: rank {r} holds other values than its replicas")
+            else:
+                whole[sl] = part
+                seen.add(key)
+        out[name] = whole
+    return out
 
 
 def graph_from_numpy(raw, device="cuda"):

@@ -19,15 +19,25 @@ and returns one result a partition:
 - :func:`ring_all_reduce` — a ring implementation of the sum over the
   mesh built on point-to-point hops (its summation order is JAX's, so
   its float results agree with the mesh's sum only to tolerance).
+
+The exchange with grad, for the MoE layers of training on a grid mesh's
+``"model"`` axis (one partition a rank): :func:`route_rows` assigns each
+row its bucket and slot once (the count of dropped rows summed over the
+axis); :func:`send_rows` moves rows along that route and
+:func:`return_rows` brings processed rows back to their slots, each a
+``torch.autograd.Function`` whose backward is the other (the gradient
+rows go back along the same buckets and slots; a dropped row's gradient is
+zero).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 
-__all__ = ["bucketed_all_to_all", "routed_exchange", "ring_all_reduce"]
+__all__ = ["bucketed_all_to_all", "routed_exchange", "ring_all_reduce", "Route", "route_rows",
+           "send_rows", "return_rows"]
 
 _I32 = torch.int32
 
@@ -146,3 +156,88 @@ def ring_all_reduce(xs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
         cur = mesh.ppermute(cur, perm)
         acc = [a + c for a, c in zip(acc, cur)]
     return acc
+
+
+class Route(NamedTuple):
+    """Where each of ``rows`` local rows goes: bucket ``dest`` (``n`` for a
+    dropped row), slot ``slot``, kept where ``ok``; ``n`` buckets of
+    ``cap`` slots."""
+
+    dest: torch.Tensor
+    slot: torch.Tensor
+    ok: torch.Tensor
+    n: int
+    cap: int
+
+
+def route_rows(targets: torch.Tensor, valid: torch.Tensor, mesh,
+               capacity: int) -> Tuple[Route, torch.Tensor]:
+    """The route of this rank's rows to their ``targets`` over ``mesh`` (one
+    partition a rank), ``capacity`` slots a destination, and the rows
+    dropped past it summed over the mesh (``_bucketize`` of
+    :func:`routed_exchange`)."""
+    n = mesh.size
+    dest, slot, ok, dropped = _bucketize(targets, valid, n, capacity)
+    route = Route(torch.where(ok, dest, n).long(), torch.where(ok, slot, 0).long(), ok, n,
+                  capacity)
+    return route, mesh.psum([dropped])
+
+
+def _send(x: torch.Tensor, route: Route, mesh) -> torch.Tensor:
+    """Rows ``x [R, ...]`` into their buckets, exchanged: ``[n·cap, ...]``,
+    sender ``s``'s bucket at rows ``[s·cap, (s+1)·cap)``, empty slots zero."""
+    buck = x.new_zeros((route.n + 1, route.cap) + tuple(x.shape[1:]))
+    buck[route.dest, route.slot] = x
+    out = mesh.all_to_all([buck[:route.n]])[0]
+    return out.reshape((route.n * route.cap,) + tuple(x.shape[1:]))
+
+
+def _return(y: torch.Tensor, route: Route, mesh) -> torch.Tensor:
+    """Received rows ``y [n·cap, ...]`` sent back and put in their slots:
+    ``[R, ...]``, a dropped row zero."""
+    z = mesh.all_to_all([y.reshape((route.n, route.cap) + tuple(y.shape[1:]))])[0]
+    r = route.ok.shape[0]
+    rows = torch.where(route.ok, torch.arange(r, device=y.device), r)
+    out = y.new_zeros((r + 1,) + tuple(y.shape[1:]))
+    out[rows] = z[route.dest.clamp(0, route.n - 1), route.slot]
+    return out[:r]
+
+
+class _SendRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, route, mesh):
+        ctx.route, ctx.mesh = route, mesh
+        return _send(x, route, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _return(grad.contiguous(), ctx.route, ctx.mesh), None, None
+
+
+class _ReturnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, route, mesh):
+        ctx.route, ctx.mesh = route, mesh
+        return _return(y, route, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _send(grad.contiguous(), ctx.route, ctx.mesh), None, None
+
+
+def send_rows(x: torch.Tensor, route: Route, mesh) -> torch.Tensor:
+    """``x [R, ...]`` along ``route``: ``[n·cap, ...]`` on each receiver.
+    Differentiable in a floating ``x``; its backward returns the gradient
+    rows to their slots (:func:`return_rows`)."""
+    if x.is_floating_point() and torch.is_grad_enabled() and x.requires_grad:
+        return _SendRows.apply(x, route, mesh)
+    return _send(x, route, mesh)
+
+
+def return_rows(y: torch.Tensor, route: Route, mesh) -> torch.Tensor:
+    """The received rows ``y [n·cap, ...]`` back to their senders' slots
+    ``[R, ...]``, a dropped row zero. Differentiable; its backward sends
+    the gradient along ``route`` again (:func:`send_rows`)."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _ReturnRows.apply(y, route, mesh)
+    return _return(y, route, mesh)

@@ -11,11 +11,19 @@ MoE layers, the MoE sum as ``_lm_cell``'s mesh routes it) and
 steps then run :func:`~repro_torch.optim.adamw_update_`, in place (their
 parameters and moments fill most of the card), the GNN step the functional
 ``adamw_update``.
+
+``_lm_cell``'s train branch on a mesh, too (the placements of its leaves
+by :mod:`repro_torch.sharding`): :func:`lm_adamw_init` and
+``lm_train_step(..., mesh=grid)``: tensor-parallel layers and experts over
+``"model"`` (:func:`~repro_torch.models.transformer.train_forward`), each
+data rank its slice of every microbatch, the gradients averaged over the
+data axes and AdamW on ZeRO-1 moments
+(:func:`~repro_torch.optim.adamw_update_zero1_`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,14 +31,24 @@ import torch
 from ..configs.registry import ShapeSpec
 from ..models import dlrm, gnn
 from ..models import transformer as tf
-from ..models.common import cross_entropy
-from ..optim import AdamWState, adamw_update, adamw_update_
+from ..models.common import cross_entropy, vocab_parallel_cross_entropy
+from ..optim import AdamWState, adamw_init_zero1, adamw_update, adamw_update_, adamw_update_zero1_
+from ..sharding import MODEL, batch_axes
 
 __all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "dlrm_loss",
            "dlrm_value_and_grad", "dlrm_train_step", "lm_flops", "lm_micro_batches",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "flat_params", "gnn_flops",
            "gnn_counts", "gnn_loss", "gnn_value_and_grad", "gnn_train_step", "recsys_requests",
-           "retrieval_candidates"]
+           "retrieval_candidates", "lm_adamw_init"]
+
+
+def lm_adamw_init(params, cfg: tf.TransformerConfig, mesh) -> AdamWState:
+    """Zero ZeRO-1 moments for this rank's shards ``params`` (nested, as
+    :func:`~repro_torch.convert.lm_params_shard` cuts them): each leaf's
+    slice of the data axes on its ``data_dim``."""
+    place = tf.lm_placements(cfg, mesh)
+    return adamw_init_zero1(flat_params(params), {k: p.data_dim for k, p in place.items()},
+                            mesh)
 
 
 def dlrm_serve_step(params, dense, sparse, cfg: dlrm.DLRMConfig, *, use_kernels: bool):
@@ -153,14 +171,21 @@ def flat_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def lm_loss(params, tokens, labels, cfg: tf.TransformerConfig, *,
-            use_kernels: bool) -> torch.Tensor:
+def lm_loss(params, tokens, labels, cfg: tf.TransformerConfig, *, use_kernels: bool,
+            mesh=None, stats: Optional[tf.RoutedStats] = None) -> torch.Tensor:
     """``_lm_cell``'s loss: the float32 mean token NLL of the training
-    forward's logits."""
-    return cross_entropy(tf.train_forward(params, tokens, cfg, use_kernels=use_kernels), labels)
+    forward's logits. On a grid ``mesh`` the forward is tensor parallel and
+    the loss of a vocabulary-split head vocabulary parallel; ``stats``
+    collects the MoE exchange's drops and masked rows."""
+    logits = tf.train_forward(params, tokens, cfg, use_kernels=use_kernels, mesh=mesh,
+                              stats=stats)
+    if mesh is not None and tf.lm_placements(cfg, mesh)["lm_head"].model_dim is not None:
+        start = mesh.coord(MODEL) * logits.shape[-1]
+        return vocab_parallel_cross_entropy(logits, labels, start, mesh)
+    return cross_entropy(logits, labels)
 
 
-def _lm_grads(params, tokens, labels, cfg, use_kernels):
+def _lm_grads(params, tokens, labels, cfg, use_kernels, mesh=None, stats=None):
     """One loss and its gradient by flat parameter name. Each layer of a
     stacked group (``"dense"``, ``"moe"``) is its own leaf, a view of the
     stacked tensor; as each layer's gradient arrives it is copied into that
@@ -192,7 +217,8 @@ def _lm_grads(params, tokens, labels, cfg, use_kernels):
             model[key] = leaf = val.detach().requires_grad_()
             leaves.append(leaf)
     with torch.enable_grad():
-        loss = lm_loss(model, tokens, labels, cfg, use_kernels=use_kernels)
+        loss = lm_loss(model, tokens, labels, cfg, use_kernels=use_kernels, mesh=mesh,
+                       stats=stats)
         torch.autograd.backward(loss, inputs=leaves)
     for key, val in params.items():
         if isinstance(val, dict):
@@ -204,45 +230,92 @@ def _lm_grads(params, tokens, labels, cfg, use_kernels):
     return loss.detach(), {k: grads[k] for k in sorted(grads)}
 
 
+def _micro_batches(tokens, labels, n_micro: int, mesh):
+    """The ``(tokens, labels)`` of each microbatch this rank computes:
+    microbatch ``j`` is rows ``[j·b/n, (j+1)·b/n)`` of the batch (JAX's
+    reshape); on a grid ``mesh`` a data rank takes its slice of each by
+    :func:`~repro_torch.sharding.batch_axes`, or all of it where they do not divide it (as JAX's
+    ``_moe_routed`` replicates such a batch over the data axes)."""
+    b = tokens.shape[0]
+    if b % n_micro:
+        raise ValueError(f"lm_value_and_grad: batch {b} is not a multiple of {n_micro}")
+    micro = list(zip(tokens.chunk(n_micro), labels.chunk(n_micro)))
+    if mesh is None or batch_axes(b // n_micro, mesh) is None:
+        return micro
+    daxes = mesh.data_axes
+    rows = b // n_micro // mesh.size(daxes)
+    lo = mesh.coord(daxes) * rows
+    return [(t[lo:lo + rows], lab[lo:lo + rows]) for t, lab in micro]
+
+
 def lm_value_and_grad(params, tokens, labels, cfg: tf.TransformerConfig, *, use_kernels: bool,
-                      n_micro: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      n_micro: int = 1, mesh=None, stats: Optional[tf.RoutedStats] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss and its gradient by flat parameter name
     (:func:`flat_params`' keys), as ``_lm_cell``'s step takes them: with
     ``n_micro > 1`` the batch is cut into ``n_micro`` microbatches, their
     gradients summed in float32, divided by ``n_micro`` and cast to each
-    parameter's type, the loss their mean."""
+    parameter's type, the loss their mean.
+
+    On a grid ``mesh`` ``params`` are this rank's shards and the batch the
+    global one, of which each data rank computes its part
+    (:func:`_micro_batches`); the loss returned is averaged over the data
+    axes, the gradient is this rank's own (:func:`lm_train_step` averages
+    it over the data axes)."""
+    micro = _micro_batches(tokens, labels, n_micro, mesh)
     if n_micro == 1:
-        return _lm_grads(params, tokens, labels, cfg, use_kernels)
-    b = tokens.shape[0]
-    if b % n_micro:
-        raise ValueError(f"lm_value_and_grad: batch {b} is not a multiple of {n_micro}")
-    flat = flat_params(params)
-    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in flat.items()}
-    losses = []
-    for t, lab in zip(tokens.chunk(n_micro), labels.chunk(n_micro)):
-        loss, g = _lm_grads(params, t, lab, cfg, use_kernels)
-        losses.append(loss)
-        for k in acc:
-            acc[k] += g[k].float()
-        del g
-    grads = {k: (a / n_micro).to(flat[k].dtype) for k, a in acc.items()}
-    return torch.stack(losses).mean(), grads
+        loss, grads = _lm_grads(params, *micro[0], cfg, use_kernels, mesh, stats)
+    else:
+        flat = flat_params(params)
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for k, p in flat.items()}
+        losses = []
+        for t, lab in micro:
+            loss, g = _lm_grads(params, t, lab, cfg, use_kernels, mesh, stats)
+            losses.append(loss)
+            for k in acc:
+                acc[k] += g[k].float()
+            del g
+        grads = {k: (a / n_micro).to(flat[k].dtype) for k, a in acc.items()}
+        loss = torch.stack(losses).mean()
+    if mesh is not None:
+        daxes = mesh.data_axes
+        loss = mesh.all_reduce(loss.reshape(1).clone(), daxes)[0] / mesh.size(daxes)
+    return loss, grads
 
 
 def lm_train_step(params, opt: AdamWState, tokens, labels, cfg: tf.TransformerConfig, *,
-                  lr=3e-4, use_kernels: bool, n_micro: int | None = None):
-    """One training step (the train branch of ``_lm_cell`` on one device):
-    the loss's gradient over ``n_micro`` microbatches (default
-    :func:`lm_micro_batches`), then AdamW at ``lr`` **in place** on the flat
-    view of ``params`` (``opt`` keyed by :func:`flat_params`' names).
-    Returns ``(params, opt, loss, gnorm)``, the first two the same objects,
-    overwritten."""
+                  lr=3e-4, use_kernels: bool, n_micro: int | None = None, mesh=None,
+                  stats: Optional[tf.RoutedStats] = None):
+    """One training step (the train branch of ``_lm_cell``): the loss's
+    gradient over ``n_micro`` microbatches (default :func:`lm_micro_batches`
+    over the data ranks), then AdamW at ``lr`` **in place** on the flat view
+    of ``params`` (``opt`` keyed by :func:`flat_params`' names). Returns
+    ``(params, opt, loss, gnorm)``, the first two the same objects,
+    overwritten.
+
+    On a grid ``mesh`` (:class:`~repro_torch.mesh.GridMesh`) ``params`` are
+    this rank's shards (:func:`~repro_torch.convert.lm_params_shard`) and
+    ``opt`` its ZeRO-1 moments (:func:`lm_adamw_init`); ``tokens`` /
+    ``labels`` the global batch, the same on every rank. The layers run
+    tensor parallel over ``"model"`` and the experts expert parallel; the
+    gradient is averaged over the data axes into each leaf's ZeRO-1 slice,
+    clipped by the norm of the whole gradient and the updated slices
+    gathered (:func:`~repro_torch.optim.adamw_update_zero1_`). ``stats``
+    collects the MoE exchange's drops and masked rows."""
+    dsize = 1 if mesh is None else mesh.size(mesh.data_axes)
     if n_micro is None:
-        n_micro = lm_micro_batches(cfg, tokens.shape[0], tokens.shape[1])
+        n_micro = lm_micro_batches(cfg, tokens.shape[0], tokens.shape[1], devices=dsize)
     loss, grads = lm_value_and_grad(params, tokens, labels, cfg, use_kernels=use_kernels,
-                                    n_micro=n_micro)
-    gnorm = adamw_update_(flat_params(params), grads, opt, lr)
+                                    n_micro=n_micro, mesh=mesh, stats=stats)
+    if mesh is None:
+        gnorm = adamw_update_(flat_params(params), grads, opt, lr)
+    else:
+        place = tf.lm_placements(cfg, mesh)
+        gnorm = adamw_update_zero1_(flat_params(params), grads, opt, lr, mesh=mesh,
+                                    data_dims={k: p.data_dim for k, p in place.items()},
+                                    model_split={k: p.model_dim is not None
+                                                 for k, p in place.items()})
     return params, opt, loss, gnorm
 
 

@@ -17,16 +17,34 @@ loop:
 Both expose ``size`` (``m``), ``indices()`` (the global partition ids this
 process holds, in the order of its loops), ``local``, ``rank`` and
 ``world``; the values of a collective are given in ``indices()`` order.
+
+The LM training mesh is a grid of named axes (``jax.make_mesh``'s), one
+rank a device:
+
+- :class:`GridShape` — the shape and axis names alone, with the rank
+  layout (row-major, last axis fastest, as ``jax.make_mesh`` lays out CPU
+  devices) and the slice of an array a rank holds under a spec; no process
+  group (the sharding helpers and the tests read it).
+- :class:`GridMesh` — a :class:`GridShape` over the ranks of the default
+  process group, with one subgroup for each line along each axis (and
+  along the data axes together): ``axis(name)`` gives a view with
+  :class:`ProcessMesh`'s interface on that axis (one partition a rank), so
+  the exchanges of :mod:`repro_torch.dist.collectives` run on it
+  unchanged, and ``all_reduce`` / ``reduce_scatter`` / ``all_gather`` run
+  along one axis or several.
 """
 
 from __future__ import annotations
 
+import math
 from collections import Counter
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["LocalMesh", "ProcessMesh"]
+from .sharding import data_axes
+
+__all__ = ["LocalMesh", "ProcessMesh", "GridShape", "GridMesh"]
 
 _BACKEND_OF_DEVICE = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -163,15 +181,9 @@ class ProcessMesh:
 
     def _gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """One value a rank, concatenated in rank order."""
-        import torch.distributed as dist
-
-        x = x.contiguous()
-        wire = x.view(torch.uint8) if x.dtype == torch.bool else x
-        out = torch.empty((self.world * wire.shape[0],) + tuple(wire.shape[1:]),
-                          dtype=wire.dtype, device=wire.device)
-        _all_gather_into_tensor(dist)(out, wire)
+        out = _gather(x, self.world, None)
         self._count("all_gather", out)
-        return out.view(torch.bool) if x.dtype == torch.bool else out
+        return out
 
     def psum(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         """The elementwise sum over every partition, in the values' dtype."""
@@ -186,18 +198,14 @@ class ProcessMesh:
     def all_to_all(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """``lax.all_to_all(x, 0, 0, tiled=False)`` with one partition a rank
         (``all_to_all_single``)."""
-        import torch.distributed as dist
-
         self._one_a_rank("all_to_all")
         self._check(xs)
         x = xs[0].contiguous()
         if x.shape[0] != self.m:
             raise ValueError(f"all_to_all of {x.shape[0]} rows on a mesh of {self.m}")
-        wire = x.view(torch.uint8) if x.dtype == torch.bool else x
-        out = torch.empty_like(wire)
-        dist.all_to_all_single(out, wire)
+        out = _all_to_all(x, None)
         self._count("all_to_all", out)
-        return [out.view(torch.bool) if x.dtype == torch.bool else out]
+        return [out]
 
     def ppermute(self, xs: Sequence[torch.Tensor],
                  perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
@@ -241,3 +249,271 @@ def _all_gather_into_tensor(dist):
     """``all_gather_single`` where this PyTorch has it (newer releases
     deprecate the old name), else ``all_gather_into_tensor``."""
     return getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _reduce_scatter_tensor(dist):
+    """``reduce_scatter_single`` where this PyTorch has it, else
+    ``reduce_scatter_tensor``."""
+    return getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """What crosses the transport: bool as uint8 (NCCL has no bool)."""
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _gather(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The ``n`` members' ``x`` concatenated along the leading axis, in
+    group rank order."""
+    import torch.distributed as dist
+
+    wire = _wire(x)
+    out = torch.empty((n * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype,
+                      device=wire.device)
+    _all_gather_into_tensor(dist)(out, wire, group=group)
+    return out.view(torch.bool) if x.dtype == torch.bool else out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Member ``i`` sends row ``j`` of ``x`` to member ``j``, which receives
+    it as its row ``i`` (``all_to_all_single``)."""
+    import torch.distributed as dist
+
+    wire = _wire(x)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out.view(torch.bool) if x.dtype == torch.bool else out
+
+
+Axes = Union[str, Tuple[str, ...]]
+
+
+class GridShape:
+    """A grid of ``prod(sizes)`` ranks with named axes: ``shape`` maps each
+    name to its size, as ``jax.sharding.Mesh.shape`` does. Rank ``r`` sits
+    at ``unravel(r)``, row-major with the last axis fastest (``(r // model,
+    r % model)`` on a ``(data, model)`` grid), as ``jax.make_mesh`` lays
+    out CPU devices.
+
+    A spec is a tuple with one entry a dimension (a tuple shorter than the
+    array's rank leaves the rest whole): ``None``, an axis name, or a tuple
+    of axis names, which split that dimension over their product, the
+    first name the slowest (``PartitionSpec``'s meaning)."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(sizes) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"a grid needs one distinct name an axis: {sizes} {axis_names}")
+        if any(int(n) < 1 for n in sizes):
+            raise ValueError(f"grid axes must have at least one rank: {sizes}")
+        self.sizes = tuple(int(n) for n in sizes)
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The batch-parallel axes (:func:`~repro_torch.sharding.data_axes`)."""
+        return data_axes(self.axis_names)
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate along each axis."""
+        out, r = {}, int(rank)
+        for name, n in reversed(tuple(zip(self.axis_names, self.sizes))):
+            out[name] = r % n
+            r //= n
+        return {name: out[name] for name in self.axis_names}
+
+    def size(self, axes: Optional[Axes]) -> int:
+        """Ranks along ``axes`` (1 for ``None`` or ``()``)."""
+        return math.prod(self.shape[a] for a in _names(axes))
+
+    def index(self, axes: Optional[Axes], rank: int) -> int:
+        """Rank ``rank``'s position along ``axes`` together, the first name
+        the slowest."""
+        c = self.coords(rank)
+        i = 0
+        for a in _names(axes):
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def lines(self, axes: Axes) -> List[List[int]]:
+        """The ranks of each line along ``axes`` (the ranks that differ only
+        in their coordinates on ``axes``), each in ``index(axes)`` order; the
+        lines in the order of their first rank."""
+        names = _names(axes)
+        out: Dict[Tuple, List[int]] = {}
+        for r in range(self.world):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axis_names if a not in names)
+            out.setdefault(key, []).append(r)
+        return [sorted(v, key=lambda r: self.index(names, r)) for v in out.values()]
+
+    def slices(self, spec: Sequence, shape: Sequence[int], rank: int) -> Tuple[slice, ...]:
+        """The part of an array of ``shape`` that rank ``rank`` holds under
+        ``spec``: one slice a dimension. A split dimension must divide."""
+        out = []
+        for i, n in enumerate(shape):
+            ax = spec[i] if i < len(spec) else None
+            k = self.size(ax)
+            if n % k:
+                raise ValueError(f"dimension {i} of {tuple(shape)} does not split "
+                                 f"over {ax} ({k} ranks)")
+            j = self.index(ax, rank)
+            out.append(slice(j * (n // k), (j + 1) * (n // k)))
+        return tuple(out)
+
+
+def _names(axes: Optional[Axes]) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class GridMesh(GridShape):
+    """A :class:`GridShape` over the ranks of the default process group,
+    one rank a device (NCCL for a CUDA device, gloo for the CPU).
+
+    Every rank creates one ``torch.distributed`` subgroup for each line
+    along each axis and, where there are several data axes, along the data
+    axes together, all in the same order (``new_group`` is collective), and
+    keeps its own. The collectives along ``axes`` run on that subgroup (on
+    the default group where ``axes`` is every axis): ``all_reduce``,
+    ``reduce_scatter`` and ``all_gather`` along a dimension, and through
+    :meth:`axis` the interface of :class:`ProcessMesh`. Every call is
+    counted in ``calls`` and the bytes it lands on this rank in ``bytes``,
+    keyed ``"<kind>/<axes>"`` (``"all_reduce/model"``,
+    ``"reduce_scatter/data"``, ``"all_to_all/model"``)."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str], device):
+        import torch.distributed as dist
+
+        super().__init__(sizes, axis_names)
+        if not dist.is_initialized():
+            raise RuntimeError("GridMesh needs an initialised torch.distributed group "
+                               "(repro_torch.launch.mesh.init_grid_mesh)")
+        self.device = torch.device(device)
+        want = _BACKEND_OF_DEVICE.get(self.device.type)
+        have = dist.get_backend()
+        if want is None or have != want:
+            raise ValueError(f"a {self.device.type} mesh runs on {want or 'no backend'}, "
+                             f"and the process group runs on {have}")
+        self.rank = dist.get_rank()
+        if dist.get_world_size() != self.world:
+            raise ValueError(f"a {self.sizes} grid needs {self.world} ranks, the process "
+                             f"group has {dist.get_world_size()}")
+        self.calls: Counter = Counter()
+        self.bytes: Counter = Counter()
+        self._groups = {}
+        keys = [(a,) for a in self.axis_names]
+        if len(self.data_axes) > 1:
+            keys.append(self.data_axes)
+        for key in keys:
+            for line in self.lines(key):
+                group = dist.new_group(line)
+                if self.rank in line:
+                    self._groups[key] = group
+
+    def group(self, axes: Axes):
+        """The subgroup of this rank's line along ``axes`` (``None``, the
+        default group, for every axis)."""
+        names = _names(axes)
+        if set(names) == set(self.axis_names):
+            return None
+        return self._groups[names]
+
+    def coord(self, axes: Optional[Axes]) -> int:
+        """This rank's position along ``axes``."""
+        return self.index(axes, self.rank)
+
+    def axis(self, axes: Axes) -> "AxisView":
+        """The line along ``axes`` as a :class:`ProcessMesh` of one partition
+        a rank."""
+        return AxisView(self, _names(axes))
+
+    def reset_counts(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+    def count(self, kind: str, axes, t: torch.Tensor) -> None:
+        key = f"{kind}/{','.join(_names(axes))}"
+        self.calls[key] += 1
+        self.bytes[key] += t.numel() * t.element_size()
+
+    def all_reduce(self, x: torch.Tensor, axes: Axes, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced (``"sum"`` or ``"max"``) over the line along
+        ``axes``, in place; returns ``x``."""
+        import torch.distributed as dist
+
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(x, op=red, group=self.group(axes))
+        self.count("all_reduce", axes, x)
+        return x
+
+    def reduce_scatter(self, x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """The sum over the line along ``axes`` of ``x``, of which this rank
+        receives its part of dimension ``dim`` (``size(axes)`` equal parts,
+        in ``coord(axes)`` order)."""
+        import torch.distributed as dist
+
+        n = self.size(axes)
+        src = x.movedim(dim, 0).contiguous()
+        if src.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        _reduce_scatter_tensor(dist)(out, src, group=self.group(axes))
+        self.count("reduce_scatter", axes, out)
+        return out.movedim(0, dim)
+
+    def all_gather(self, x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """The parts ``x`` of the line along ``axes`` concatenated along
+        dimension ``dim`` in ``coord(axes)`` order."""
+        out = _gather(x.movedim(dim, 0), self.size(axes), self.group(axes))
+        self.count("all_gather", axes, out)
+        return out.movedim(0, dim)
+
+
+class AxisView:
+    """The line along some axes of a :class:`GridMesh`, with the interface
+    of a :class:`ProcessMesh` holding one partition a rank (``size``,
+    ``rank``, ``indices()``, ``all_gather``, ``psum``, ``all_to_all``):
+    :func:`repro_torch.dist.collectives.routed_exchange` and the rest run on
+    it. Its calls count into the grid's counters under these axes."""
+
+    def __init__(self, grid: GridMesh, axes: Tuple[str, ...]):
+        self.grid, self.axes = grid, axes
+        self.m = grid.size(axes)
+        self.rank = grid.coord(axes)
+
+    @property
+    def size(self) -> int:
+        return self.m
+
+    def indices(self) -> range:
+        return range(self.rank, self.rank + 1)
+
+    def all_gather(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        self._check(xs)
+        out = _gather(xs[0], self.m, self.grid.group(self.axes))
+        self.grid.count("all_gather", self.axes, out)
+        return out
+
+    def psum(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        self._check(xs)
+        return self.grid.all_reduce(xs[0].clone().contiguous(), self.axes)
+
+    def all_to_all(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        self._check(xs)
+        if xs[0].shape[0] != self.m:
+            raise ValueError(f"all_to_all of {xs[0].shape[0]} rows on an axis of {self.m}")
+        out = _all_to_all(xs[0], self.grid.group(self.axes))
+        self.grid.count("all_to_all", self.axes, out)
+        return [out]
+
+    def _check(self, xs: Sequence[torch.Tensor]) -> None:
+        if len(xs) != 1:
+            raise ValueError(f"collective over {len(xs)} values on an axis view (one a rank)")

@@ -1,8 +1,10 @@
 """DLRM-RM2 [arXiv:1906.00091]: embedding bags → dot interaction → MLPs.
 
 Single-device port of ``repro/models/dlrm.py``: ``forward`` and
-``retrieval_scores`` for serving, ``train_forward`` for training
-(``param_specs`` waits for a mesh). The 26 sparse tables are stacked
+``retrieval_scores`` for serving, ``train_forward`` for training. JAX's
+``param_specs`` (the tables split by rows over ``"model"``) and
+``_dlrm_cell``'s sharding have no twin yet: the LMs train on the port's
+``GridMesh``, DLRM on one device (ROADMAP item 43). The 26 sparse tables are stacked
 ``[n_sparse, rows, dim]``; every lookup of a forward is one
 :func:`repro_torch.kernels.ops.embedding_bag` call over the stack viewed as
 one ``[n_sparse · rows, dim]`` table, with bag ``b · F + f`` for field

@@ -1,11 +1,12 @@
 """Decoder-only transformer: dense GQA, MLA and mixture-of-experts layers.
 
-Single-device port of ``repro/models/transformer.py`` (RoPE, SwiGLU,
-layer-stacked ``[L, …]`` parameters): for inference ``forward`` (teacher
+Port of ``repro/models/transformer.py`` (RoPE, SwiGLU, layer-stacked ``[L,
+…]`` parameters): for inference on one device ``forward`` (teacher
 forcing), ``prefill``, ``prefill_chunked`` and ``decode_step`` over a
 layer-stacked cache; for training ``train_forward`` (GQA or MLA, dense or
 MoE layers), the same layer body with grad, each layer recomputed in the
-backward when ``remat`` is set. Parameters are a nested dict keyed by the
+backward when ``remat`` is set, on one device or on a grid mesh
+(``param_specs``, tensor and expert parallel; see below). Parameters are a nested dict keyed by the
 JAX names, weights in JAX's ``[in, out]`` layout, so the JAX package's
 parameters carry across unchanged (``convert.lm_params_from_numpy``).
 
@@ -38,8 +39,17 @@ parameters carry across unchanged (``convert.lm_params_from_numpy``).
   rows sorted by expert, each expert's rows in a static window with the
   rows past it masked to zero, each token's k weighted outputs summed in
   float32 and rounded once. Both read the per-expert row counts to the host
-  once a layer. Expert parallelism over several devices and the sharding specs
-  need a mesh and are not ported (ROADMAP).
+  once a layer.
+- **On a grid mesh** (:class:`~repro_torch.mesh.GridMesh`, training only):
+  ``param_specs`` is JAX's, and each rank holds its shards under the fixed
+  specs. ``_layer`` runs the training block tensor parallel over ``"model"``
+  (this rank's whole heads; ``wo`` / ``wd`` row-parallel, summed in float32;
+  MLA's low-rank ``wq_a`` / ``wkv_a`` gathered whole), the embedding and
+  head split by vocabulary, and ``_moe_routed_ep`` is JAX's ``_moe_routed``
+  at ep = model ranks over the exchange with grad
+  (:mod:`repro_torch.dist.collectives`), the shared experts tensor
+  parallel, the router whole. Serving on a mesh (JAX's sharded prefill and
+  decode caches) is not ported; the serving entry points run on one device.
 
 Every serving entry point runs under ``torch.inference_mode()``. The serving
 functions write the new keys and values (or latents) into the cache **in
@@ -56,12 +66,17 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.collectives import return_rows, route_rows, send_rows
 from ..kernels import ops
-from .common import apply_rope, rms_norm, rope, swiglu
+from ..mesh import GridShape
+from ..sharding import MODEL, Placement, placements
+from .common import (apply_rope, copy_to_model, gather_from_model, reduce_from_model, rms_norm,
+                     rope, scale_grad, swiglu)
 
-__all__ = ["TransformerConfig", "param_shapes", "init_params", "forward", "train_forward",
-           "init_cache", "prefill", "prefill_chunked", "decode_step", "moe_window",
-           "moe_windows"]
+__all__ = ["TransformerConfig", "param_shapes", "param_specs", "lm_placements", "init_params",
+           "forward",
+           "train_forward", "init_cache", "prefill", "prefill_chunked", "decode_step",
+           "moe_window", "moe_windows", "RoutedStats"]
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -200,6 +215,51 @@ def param_shapes(c: TransformerConfig) -> Dict:
     return shapes
 
 
+def param_specs(c: TransformerConfig, mesh_axes) -> Dict:
+    """Twin of JAX's ``param_specs``: each leaf's spec as a tuple, TP over
+    ``"model"`` (column-split ``wg``, ``wu``, ``wq``, ``wk``, ``wv``, ``wq_a``,
+    ``wq_b``, ``wkv_a``, ``wk_b``, ``wv_b``, ``s_wg``, ``s_wu``; row-split
+    ``wd``, ``wo``, ``s_wd``), the embedding and head split by vocabulary,
+    the experts over ``"model"`` (EP), norms and the router whole. Before
+    ``sharding.fix_spec``, which drops a split its dimension does not
+    divide."""
+    mdl = "model" if "model" in mesh_axes else None
+    cols = ("wg", "wu", "wq", "wk", "wv", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "s_wg", "s_wu")
+
+    def layer_specs(shapes):
+        out = {}
+        for name in shapes:
+            if name.endswith("norm"):
+                out[name] = (None, None)
+            elif name in cols:
+                out[name] = (None, None, mdl)
+            elif name in ("wd", "wo", "s_wd"):
+                out[name] = (None, mdl, None)
+            elif name.startswith("e_"):
+                out[name] = (None, mdl, None, None)
+            else:
+                out[name] = (None, None, None)
+        return out
+
+    specs = {"embed": (mdl, None), "final_norm": (None,), "lm_head": (None, mdl)}
+    for group, moe, _ in _groups(c):
+        specs[group] = layer_specs(_moe_layer_shapes(c) if moe else _dense_layer_shapes(c))
+    return specs
+
+
+def lm_placements(c: TransformerConfig, mesh) -> Dict[str, Placement]:
+    """Each leaf's :class:`~repro_torch.sharding.Placement` by flat name on
+    the grid ``mesh`` (a :class:`~repro_torch.mesh.GridShape`, or a
+    ``GridMesh``): :func:`param_specs` fixed, and the ZeRO-1 moments, as
+    ``_lm_cell`` places them. Worked out once a config and grid shape."""
+    return _placements(c, mesh.sizes, mesh.axis_names)
+
+
+@functools.lru_cache(maxsize=None)
+def _placements(c: TransformerConfig, sizes, axis_names) -> Dict[str, Placement]:
+    return placements(param_specs(c, axis_names), param_shapes(c), GridShape(sizes, axis_names))
+
+
 def _leaves(tree):
     for k in sorted(tree):
         v = tree[k]
@@ -258,25 +318,33 @@ def init_params(c: TransformerConfig, generator: torch.Generator, device="cuda")
 # ---------------------------------------------------------------------------
 
 def _gqa_qkv(lp, x, c: TransformerConfig, positions):
+    """Queries, keys and values of the heads the weights hold (all of them,
+    or under TP this rank's)."""
     b, l, _ = x.shape
-    q = (x @ lp["wq"]).view(b, l, c.n_heads, c.d_head)
-    k = (x @ lp["wk"]).view(b, l, c.n_kv_heads, c.d_head)
-    v = (x @ lp["wv"]).view(b, l, c.n_kv_heads, c.d_head)
+    q = (x @ lp["wq"]).view(b, l, -1, c.d_head)
+    k = (x @ lp["wk"]).view(b, l, -1, c.d_head)
+    v = (x @ lp["wv"]).view(b, l, -1, c.d_head)
     cos, sin = rope(positions, c.d_head, c.rope_theta)
     q = apply_rope(q.transpose(1, 2), cos, sin)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
 
 
-def _mla_q(lp, x, c: TransformerConfig, positions):
+def _same(x):
+    return x
+
+
+def _mla_q(lp, x, c: TransformerConfig, positions, f=_same):
     """MLA queries ``(q_nope [B, H, L, qk_nope], q_rope [B, H, L, qk_rope])``,
-    RoPE on the ``qk_rope`` columns only."""
+    RoPE on the ``qk_rope`` columns only; ``H`` the heads ``wq`` / ``wq_b``
+    hold, ``f`` applied to the input of that head-split product (TP's
+    :func:`~repro_torch.models.common.copy_to_model`)."""
     b, l, _ = x.shape
     if c.q_lora:
-        q = rms_norm(x @ lp["wq_a"], lp["q_norm"]) @ lp["wq_b"]
+        q = f(rms_norm(x @ lp["wq_a"], lp["q_norm"])) @ lp["wq_b"]
     else:
-        q = x @ lp["wq"]
-    q = q.view(b, l, c.n_heads, c.qk_nope + c.qk_rope).transpose(1, 2)
+        q = f(x) @ lp["wq"]
+    q = q.view(b, l, -1, c.qk_nope + c.qk_rope).transpose(1, 2)
     cos, sin = rope(positions, c.qk_rope, c.rope_theta)
     return q[..., :c.qk_nope], apply_rope(q[..., c.qk_nope:], cos, sin)
 
@@ -291,17 +359,19 @@ def _mla_kv_latent(lp, x, c: TransformerConfig, positions):
 
 
 def _mla_attention(lp, q_nope, q_rope, c_kv, k_rope, c: TransformerConfig, q_offset: int, *,
-                   use_kernels: bool):
+                   use_kernels: bool, f=_same):
     """Materialized MLA: K and V expanded from the whole latent ``c_kv [B,
     Lk, kv_lora]`` (its unwritten zeros too, hidden by the causal mask),
     ``k_rope`` broadcast to every head, V at its own ``v_head`` columns (a
     head-major view of the product: the kernel wrapper makes the one copy
     its route reads); one ``flash_attention`` call, scaled by ``1 /
     sqrt(qk_nope + qk_rope)``, the query's width. Returns ``[B, H, Lq,
-    v_head]``."""
+    v_head]``. ``f`` is applied to the latents that meet the head-split
+    ``wk_b`` / ``wv_b`` (TP's ``copy_to_model``)."""
     b, h = q_nope.shape[:2]
     lk = c_kv.shape[1]
     width = c.qk_nope + c.qk_rope
+    c_kv, k_rope = f(c_kv), f(k_rope)
     k = torch.empty((b, h, lk, width), dtype=c_kv.dtype, device=c_kv.device)
     k[..., :c.qk_nope] = (c_kv @ lp["wk_b"]).view(b, lk, h, c.qk_nope).transpose(1, 2)
     k[..., c.qk_nope:] = k_rope[:, None]
@@ -437,29 +507,149 @@ def _moe_routed(lp, x, weights, sel, c: TransformerConfig) -> torch.Tensor:
     counts = _expert_rows(experts, c.n_experts_padded)
     kept = moe_windows(counts, total, window)
     rows = x.unsqueeze(1).expand(t, k, d).reshape(t * k, d).index_select(0, order)
-    sizes = [m for nk, ne in zip(kept, counts) for m in (nk, ne - nk)]
-    pieces = rows.split(sizes)
+    y = _windowed_experts(lp, rows, counts, kept).index_select(0, torch.argsort(order))
+    return (y * weights.reshape(-1, 1).to(x.dtype)).view(t, k, d).sum(1)
+
+
+def _windowed_experts(lp, rows, counts: List[int], kept: List[int]) -> torch.Tensor:
+    """The expert SwiGLU of ``rows`` sorted by expert, ``counts[e]`` rows of
+    expert ``e`` of ``lp["e_*"]``: its first ``kept[e]`` through its
+    weights, the rest zero. The experts' weights are taken apart by one
+    ``unbind`` (an expert no row reaches gets an exact zero gradient)."""
+    pieces = rows.split([m for nk, ne in zip(kept, counts) for m in (nk, ne - nk)])
     wg, wu, wd = (lp[name].unbind(0) for name in ("e_wg", "e_wu", "e_wd"))
     ys = []
     for e, (nk, ne) in enumerate(zip(kept, counts)):
         if nk:
             ys.append(swiglu(pieces[2 * e], wg[e], wu[e], wd[e]))
         if ne > nk:
-            ys.append(x.new_zeros((ne - nk, d)))
-    y = torch.cat(ys).index_select(0, torch.argsort(order))
-    return (y * weights.reshape(-1, 1).to(x.dtype)).view(t, k, d).sum(1)
+            ys.append(rows.new_zeros((ne - nk, rows.shape[1])))
+    return torch.cat(ys)
 
 
-def _moe_ffn(lp, x, c: TransformerConfig, routed: bool = False):
+@dataclasses.dataclass
+class RoutedStats:
+    """What the expert-parallel routed sum (:func:`_moe_routed_ep`) saw, a
+    record a call (a layer's forward, and again its recompute under remat,
+    which routes as the forward did): the rows the exchange dropped past its
+    capacity, summed over the model axis, and the valid rows the receiving
+    rank masked past their expert's window, each a 0-d tensor until
+    :meth:`summary` reads them."""
+
+    overflow: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    masked: List[torch.Tensor] = dataclasses.field(default_factory=list)
+
+    def summary(self) -> Dict:
+        """``calls``, the ``overflow`` summed over them, and the masked rows
+        of each call and their sum (one read to the host)."""
+        masked = [int(m) for m in self.masked]
+        return {"calls": len(self.masked), "overflow": sum(int(o) for o in self.overflow),
+                "masked_per_call": masked, "masked": sum(masked)}
+
+
+def _moe_routed_ep(lp, x, weights, sel, c: TransformerConfig, mesh,
+                   stats: Optional[RoutedStats]) -> torch.Tensor:
+    """JAX's ``_moe_routed`` on the ``"model"`` axis of a grid mesh, ``ep``
+    its size, for ``x [B, L, D]`` (this data rank's tokens, the same on
+    every model rank) and its routing ``weights`` / ``sel [B, L, k]``; this
+    rank holds experts ``[m·e_per, (m+1)·e_per)`` of ``lp["e_*"]``,
+    ``e_per = n_experts_padded / ep``.
+
+    Where ``ep`` divides ``L`` each model rank takes its block of the
+    sequence, and the outputs are gathered whole over ``model``; else every
+    rank routes all tokens, as JAX's replicated ``shard_map`` does, and the
+    output's gradient is divided by ``ep`` (the ``ep`` copies' expert
+    gradients add to one). Its ``t`` tokens' ``t · k`` (token, choice) rows go
+    to the rank of their expert through :func:`~repro_torch.dist.collectives.send_rows`,
+    ``cap = t · k · capacity_factor // ep_active`` a destination
+    (``ep_active`` the ranks holding a real expert); the rows past it are
+    dropped and counted, summed over ``model``. A receiver parks its empty
+    slots in its last local expert, sorts the rows by local expert (stably,
+    in the order received), computes each expert's rows inside its window
+    ``min(total, max(128, 2·total // e_per))`` (``total = ep · cap``; the
+    window's start clipped into the rows, :func:`moe_windows`) and zeroes
+    the rest and the empty slots; :func:`~repro_torch.dist.collectives.return_rows`
+    brings them back, and each token's k rows are weighted in the model's
+    type and summed in float32, rounded once. The router and the inputs
+    reach this body through ``copy_to_model``, so their gradients are
+    summed over the model ranks."""
+    ax = mesh.axis(MODEL)
+    ep, k = ax.size, c.top_k
+    e_per = c.n_experts_padded // ep
+    b, l, d = x.shape
+    x, weights = copy_to_model(x, mesh), copy_to_model(weights, mesh)
+    seq = l % ep == 0
+    if seq:
+        lo, n = ax.rank * (l // ep), l // ep
+        x, weights, sel = x[:, lo:lo + n], weights[:, lo:lo + n], sel[:, lo:lo + n]
+    bl, ll = x.shape[:2]
+    t = bl * ll
+    rows = x.reshape(t, 1, d).expand(t, k, d).reshape(t * k, d)
+    expert = sel.reshape(-1)
+    ep_active = max(1, -(-c.n_experts // e_per))
+    cap = max(1, int(t * k * c.moe_capacity_factor) // ep_active)
+    route, overflow = route_rows((expert // e_per).to(torch.int32),
+                                 torch.ones_like(expert, dtype=torch.bool), ax, cap)
+    received = send_rows(rows, route, ax)
+    tag = send_rows((expert + 1).to(torch.int32), route, ax)
+    valid = tag > 0
+    local_e = torch.where(valid, (tag.long() - 1) % e_per, e_per - 1)
+    order = torch.argsort(local_e, stable=True)
+    counts = _expert_rows(local_e, e_per)
+    total = ep * cap
+    window = min(total, max(128, (2 * total) // e_per))
+    kept = moe_windows(counts, total, window)
+    valid_sorted = valid[order]
+    if stats is not None:
+        # each expert's rows in sorted order: kept, then past the window
+        runs = torch.tensor([m for nk, ne in zip(kept, counts) for m in (nk, ne - nk)],
+                            device=valid.device)
+        past = torch.arange(runs.shape[0], device=valid.device).remainder(2).bool()
+        stats.overflow.append(overflow)
+        stats.masked.append((valid_sorted & past.repeat_interleave(
+            runs, output_size=total)).sum())
+    y = _windowed_experts(lp, received.index_select(0, order), counts, kept)
+    y = torch.where(valid_sorted[:, None], y, 0)
+    y = y.index_select(0, torch.argsort(order))
+    back = return_rows(y, route, ax)
+    out = (back * weights.reshape(-1, 1).to(back.dtype)).view(t, k, d).sum(1).view(bl, ll, d)
+    if seq:
+        return gather_from_model(out, mesh, 1)
+    return scale_grad(out, 1.0 / ep)
+
+
+def _tp(mesh, split, name: str):
+    """``mesh`` where the leaf ``name`` splits over ``model`` (``split``
+    each leaf's dimension split over it, or ``None``), else ``None``."""
+    return mesh if mesh is not None and split[name] is not None else None
+
+
+def _swiglu_tp(x, wg, wu, wd, tp) -> torch.Tensor:
+    """SwiGLU, whole where ``tp`` is ``None``; on the grid mesh ``tp`` with
+    ``wg`` / ``wu`` split by columns and ``wd`` by rows over ``model``, the
+    partial products summed by ``reduce_from_model``."""
+    if tp is None:
+        return swiglu(x, wg, wu, wd)
+    return reduce_from_model(swiglu(copy_to_model(x, tp), wg, wu, wd), tp)
+
+
+def _moe_ffn(lp, x, c: TransformerConfig, routed: bool = False, mesh=None, split=None,
+             stats: Optional[RoutedStats] = None):
     """``x [B, L, D]`` → the routed experts' SwiGLU plus the shared experts':
-    ``_moe_experts`` (JAX without a mesh, as it serves) or with ``routed``
-    ``_moe_routed`` (JAX on a mesh, as ``_lm_cell`` trains)."""
+    ``_moe_experts`` (JAX without a mesh, as it serves), with ``routed``
+    ``_moe_routed`` (JAX on a mesh, as ``_lm_cell`` trains), or on a grid
+    ``mesh`` :func:`_moe_routed_ep` (``stats`` its record) and the shared
+    experts tensor parallel like the dense SwiGLU. The router is whole."""
     b, l, d = x.shape
     flat = x.reshape(-1, d)
     weights, sel = _moe_route(lp, flat, c)
-    out = (_moe_routed if routed else _moe_experts)(lp, flat, weights, sel, c)
+    if mesh is None:
+        out = (_moe_routed if routed else _moe_experts)(lp, flat, weights, sel, c)
+    else:
+        out = _moe_routed_ep(lp, x, weights.view(b, l, -1), sel.view(b, l, -1), c, mesh,
+                             stats).reshape(-1, d)
     if c.n_shared:
-        out = out + swiglu(flat, lp["s_wg"], lp["s_wu"], lp["s_wd"])
+        out = out + _swiglu_tp(flat, lp["s_wg"], lp["s_wu"], lp["s_wd"], _tp(mesh, split, "s_wd"))
     return out.view(b, l, d)
 
 
@@ -468,16 +658,28 @@ def _moe_ffn(lp, x, c: TransformerConfig, routed: bool = False):
 # ---------------------------------------------------------------------------
 
 def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bool,
-           cache=None, pos: int = 0, routed: bool = False):
+           cache=None, pos: int = 0, routed: bool = False, mesh=None, split=None,
+           stats: Optional[RoutedStats] = None):
     """One block. With ``cache`` (this layer's views: GQA ``(k, v)`` ``[B,
     Hkv, S, Dh]``, MLA ``(c_kv [B, S, kv_lora], k_rope [B, S, qk_rope])``) the
     chunk's entries are written at ``pos … pos + Lq - 1`` in place and the
     queries attend over the whole cache with ``q_offset = pos``: the causal
     mask hides the entries not written yet. ``routed`` picks the MoE sum
-    JAX trains with (:func:`_moe_ffn`)."""
+    JAX trains with (:func:`_moe_ffn`).
+
+    On a grid ``mesh`` (training; ``split`` each leaf's dimension split over
+    ``model`` or ``None``, checked by :func:`_check_heads`) the block is
+    tensor parallel over ``model``: this rank's heads from the column-split
+    projections (their inputs through ``copy_to_model``), the row-split
+    ``wo`` summed over ``model`` in float32 (``reduce_from_model``), MLA's
+    ``wq_a`` / ``wkv_a`` (split on a dimension that is not a head) gathered
+    whole first, the SwiGLU split over ``d_ff`` the same way, the MoE block
+    expert parallel (``stats`` its record)."""
+    heads = _tp(mesh, split, "wo")
+    f = _same if heads is None else functools.partial(copy_to_model, mesh=heads)
     h = rms_norm(x, lp["attn_norm"])
     if c.attn == "gqa":
-        q, k, v = _gqa_qkv(lp, h, c, positions)
+        q, k, v = _gqa_qkv(lp, f(h), c, positions)
         if cache is not None:
             ck, cv = cache
             ck[:, :, pos:pos + k.shape[2]] = k
@@ -485,7 +687,10 @@ def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bo
             k, v = ck, cv
         attn = ops.flash_attention(q, k, v, causal=True, q_offset=pos, use_kernels=use_kernels)
     else:
-        q_nope, q_rope = _mla_q(lp, h, c, positions)
+        if mesh is not None:
+            lp = dict(lp, **{n: gather_from_model(lp[n], mesh, split[n])
+                             for n in ("wq_a", "wkv_a") if split.get(n) is not None})
+        q_nope, q_rope = _mla_q(lp, h, c, positions, f)
         c_kv, k_rope = _mla_kv_latent(lp, h, c, positions)
         if cache is not None:
             cc, cr = cache
@@ -496,13 +701,52 @@ def _layer(lp, x, c: TransformerConfig, positions, *, moe: bool, use_kernels: bo
             attn = _mla_attention_absorbed(lp, q_nope, q_rope, c_kv, k_rope, c, pos)
         else:
             attn = _mla_attention(lp, q_nope, q_rope, c_kv, k_rope, c, pos,
-                                  use_kernels=use_kernels)
-    attn = attn.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
-    x = x + attn @ lp["wo"]
+                                  use_kernels=use_kernels, f=f)
+    out = attn.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1) @ lp["wo"]
+    x = x + (out if heads is None else reduce_from_model(out, heads))
     h2 = rms_norm(x, lp["mlp_norm"])
     if moe:
-        return x + _moe_ffn(lp, h2, c, routed)
-    return x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+        return x + _moe_ffn(lp, h2, c, routed, mesh, split, stats)
+    return x + _swiglu_tp(h2, lp["wg"], lp["wu"], lp["wd"], _tp(mesh, split, "wd"))
+
+
+def _model_dims(c: TransformerConfig, mesh) -> Dict:
+    """Each leaf's dimension split over ``model`` under the fixed specs:
+    ``embed`` and ``lm_head`` of the whole leaf, a layer group's leaves of
+    one layer's slice (the stacked dimension taken off)."""
+    out: Dict = {}
+    for name, p in lm_placements(c, mesh).items():
+        group, _, leaf = name.rpartition("/")
+        if group:
+            out.setdefault(group, {})[leaf] = None if p.model_dim is None else p.model_dim - 1
+        else:
+            out[name] = p.model_dim
+    return out
+
+
+def _check_heads(c: TransformerConfig, mesh, dims: Dict) -> None:
+    """Raise where the fixed specs would cut an attention head in two, split
+    the query heads but not the key / value heads (or the reverse), or leave
+    the experts whole on several model ranks: the port does not reshard."""
+    m = mesh.shape[MODEL]
+    for group, moe, _ in _groups(c):
+        split = dims[group]
+        leaves = (("wq", "wk", "wv", "wo") if c.attn == "gqa" else
+                  ("wq_b" if c.q_lora else "wq", "wk_b", "wv_b", "wo"))
+        whole = [n for n in leaves if split[n] is None]
+        if whole and len(whole) < len(leaves):
+            raise NotImplementedError(
+                f"{c.name}: {group}/{whole[0]} is whole while "
+                f"{group}/{next(n for n in leaves if n not in whole)} splits over model {m}")
+        if not whole:
+            if c.n_heads % m:
+                raise NotImplementedError(f"{c.name}: {group}/{leaves[0]} would cut a head in "
+                                          f"two ({c.n_heads} heads over model {m})")
+            if c.attn == "gqa" and c.n_kv_heads % m:
+                raise NotImplementedError(f"{c.name}: {group}/wk would cut a head in two "
+                                          f"({c.n_kv_heads} kv heads over model {m})")
+        if moe and m > 1 and split["e_wg"] is None:
+            raise NotImplementedError(f"{c.name}: {group}/e_wg does not split over model {m}")
 
 
 def _run_layers(params, x, c: TransformerConfig, positions, *, use_kernels: bool,
@@ -540,7 +784,8 @@ def forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch
         return _logits(params, x)
 
 
-def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) -> torch.Tensor:
+def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool, mesh=None,
+                  stats: Optional[RoutedStats] = None) -> torch.Tensor:
     """Teacher-forcing forward with grad: tokens ``[B, S]`` → logits ``[B,
     S, V]`` (JAX's ``forward`` on ``_lm_cell``'s mesh under
     ``jax.value_and_grad``), GQA or MLA, dense or MoE layers.
@@ -558,10 +803,31 @@ def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) ->
     other shapes, and ``checkpoint`` raises). A layer group of ``params``
     may be a list of per-layer dicts instead of stacked ``[L, …]`` tensors,
     so that a caller can take each layer's gradient on its own leaves.
+
+    On a grid ``mesh`` (:class:`~repro_torch.mesh.GridMesh`) ``params`` are
+    this rank's shards under the fixed specs and ``tokens`` its batch: the
+    embedding split by vocabulary looks up the rank's rows (zeros for the
+    others) and sums over ``model``, each layer runs tensor parallel
+    (:func:`_layer`; its recompute repeats the layer's collectives and
+    exchange), and a vocabulary-split head returns this rank's columns of the logits (its
+    loss is ``common.vocab_parallel_cross_entropy``). ``stats`` collects
+    the MoE exchange's drops and masked rows.
     """
     b, s = tokens.shape
-    x = ops.gather_rows(params["embed"], tokens.reshape(-1).to(torch.int32),
-                        use_kernels=use_kernels).view(b, s, -1).to(c.tdtype)
+    ids = tokens.reshape(-1).to(torch.int32)
+    dims = None if mesh is None else _model_dims(c, mesh)
+    if dims is not None:
+        _check_heads(c, mesh, dims)
+    if dims is not None and dims["embed"] is not None:
+        rows = params["embed"].shape[0]
+        local = ids - mesh.coord(MODEL) * rows
+        hit = (local >= 0) & (local < rows)
+        x = ops.gather_rows(params["embed"], torch.where(hit, local, 0),
+                            use_kernels=use_kernels) * hit[:, None].to(params["embed"].dtype)
+        x = reduce_from_model(x.view(b, s, -1), mesh).to(c.tdtype)
+    else:
+        x = ops.gather_rows(params["embed"], ids, use_kernels=use_kernels).view(b, s, -1)
+        x = x.to(c.tdtype)
     positions = _positions(0, s, x.device)
     remat = c.remat and torch.is_grad_enabled()
     for group, moe, n in _groups(c):
@@ -569,9 +835,12 @@ def train_forward(params, tokens, c: TransformerConfig, *, use_kernels: bool) ->
         for i in range(n):
             lp = layers[i] if isinstance(layers, list) else {k: t[i] for k, t in layers.items()}
             fn = functools.partial(_layer, lp, c=c, positions=positions, moe=moe,
-                                   use_kernels=use_kernels, routed=True)
+                                   use_kernels=use_kernels, routed=True, mesh=mesh,
+                                   split=None if dims is None else dims[group], stats=stats)
             x = (checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
                  if remat else fn(x))
+    if dims is not None and dims["lm_head"] is not None:
+        return copy_to_model(rms_norm(x, params["final_norm"]), mesh) @ params["lm_head"]
     return _logits(params, x)
 
 

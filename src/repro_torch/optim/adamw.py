@@ -9,16 +9,24 @@ back, so bf16 parameters stay bf16. Functions, not an optimizer object:
 were (the GNN step); :func:`adamw_update_` does the same arithmetic in
 place, a block of rows at a time, for the models whose parameters,
 gradients and two moments fill most of the card (DLRM's tables, the LMs).
+
+On a grid mesh (:class:`~repro_torch.mesh.GridMesh`) the LM's moments are
+ZeRO-1 (``_lm_cell``'s ``_zero1_specs``): each leaf's moments hold only this
+data rank's slice of its ``data_dim``. :func:`adamw_init_zero1` makes them;
+:func:`adamw_update_zero1_` reduce-scatters the gradient over the data axes
+into that slice, takes the norm of the whole gradient over the mesh, runs
+:func:`adamw_update_` on the slices and gathers the new parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "adamw_update_", "global_norm_clip"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "adamw_update_", "global_norm_clip",
+           "adamw_init_zero1", "adamw_update_zero1_"]
 
 Tree = Dict[str, torch.Tensor]
 # Bytes of float32 a block of rows of :func:`adamw_update_` spans at most
@@ -92,11 +100,13 @@ def _sum_squares(g: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update_(params: Tree, grads: Tree, state: AdamWState,
                   lr: Union[float, torch.Tensor], *, b1: float = 0.9, b2: float = 0.95,
-                  eps: float = 1e-8, weight_decay: float = 0.1,
-                  max_norm: float = 1.0) -> torch.Tensor:
+                  eps: float = 1e-8, weight_decay: float = 0.1, max_norm: float = 1.0,
+                  norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`adamw_update` in place: overwrites ``params``, ``state`` (its
     step and moments) and ``grads`` (with the clipped gradients) and
-    returns the float32 global norm before clipping.
+    returns the float32 global norm before clipping. A given ``norm`` (the
+    float32 norm of a gradient these leaves are part of) clips in place of
+    their own.
 
     The same float32 arithmetic in the same order, leaf by leaf in sorted-
     key order, so the results are :func:`adamw_update`'s bit for bit. The
@@ -109,7 +119,8 @@ def adamw_update_(params: Tree, grads: Tree, state: AdamWState,
     keys = sorted(params)
     if keys != sorted(grads) or keys != sorted(state.mu):
         raise ValueError("adamw_update_: params, grads and moments name different leaves")
-    norm = torch.sqrt(sum(_sum_squares(grads[k]) for k in keys))
+    if norm is None:
+        norm = torch.sqrt(sum(_sum_squares(grads[k]) for k in keys))
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     state.step.add_(1)
     t = state.step.float()
@@ -131,4 +142,72 @@ def adamw_update_(params: Tree, grads: Tree, state: AdamWState,
             pb.copy_((pb.float() - lr * delta).to(pb.dtype))
             mb.copy_(m)
             nb.copy_(v)
+    return norm
+
+
+def adamw_init_zero1(params: Tree, data_dims: Dict[str, Optional[int]], mesh) -> AdamWState:
+    """Zero moments of this data rank's ZeRO-1 slice of each leaf (its
+    ``data_dims[k]`` cut in ``size(data axes)`` parts; the whole leaf where
+    that is ``None``) and step 0, on the parameters' device."""
+    n = mesh.size(mesh.data_axes)
+    zeros = {}
+    for k, p in sorted(params.items()):
+        shape = list(p.shape)
+        if data_dims[k] is not None:
+            shape[data_dims[k]] //= n
+        zeros[k] = torch.zeros(shape, dtype=torch.float32, device=p.device)
+    dev = next(iter(zeros.values())).device if zeros else None
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev), mu=zeros,
+                      nu={k: z.clone() for k, z in zeros.items()})
+
+
+@torch.no_grad()
+def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
+                        lr: Union[float, torch.Tensor], *, mesh,
+                        data_dims: Dict[str, Optional[int]], model_split: Dict[str, bool],
+                        **hyper) -> torch.Tensor:
+    """One AdamW step of a mesh's shards, in place; returns the float32
+    global norm of the averaged gradient before clipping.
+
+    ``params`` and ``grads`` are this rank's shards (split over ``"model"``
+    where ``model_split``), ``state`` its ZeRO-1 moments
+    (:func:`adamw_init_zero1`). Leaf by leaf in sorted order, the gradient
+    is summed in float32 over the data axes, reduce-scattered into this
+    rank's slice of ``data_dims[k]`` (all-reduced whole where that is
+    ``None``), divided by their size and cast to the leaf's type: the
+    average over the data ranks. The norm's sum of squares counts each
+    piece of the gradient once: a rank adds its piece where its coordinate
+    is 0 on every axis the piece is not split on, and one sum over the mesh
+    adds them. Then :func:`adamw_update_` runs on the slices with that norm
+    (its arithmetic bit for bit) and the new slices are gathered over the
+    data axes. ``grads`` is consumed."""
+    daxes = mesh.data_axes
+    n, r = mesh.size(daxes), mesh.coord(daxes)
+    coords = mesh.coords(mesh.rank)
+    views, pieces = {}, {}
+    share = None
+    for k in sorted(params):
+        g, d, p = grads.pop(k), data_dims[k], params[k]
+        acc = g.to(torch.float32, copy=True).contiguous()
+        if d is None:
+            acc = mesh.all_reduce(acc, daxes)
+            views[k] = p
+        else:
+            acc = mesh.reduce_scatter(acc, daxes, d)
+            width = p.shape[d] // n
+            views[k] = p.narrow(d, r * width, width)
+        del g
+        pieces[k] = (acc / n).to(p.dtype)
+        split = ({"model"} if model_split[k] else set()) | (set(daxes) if d is not None else set())
+        if all(coords[a] == 0 for a in mesh.axis_names if a not in split):
+            sq = _sum_squares(pieces[k])
+            share = sq if share is None else share + sq
+    total = torch.zeros(1, dtype=torch.float32, device=state.step.device)
+    if share is not None:
+        total += share
+    norm = torch.sqrt(mesh.all_reduce(total, mesh.axis_names)[0])
+    adamw_update_(views, pieces, state, lr, norm=norm, **hyper)
+    for k in sorted(params):
+        if data_dims[k] is not None:
+            params[k].copy_(mesh.all_gather(views[k].contiguous(), daxes, data_dims[k]))
     return norm

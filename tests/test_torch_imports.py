@@ -149,6 +149,24 @@ with tempfile.TemporaryDirectory() as rdv:
     (m1,) = stages(Pipeline(EXAMPLE_Q1, "cpu", use_kernels=False, mesh=pm), 0)
     assert m1["count"] == 1282 and m1["overflow"] == 0 and pm.calls["all_gather"] > 0, m1
     dist.destroy_process_group()
+# one LM training step on a (1, 1) grid (gloo, one rank): the sharded
+# step's code path, every collective on the one rank
+from repro_torch.convert import lm_params_shard
+from repro_torch.launch.mesh import init_grid_mesh
+from repro_torch.models.transformer import RoutedStats
+with tempfile.TemporaryDirectory() as rdv:
+    grid = init_grid_mesh(1, 1, "cpu", timeout_s=30, init_method=f"file://{rdv}/store")
+    gcfg = get_arch("granite-moe-3b-a800m").smoke
+    gp = lm_params_shard(tf.init_params(gcfg, torch.Generator().manual_seed(0), "cpu"), gcfg,
+                         grid, device="cpu")
+    gopt = steps.lm_adamw_init(gp, gcfg, grid)
+    gstats = RoutedStats()
+    gk, gl = (torch.from_numpy(a) for a in next(token_batches(gcfg.vocab, 2, 8)))
+    gp, gopt, gloss, gnorm = steps.lm_train_step(gp, gopt, gk, gl, gcfg, use_kernels=False,
+                                                 mesh=grid, stats=gstats)
+    assert int(gopt.step) == 1 and bool(torch.isfinite(gloss)) and float(gnorm) > 0
+    assert gstats.summary()["overflow"] == 0 and grid.calls["all_to_all/model"] > 0, grid.calls
+    dist.destroy_process_group()
 lm4 = make_local_mesh(4)
 assert torch.equal(ring_all_reduce([torch.ones(3)] * 4, lm4)[2], torch.full((3,), 4.0))
 assert torch.equal(butterfly_compressed_all_reduce([torch.ones(3)] * 4, lm4)[0],
@@ -181,6 +199,7 @@ def _sources():
     yield os.path.join(REPO, "examples", "torch_subgraph_service.py")
     yield os.path.join(REPO, "examples", "torch_train_gnn.py")
     yield os.path.join(REPO, "examples", "torch_train_lm.py")
+    yield os.path.join(REPO, "examples", "torch_train_lm_mesh.py")
 
 
 def test_no_source_imports_jax_or_repro():
@@ -196,7 +215,10 @@ def test_no_source_imports_jax_or_repro():
                 ("data", "pipeline.py"), ("kernels", "flash_attention_bwd.py"),
                 ("..", "..", "examples", "torch_subgraph_service.py"),
                 ("..", "..", "examples", "torch_train_gnn.py"),
-                ("..", "..", "examples", "torch_train_lm.py")):
+                ("..", "..", "examples", "torch_train_lm.py"), ("mesh.py",),
+                ("launch", "mesh.py"), ("dist", "collectives.py"), ("models", "common.py"),
+                ("models", "transformer.py"), ("convert.py",), ("sharding.py",),
+                ("..", "..", "examples", "torch_train_lm_mesh.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
