@@ -52,10 +52,11 @@ since the script started (all but the last line):
    group of world size 1 on NCCL started in the script (two NCCL ranks
    cannot share one card), ``ListingService(backend="sharded",
    mesh=ProcessMesh(8))`` over WT~ / q1_square (``run.WT_Q1``'s caps, the
-   seeds of ``service``), stage 1 and two 64 + 64 updates committed as
-   four 64-op batches, against the same service on the backend's own
-   ``LocalMesh`` run first: counts ``WT_COUNTS`` / ``SERVICE_DELETE_COUNTS``
-   at every watermark, overflow and host bytes 0, every store snapshot
+   seeds of ``service``), stage 1 and one 64 + 64 update committed as
+   two 64-op batches (``MESH_UPDATES``), against the same service on the
+   backend's own ``LocalMesh`` run first: counts ``WT_COUNTS`` /
+   ``SERVICE_DELETE_COUNTS`` at every watermark, overflow and host bytes 0,
+   every store snapshot
    equal, each batch's NCCL calls and bytes by kind (``all_gather``,
    ``all_reduce``), the ranks' agreement checks, seconds and peak of
    both runs; the batches' launches are ``launches_by_path["mesh"]``.
@@ -230,6 +231,17 @@ since the script started (all but the last line):
    ``kernel_check`` line: ``segment_sum`` at each path's two training
    shapes, the source-id transposes of its gathers (unsorted; padded edges
    dropped) and its widest destination-id sum, timed as in 9.
+12c. ``gnn_mesh`` — the sharded GNN step (``gnn_train_step`` on a train
+   graph built with ``mesh=grid``: the graph split over every axis, the
+   mesh gathers and segment sums, ZeRO-1 AdamW) on a ``(1, 1)``
+   ``GridMesh`` at NCCL world 1: equiformer-v2 (through the channel-split
+   gather and segment sum) and gatedgcn at ``_FULL`` on ``molecule``, one
+   step each with the kernels after a warm-up, against the one-device
+   ``gnn_train_step`` on the same parameters and graph: loss and norm
+   within ``GNN_MESH_LIMIT``, every updated parameter and both moments bit
+   for bit, the launches a step as the one device's, the collectives' calls and bytes
+   by kind and axis; ``gnn_mesh_done`` times the phase. The four-card
+   cells (ogb_products) are ``examples/torch_train_gnn_mesh.py``'s.
 13. ``kernel_check`` (``flash_attention``) — the three attention kernels
    against their plain version at the serving shapes (prefill q [4, 24,
    8192, 128] over k/v [4, 8, 8208, 128] and the second 4,096-token chunk
@@ -396,8 +408,9 @@ Then a ``device`` line with the card's name and power limit (the
 ``nvidia-smi --query-gpu=name,power.limit`` line), the ``kernels``
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
 the molecule and full_graph_sm kernel requests, the chunked forward,
-the four GNN training paths' 10 steps, ``dlrm_train``, the three LM
-training paths and ``lm_mesh``, each counted from 0; the three attention
+the four GNN training paths' 10 steps, ``gnn_mesh``'s two steps,
+``dlrm_train``, the three LM training paths and ``lm_mesh``, each counted
+from 0; the three attention
 kernels' ``launches_by_path``: the five LM kernel serves, phi4, minicpm3,
 deepseek, granite and command_r, the four float32 gates' kernel serves,
 ``<path>_f32_gate`` (none for command_r), and ``lm_train``,
@@ -495,14 +508,27 @@ EQV2_TOL = 3e-2
 # The GNN training slice: each architecture at its _FULL width on a shape its
 # users train on, sized as launch/steps.py _gnn_counts sizes it on one device
 # (gnn_counts); the forward's gate against its plain version beside each.
-# ogb_products is left out: with remat gatedgcn keeps each layer's
-# [123,718,280, 70] bf16 edge state, 17.3 GB, 277 GB over 16 layers.
+# ogb_products trains across four cards instead (examples/torch_train_gnn_mesh.py):
+# with remat gatedgcn keeps each layer's [123,718,280, 70] bf16 edge state,
+# 17.3 GB, 277 GB over 16 layers, more than one card holds.
 TRAIN_CELLS = (("equiformer-v2", "molecule", EQV2_TOL), ("gatedgcn", "molecule", 3e-2),
                ("graphsage-reddit", "minibatch_lg", 1e-4),
                ("meshgraphnet", "full_graph_sm", 3e-2))
 TRAIN_STEPS, TRAIN_LR = 10, 1e-3
 TRAIN_GRAD_TOL, REMAT_TOL = 3e-2, 1e-6
 REMAT_CHECKED = ("equiformer-v2", "gatedgcn")
+# The GNN step on a (1, 1) grid at NCCL world 1 (gnn_mesh): these two at
+# _FULL on molecule, one step each against the one-device step. At world 1
+# the arithmetic is the one device's but for one rounding: the grid rounds
+# each float64 sum over all N to float32 before the model's bf16 (its
+# cross-rank sums run in float32), one device to bf16 directly. The two
+# differ only where a float64 sum is not exact in float32 and its float32
+# value falls on a bf16 tie. These inputs come from fixed seeds, and on an
+# H100 no such sum showed, so the updated parameters and both moments must
+# be bit-equal to one device's (a missing or wrong ZeRO-1 update shows there: at AdamW's
+# first step the update is about lr whatever the gradient). Loss and norm,
+# read before the update, within GNN_MESH_LIMIT relative.
+GNN_MESH_ARCHS, GNN_MESH_SHAPE, GNN_MESH_LIMIT = ("equiformer-v2", "gatedgcn"), "molecule", 1e-3
 # The LM slice: phi4-mini-3.8b serving (configs/phi4_mini_3_8b.py _FULL).
 # The repo's prefill_32k shape (32 x 32,768 tokens) needs a 137 GB cache:
 # cut to 4 prompts of 8,192 tokens and 16 generated tokens each.
@@ -1045,7 +1071,13 @@ def multi_phase(single_snaps):
 # The service on a torch.distributed mesh
 # ---------------------------------------------------------------------------
 
-MESH_UPDATES = 2
+# One 64 + 64 update (two 64-op batches) a run: the phase's two runs took
+# 97 s at two updates, most of it these batches (~9.8 s each). An update on
+# the store the first one left (SERVICE_DELETE_COUNTS[1], WT_COUNTS[2]) is
+# no longer run here; tests/test_torch_mesh_dist.py runs three updates of
+# the service on a ProcessMesh (gloo, world 2), and
+# examples/torch_distributed_listing.py three batches on four cards.
+MESH_UPDATES = 1
 
 
 def mesh_service_run(mesh, label: str):
@@ -3015,6 +3047,127 @@ def train_cell(arch: str, shape_name: str, gate: float):
     return counts["segment_sum"], cases
 
 
+def gnn_mesh_phase():
+    """``gnn_mesh``: one step of ``gnn_train_step`` on a train graph built
+    with ``mesh=`` a ``(1, 1)`` ``GridMesh`` over a process group of world
+    size 1 started here (NCCL), for each of GNN_MESH_ARCHS at ``_FULL`` on
+    ``molecule``, with the kernels (EquiformerV2 through the channel-split
+    gather and segment sum), against the one-device ``gnn_train_step`` on
+    the same parameters and graph: loss and norm (GNN_MESH_LIMIT), and
+    after the update every parameter and both moments, which the grid must
+    reproduce bit for bit; the launches a step as the one device's, the
+    collectives' calls and bytes by kind and axis. Returns the mesh steps'
+    segment_sum launches by path."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import graph_from_numpy, graph_shard
+    from repro_torch.data import build_graph_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_grid_mesh
+    from repro_torch.launch.steps import gnn_adamw_init, gnn_counts, gnn_train_step
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    mesh = init_grid_mesh(1, 1, "cuda", timeout_s=300)
+    init_s = time.perf_counter() - t0
+    by_path = {}
+    try:
+        backend = dist.get_backend()
+        for arch in GNN_MESH_ARCHS:
+            spec = get_arch(arch)
+            shape = spec.shape(GNN_MESH_SHAPE)
+            cfg = dataclasses.replace(spec.config, d_in=shape.d_feat)
+            nodes, edges = gnn_counts(shape, mesh.world)
+            raw = build_graph_data(nodes, edges, shape.d_feat, d_edge=cfg.d_edge_in, seed=0,
+                                   geometric=cfg.arch == "equiformer_v2")
+            deg = np.bincount(raw["dst"][raw["edge_mask"]], minlength=nodes)
+            labels = torch.from_numpy((np.minimum(deg, cfg.d_out - 1) if cfg.d_out > 1
+                                       else deg).astype(np.int32)).cuda()
+            params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+            runs = {}
+            for kind in ("single", "mesh"):
+                if kind == "mesh":
+                    tg = gnn.train_graph(graph_shard(raw, mesh, device="cuda"), cfg, mesh=mesh)
+                    opt = gnn_adamw_init(params, cfg, mesh)
+                else:
+                    tg = gnn.train_graph(graph_from_numpy(raw, "cuda"), cfg)
+                    opt = adamw_init(params)
+                gnn_train_step(params, opt, tg, labels, cfg, lr=TRAIN_LR, use_kernels=True)
+                torch.cuda.synchronize()   # warm-up: first-use costs
+                ops.reset_launch_counts()
+                mesh.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                p2, o2, loss, norm = gnn_train_step(params, opt, tg, labels, cfg, lr=TRAIN_LR,
+                                                    use_kernels=True)
+                torch.cuda.synchronize()
+                runs[kind] = {"param": p2, "mu": o2.mu, "nu": o2.nu, "loss": float(loss),
+                              "gnorm": float(norm),
+                              "seconds": time.perf_counter() - t0,
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "launches": ops.launch_counts(), "calls": dict(mesh.calls),
+                              "bytes": dict(mesh.bytes)}
+                del tg, opt
+            one, grid = runs["single"], runs["mesh"]
+            # at (1, 1) a rank's ZeRO-1 moments are the whole leaves
+            state_gap = {}
+            for kind in ("param", "mu", "nu"):
+                check(sorted(grid[kind]) == sorted(one[kind]), f"gnn_mesh {arch}: {kind} leaves")
+                gaps = {k: float((grid[kind][k].float() - v.float()).abs().max())
+                        for k, v in one[kind].items()}
+                state_gap[kind] = {"max_abs_diff": max(gaps.values()),
+                                   "leaves_differing": sorted(k for k, g in gaps.items() if g)}
+            rec = {"phase": "gnn_mesh", "arch": arch, "shape": GNN_MESH_SHAPE, "grid": [1, 1],
+                   "backend": backend, "nodes": nodes, "edges": edges, "layers": cfg.n_layers,
+                   "dtype": cfg.dtype, "loss_mesh": grid["loss"], "loss_single": one["loss"],
+                   "loss_ratio": abs(grid["loss"] - one["loss"]) / abs(one["loss"]),
+                   "gnorm_mesh": grid["gnorm"], "gnorm_single": one["gnorm"],
+                   "gnorm_ratio": abs(grid["gnorm"] - one["gnorm"]) / one["gnorm"],
+                   "limit": GNN_MESH_LIMIT, "params": len(one["param"]),
+                   "state_after_step": state_gap, "step_seconds": grid["seconds"],
+                   "single_step_seconds": one["seconds"], "peak_gib": grid["peak_gib"],
+                   "single_peak_gib": one["peak_gib"],
+                   "launches": {k: n for k, n in grid["launches"].items() if n},
+                   "collective_calls": grid["calls"], "collective_bytes": grid["bytes"]}
+            emit(rec)
+            check(math.isfinite(grid["loss"]) and math.isfinite(grid["gnorm"]),
+                  f"gnn_mesh {arch}: loss {grid['loss']}, norm {grid['gnorm']}")
+            check(rec["loss_ratio"] <= GNN_MESH_LIMIT and rec["gnorm_ratio"] <= GNN_MESH_LIMIT,
+                  f"gnn_mesh {arch}: against one device loss {rec['loss_ratio']}, gnorm "
+                  f"{rec['gnorm_ratio']} > {GNN_MESH_LIMIT}")
+            for kind, gap in state_gap.items():
+                check(not gap["leaves_differing"],
+                      f"gnn_mesh {arch}: the updated {kind} differs from one device's in "
+                      f"{gap['leaves_differing']} (max |diff| {gap['max_abs_diff']})")
+            check(grid["launches"] == one["launches"] and grid["launches"]["segment_sum"] > 0,
+                  f"gnn_mesh {arch}: launches {grid['launches']} != one device's "
+                  f"{one['launches']}")
+            want = (("all_to_all/model", "all_gather/data", "reduce_scatter/data",
+                     "all_reduce/data,model") if cfg.arch == "equiformer_v2" else
+                    ("all_gather/data,model", "reduce_scatter/data,model"))
+            for kind in want:
+                check(grid["calls"].get(kind, 0) > 0,
+                      f"gnn_mesh {arch}: no {kind} collective: {grid['calls']}")
+            by_path[f"gnn_mesh_{arch}"] = grid["launches"]["segment_sum"]
+            del runs, one, grid, params
+            free_device_memory()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "gnn_mesh_done", "backend": backend, "init_process_group_s": init_s,
+          "seconds": time.perf_counter() - t_phase})
+    check(backend == "nccl", f"gnn_mesh: backend {backend}")
+    return by_path
+
+
 def gnn_train_phase():
     """GNN training at full width: the four TRAIN_CELLS. Returns the
     segment_sum launches by training path and the kernel_check cases."""
@@ -4942,6 +5095,9 @@ def main() -> None:
     train_paths, train_cases = gnn_train_phase()
     segment_paths.update(train_paths)
     checks["segment_sum"] += train_cases
+
+    # 12c. the GNN step on a (1, 1) grid at NCCL world 1
+    segment_paths.update(gnn_mesh_phase())
 
     # 13. flash_attention against its plain version at the serving shapes
     checks["flash_attention"] = flash_attention_phase()

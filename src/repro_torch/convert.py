@@ -6,7 +6,9 @@ those attributes whose values ``numpy.asarray`` accepts) and build the
 port's tensors; :func:`comp_to_numpy` hands port tensors back as NumPy
 arrays, in the layout ``repro.dist.jax_engine.comp_to_host`` reads.
 :func:`gnn_params_from_numpy` and :func:`graph_from_numpy` carry the GNN
-parameters and a ``build_graph_data`` dict across, :func:`dlrm_params_from_numpy`
+parameters and a ``build_graph_data`` dict across (:func:`graph_shard` a
+rank's shard of it on a grid mesh, :func:`graph_unshard` the ranks' shards
+whole again), :func:`dlrm_params_from_numpy`
 the DLRM parameters, :func:`lm_params_from_numpy` the transformer's nested
 parameter dict; :func:`lm_params_shard` cuts one rank's shards of it on a
 grid mesh, and :func:`lm_params_unshard` puts every rank's shards (of the
@@ -27,7 +29,7 @@ from .sharded import MatchStore
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
            "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "dlrm_params_from_numpy",
            "lm_params_from_numpy", "lm_params_shard", "lm_params_unshard", "graph_from_numpy",
-           "adamw_state_from_numpy"]
+           "graph_shard", "graph_unshard", "node_rows", "adamw_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -156,6 +158,46 @@ def graph_from_numpy(raw, device="cuda"):
 
     return GraphData(**{k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
                         for k in GraphData.__dataclass_fields__})
+
+
+def node_rows(a, mesh) -> np.ndarray:
+    """This rank's rows (``mesh.rank``'s) of an array split on its first
+    dimension over every axis of the grid ``mesh`` in rank order: a graph's
+    node or edge rows, or per-node labels, as ``graph_specs`` places them
+    (NumPy in, NumPy out)."""
+    a = np.asarray(a)
+    return a[mesh.slices((tuple(mesh.axis_names),), a.shape, mesh.rank)]
+
+
+def graph_shard(raw, mesh, device="cuda"):
+    """This rank's shard (``mesh.rank``'s) of a padded graph,
+    a ``build_graph_data`` dict (or anything with ``GraphData``'s fields
+    that ``numpy.asarray`` takes), as ``models.gnn.graph_specs`` places it
+    on the grid ``mesh``: its block of node rows and of edge rows, the edge
+    ids global. The node and edge counts must split over the mesh
+    (``launch.steps.gnn_counts(shape, n_dev)`` pads them)."""
+    from .models.gnn import GraphData, graph_specs
+
+    specs = graph_specs(mesh.axis_names)
+    out = {}
+    for k in GraphData.__dataclass_fields__:
+        a = np.asarray(raw[k])
+        out[k] = np.ascontiguousarray(a[mesh.slices(getattr(specs, k), a.shape, mesh.rank)])
+    return graph_from_numpy(out, device)
+
+
+def graph_unshard(pieces):
+    """The whole graph (a dict of NumPy arrays by field) from ``pieces[r]``,
+    rank ``r``'s shard (a ``GraphData`` or a dict of its fields): the
+    inverse of :func:`graph_shard`, each field's blocks in rank order."""
+    from .models.gnn import GraphData
+
+    def field(p, k):
+        v = p[k] if isinstance(p, dict) else getattr(p, k)
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    return {k: np.concatenate([field(p, k) for p in pieces])
+            for k in GraphData.__dataclass_fields__}
 
 
 def adamw_state_from_numpy(state, device="cuda") -> AdamWState:

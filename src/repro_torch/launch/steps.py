@@ -12,6 +12,12 @@ steps then run :func:`~repro_torch.optim.adamw_update_`, in place (their
 parameters and moments fill most of the card), the GNN step the functional
 ``adamw_update``.
 
+``_gnn_cell``'s step on a mesh, too: ``gnn_train_step`` on a train graph
+built with ``mesh=grid`` (``gnn.train_graph``): the graph split over every
+axis, the weights replicated, the node-masked mean loss summed over every
+axis, the gradient summed over every axis into ZeRO-1 moments
+(:func:`gnn_adamw_init`).
+
 ``_lm_cell``'s train branch on a mesh, too (the placements of its leaves
 by :mod:`repro_torch.sharding`): :func:`lm_adamw_init` and
 ``lm_train_step(..., mesh=grid)``: tensor-parallel layers and experts over
@@ -39,7 +45,7 @@ __all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "dlrm_loss",
            "dlrm_value_and_grad", "dlrm_train_step", "lm_flops", "lm_micro_batches",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "flat_params", "gnn_flops",
            "gnn_counts", "gnn_loss", "gnn_value_and_grad", "gnn_train_step", "recsys_requests",
-           "retrieval_candidates", "lm_adamw_init"]
+           "retrieval_candidates", "lm_adamw_init", "gnn_adamw_init"]
 
 
 def lm_adamw_init(params, cfg: tf.TransformerConfig, mesh) -> AdamWState:
@@ -345,41 +351,79 @@ def gnn_flops(cfg: gnn.GNNConfig, nodes: int, edges: int, train: bool = False) -
             "active_params": 0.0}
 
 
-def gnn_counts(shape: ShapeSpec) -> Tuple[int, int]:
-    """``(nodes, edges)`` of a GNN training cell on one device (copy of
-    ``_gnn_counts`` with one device, not the smoke sizes): a minibatch's
-    seeds and their sampled frontiers, a batch of small graphs with both
-    directions of each edge, or a whole graph with both directions."""
+def gnn_counts(shape: ShapeSpec, n_dev: int = 1) -> Tuple[int, int]:
+    """``(nodes, edges)`` of a GNN training cell (copy of ``_gnn_counts``,
+    not the smoke sizes): a minibatch's seeds and their sampled frontiers,
+    a batch of small graphs with both directions of each edge, or a whole
+    graph with both directions; each padded to a multiple of ``n_dev``,
+    the devices the rows split over."""
     if shape.kind == "minibatch":
         b, (f1, f2) = shape.batch_nodes, shape.fanouts
-        return b + b * f1 + b * f1 * f2, b * f1 + b * f1 * f2
-    if shape.kind == "batched_graphs":
-        return shape.batch_graphs * shape.n_nodes, shape.batch_graphs * shape.n_edges * 2
-    return shape.n_nodes, shape.n_edges * 2
+        nodes, edges = b + b * f1 + b * f1 * f2, b * f1 + b * f1 * f2
+    elif shape.kind == "batched_graphs":
+        nodes, edges = shape.batch_graphs * shape.n_nodes, shape.batch_graphs * shape.n_edges * 2
+    else:
+        nodes, edges = shape.n_nodes, shape.n_edges * 2
+    return _pad_to(nodes, n_dev), _pad_to(edges, n_dev)
+
+
+def _pad_to(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+class _SumOverMesh(torch.autograd.Function):
+    """A rank's term summed over every axis; backward, the gradient as it
+    is: the loss is one value, of which each rank's term is its share."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.detach().clone().contiguous(), mesh.axis_names)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def gnn_loss(out: torch.Tensor, labels: torch.Tensor, node_mask: torch.Tensor,
-             cfg: gnn.GNNConfig) -> torch.Tensor:
+             cfg: gnn.GNNConfig, mesh=None) -> torch.Tensor:
     """The node-masked mean loss of ``_gnn_cell``'s step, in float32:
-    cross-entropy for ``d_out > 1``, squared error for ``d_out == 1``."""
+    cross-entropy for ``d_out > 1``, squared error for ``d_out == 1``. On a
+    grid ``mesh`` ``out``, ``labels`` and ``node_mask`` are this rank's node
+    rows: the masked sum and the count are each summed over every axis, and
+    a rank's gradient is that of its own rows' share."""
     out = out.float()
     if cfg.d_out > 1:
         per = torch.logsumexp(out, -1) - out.gather(-1, labels.long()[:, None])[:, 0]
     else:
         per = (out[:, 0] - labels.float()) ** 2
-    return torch.sum(per * node_mask) / torch.clamp_min(node_mask.sum(), 1)
+    total, count = torch.sum(per * node_mask), node_mask.sum()
+    if mesh is not None:
+        total = _SumOverMesh.apply(total.reshape(1), mesh)[0]
+        count = mesh.all_reduce(count.reshape(1).clone(), mesh.axis_names)[0]
+    return total / torch.clamp_min(count, 1)
+
+
+def gnn_adamw_init(params, cfg: gnn.GNNConfig, mesh) -> AdamWState:
+    """Zero ZeRO-1 moments of the replicated weights ``params`` on a grid
+    ``mesh``: this data rank's slice of each leaf's first dimension the data
+    axes divide (``_gnn_cell``'s ``_zero1_specs``)."""
+    place = gnn.gnn_placements(cfg, mesh)
+    return adamw_init_zero1(params, {k: p.data_dim for k, p in place.items()}, mesh)
 
 
 def gnn_value_and_grad(params, tg: gnn.TrainGraph, labels: torch.Tensor, cfg: gnn.GNNConfig, *,
                        use_kernels: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss and its gradient by parameter name (zeros for a parameter
     the loss does not reach), as ``jax.value_and_grad`` of the step's loss
-    gives them, on the graph ``tg`` (``gnn.train_graph``)."""
+    gives them, on the graph ``tg`` (``gnn.train_graph``). On the mesh of a
+    train graph built with ``mesh=`` (``labels`` this rank's node rows) the
+    loss is the whole graph's and the gradient this rank's share: the sum
+    over every rank's is the whole gradient."""
     names = sorted(params)
     leaves = [params[k].detach().requires_grad_() for k in names]
     with torch.enable_grad():
         out = gnn.train_forward(dict(zip(names, leaves)), tg, cfg, use_kernels=use_kernels)
-        loss = gnn_loss(out, labels, tg.g.node_mask, cfg)
+        loss = gnn_loss(out, labels, tg.g.node_mask, cfg, tg.mesh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), {k: torch.zeros_like(p) if gr is None else gr
                            for k, p, gr in zip(names, leaves, grads)}
@@ -390,9 +434,29 @@ def gnn_train_step(params, opt: AdamWState, tg: gnn.TrainGraph, labels: torch.Te
     """One training step (the ``step`` of ``_gnn_cell``) on the graph
     ``tg`` (``gnn.train_graph``, built once for every step): the loss's
     gradient, then ``adamw_update``. Returns ``(params, opt, loss,
-    gnorm)``; its arguments are left as they were."""
+    gnorm)``; its arguments are left as they were.
+
+    On the grid of a train graph built with ``mesh=grid`` (``_gnn_cell``'s
+    step on a mesh) ``tg`` and ``labels`` are this rank's shard, ``params``
+    the whole replicated weights and ``opt`` this rank's ZeRO-1 moments
+    (:func:`gnn_adamw_init`): the gradient is summed over every axis (the
+    graph is split over all of them) into each leaf's ZeRO-1 slice, clipped
+    by the whole gradient's norm, and the updated slices gathered over the
+    data axes (:func:`~repro_torch.optim.adamw_update_zero1_`, in place on
+    copies of ``params`` and ``opt``)."""
     loss, grads = gnn_value_and_grad(params, tg, labels, cfg, use_kernels=use_kernels)
-    params2, opt2, gnorm = adamw_update(params, grads, opt, lr)
+    mesh = tg.mesh
+    if mesh is None:
+        params2, opt2, gnorm = adamw_update(params, grads, opt, lr)
+        return params2, opt2, loss, gnorm
+    place = gnn.gnn_placements(cfg, mesh)
+    params2 = {k: v.clone() for k, v in params.items()}
+    opt2 = AdamWState(step=opt.step.clone(), mu={k: v.clone() for k, v in opt.mu.items()},
+                      nu={k: v.clone() for k, v in opt.nu.items()})
+    gnorm = adamw_update_zero1_(params2, grads, opt2, lr, mesh=mesh,
+                                data_dims={k: p.data_dim for k, p in place.items()},
+                                model_split={k: False for k in place},
+                                grad_axes=mesh.axis_names)
     return params2, opt2, loss, gnorm
 
 

@@ -30,8 +30,8 @@ rank a device:
   along the data axes together): ``axis(name)`` gives a view with
   :class:`ProcessMesh`'s interface on that axis (one partition a rank), so
   the exchanges of :mod:`repro_torch.dist.collectives` run on it
-  unchanged, and ``all_reduce`` / ``reduce_scatter`` / ``all_gather`` run
-  along one axis or several.
+  unchanged, and ``all_reduce`` / ``reduce_scatter`` / ``all_gather`` /
+  the tiled ``all_to_all`` run along one axis or several.
 """
 
 from __future__ import annotations
@@ -475,6 +475,21 @@ class GridMesh(GridShape):
         out = _gather(x.movedim(dim, 0), self.size(axes), self.group(axes))
         self.count("all_gather", axes, out)
         return out.movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axes: Axes, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(x, axes, split_dim, concat_dim, tiled=True)``:
+        ``x`` cut into ``size(axes)`` equal parts along ``split_dim``, part
+        ``j`` sent to the rank at ``coord(axes) = j``; the parts received
+        concatenated along ``concat_dim`` in ``coord(axes)`` order. Its
+        transpose is the same call with the two dimensions swapped."""
+        n = self.size(axes)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        out = _all_to_all(torch.stack(x.chunk(n, split_dim)), self.group(axes))
+        self.count("all_to_all", axes, out)
+        return torch.cat(out.unbind(0), concat_dim)
 
 
 class AxisView:

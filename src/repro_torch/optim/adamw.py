@@ -10,11 +10,13 @@ were (the GNN step); :func:`adamw_update_` does the same arithmetic in
 place, a block of rows at a time, for the models whose parameters,
 gradients and two moments fill most of the card (DLRM's tables, the LMs).
 
-On a grid mesh (:class:`~repro_torch.mesh.GridMesh`) the LM's moments are
-ZeRO-1 (``_lm_cell``'s ``_zero1_specs``): each leaf's moments hold only this
-data rank's slice of its ``data_dim``. :func:`adamw_init_zero1` makes them;
+On a grid mesh (:class:`~repro_torch.mesh.GridMesh`) the LM's and the
+GNNs' moments are ZeRO-1 (``_lm_cell``'s and ``_gnn_cell``'s
+``_zero1_specs``): each leaf's moments hold only this data rank's slice of
+its ``data_dim``. :func:`adamw_init_zero1` makes them;
 :func:`adamw_update_zero1_` reduce-scatters the gradient over the data axes
-into that slice, takes the norm of the whole gradient over the mesh, runs
+into that slice (the LM's averaged over them, a GNN's summed over every
+axis), takes the norm of the whole gradient over the mesh, runs
 :func:`adamw_update_` on the slices and gathers the new parameters.
 """
 
@@ -165,9 +167,9 @@ def adamw_init_zero1(params: Tree, data_dims: Dict[str, Optional[int]], mesh) ->
 def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
                         lr: Union[float, torch.Tensor], *, mesh,
                         data_dims: Dict[str, Optional[int]], model_split: Dict[str, bool],
-                        **hyper) -> torch.Tensor:
+                        grad_axes: Optional[Tuple[str, ...]] = None, **hyper) -> torch.Tensor:
     """One AdamW step of a mesh's shards, in place; returns the float32
-    global norm of the averaged gradient before clipping.
+    global norm of the averaged (or summed) gradient before clipping.
 
     ``params`` and ``grads`` are this rank's shards (split over ``"model"``
     where ``model_split``), ``state`` its ZeRO-1 moments
@@ -175,13 +177,19 @@ def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
     is summed in float32 over the data axes, reduce-scattered into this
     rank's slice of ``data_dims[k]`` (all-reduced whole where that is
     ``None``), divided by their size and cast to the leaf's type: the
-    average over the data ranks. The norm's sum of squares counts each
+    average over the data ranks (the LM's batch split). With ``grad_axes``
+    (the data axes among them) the gradient is instead summed over those
+    axes and not divided: a GNN's, whose graph is split over every axis,
+    so that each rank holds a share of the sum. The norm's sum of squares counts each
     piece of the gradient once: a rank adds its piece where its coordinate
     is 0 on every axis the piece is not split on, and one sum over the mesh
     adds them. Then :func:`adamw_update_` runs on the slices with that norm
     (its arithmetic bit for bit) and the new slices are gathered over the
     data axes. ``grads`` is consumed."""
     daxes = mesh.data_axes
+    average = grad_axes is None
+    grad_axes = daxes if average else tuple(grad_axes)
+    rest = tuple(a for a in grad_axes if a not in daxes)
     n, r = mesh.size(daxes), mesh.coord(daxes)
     coords = mesh.coords(mesh.rank)
     views, pieces = {}, {}
@@ -190,14 +198,16 @@ def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
         g, d, p = grads.pop(k), data_dims[k], params[k]
         acc = g.to(torch.float32, copy=True).contiguous()
         if d is None:
-            acc = mesh.all_reduce(acc, daxes)
+            acc = mesh.all_reduce(acc, grad_axes)
             views[k] = p
         else:
             acc = mesh.reduce_scatter(acc, daxes, d)
+            if rest:
+                acc = mesh.all_reduce(acc, rest)
             width = p.shape[d] // n
             views[k] = p.narrow(d, r * width, width)
         del g
-        pieces[k] = (acc / n).to(p.dtype)
+        pieces[k] = (acc / n if average else acc).to(p.dtype)
         split = ({"model"} if model_split[k] else set()) | (set(daxes) if d is not None else set())
         if all(coords[a] == 0 for a in mesh.axis_names if a not in split):
             sq = _sum_squares(pieces[k])

@@ -167,6 +167,19 @@ with tempfile.TemporaryDirectory() as rdv:
     assert int(gopt.step) == 1 and bool(torch.isfinite(gloss)) and float(gnorm) > 0
     assert gstats.summary()["overflow"] == 0 and grid.calls["all_to_all/model"] > 0, grid.calls
     dist.destroy_process_group()
+# one EquiformerV2 training step on a (1, 1) grid (gloo, one rank): the mesh
+# gathers and segment sums with the channel split, ZeRO-1 moments; at world
+# 1 the one-device step's loss and norm
+from repro_torch.convert import graph_shard
+with tempfile.TemporaryDirectory() as rdv:
+    grid = init_grid_mesh(1, 1, "cpu", timeout_s=30, init_method=f"file://{rdv}/store")
+    mtg = gnn.train_graph(graph_shard(build_graph_data(32, 96, eq.d_in, geometric=True), grid,
+                                      device="cpu"), eq, mesh=grid)
+    mp, mo, mloss, mnorm = gnn_train_step(eq_params, steps.gnn_adamw_init(eq_params, eq, grid),
+                                          mtg, torch.arange(32) % 3, eq, use_kernels=False)
+    assert int(mo.step) == 1 and float(mloss) == float(tr_loss) and float(mnorm) == float(tr_norm)
+    assert grid.calls["all_to_all/model"] > 0 and grid.calls["reduce_scatter/data"] > 0, grid.calls
+    dist.destroy_process_group()
 lm4 = make_local_mesh(4)
 assert torch.equal(ring_all_reduce([torch.ones(3)] * 4, lm4)[2], torch.full((3,), 4.0))
 assert torch.equal(butterfly_compressed_all_reduce([torch.ones(3)] * 4, lm4)[0],
@@ -200,6 +213,7 @@ def _sources():
     yield os.path.join(REPO, "examples", "torch_train_gnn.py")
     yield os.path.join(REPO, "examples", "torch_train_lm.py")
     yield os.path.join(REPO, "examples", "torch_train_lm_mesh.py")
+    yield os.path.join(REPO, "examples", "torch_train_gnn_mesh.py")
 
 
 def test_no_source_imports_jax_or_repro():
@@ -218,7 +232,8 @@ def test_no_source_imports_jax_or_repro():
                 ("..", "..", "examples", "torch_train_lm.py"), ("mesh.py",),
                 ("launch", "mesh.py"), ("dist", "collectives.py"), ("models", "common.py"),
                 ("models", "transformer.py"), ("convert.py",), ("sharding.py",),
-                ("..", "..", "examples", "torch_train_lm_mesh.py")):
+                ("..", "..", "examples", "torch_train_lm_mesh.py"),
+                ("..", "..", "examples", "torch_train_gnn_mesh.py"), ("models", "gnn.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
