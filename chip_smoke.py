@@ -360,16 +360,19 @@ since the script started (all but the last line):
    float32 rows summed into the touched rows, row 0 of each field heavy).
 18. ``lm_train_plan`` / ``lm_train`` — for each of ``LM_TRAIN_CELLS``
    (phi4-mini-3.8b, minicpm3-4b with MLA, granite-moe-3b-a800m with MoE,
-   each line tagged with its ``path``) training at full width at
-   train_4k's sequence of 4,096, the batch cut to the largest at which
-   ``lm_micro_batches`` gives 1 (2, 1, 1), remat on, from
+   deepseek-v2-lite-16b with MLA and MoE, its depth cut to
+   ``LM_TRAIN_LAYERS``; each line tagged with its ``path``) training at
+   full width at train_4k's sequence of 4,096, the batch cut to the
+   largest at which ``lm_micro_batches`` gives 1 at the published depth
+   (2, 1, 1, 1), remat on, from
    ``token_batches(seed=0)``: 3 steps of ``launch.steps.lm_train_step``
    (AdamW at 3e-4 in place): losses, norms, seconds a step, peak GiB (under
    79.2), TFLOP/s of ``lm_flops`` and the launches a step
    (``flash_attention`` on the tensor cores twice a layer, forward and
    recompute, each keeping its log-sum-exp; ``flash_attention_bwd`` once a
-   layer, on the tensor cores, minicpm3's at (Dqk, Dv) = (96, 64);
-   ``segment_sum`` once, the embedding's gradient); for granite also each
+   layer, on the tensor cores, minicpm3's at (Dqk, Dv) = (96, 64),
+   deepseek's at (192, 128);
+   ``segment_sum`` once, the embedding's gradient); for the MoE ones also each
    layer's routed rows past their expert's window (``moe``) and whether
    every recompute routed as its forward; ``lm_train_profile``, one more
    step under ``torch.profiler``; ``lm_train_equal``, the next batch's loss
@@ -392,8 +395,10 @@ since the script started (all but the last line):
 19. ``kernel_check`` (``flash_attention_bwd``) — the attention backward
    against its plain version at the training shapes (q [2, 24, 4096, 128]
    bf16 over k/v [2, 8, 4096, 128]; minicpm3's q, k [1, 40, 4096, 96], v
-   [1, 40, 4096, 64]) and at edge cases (L 1, 17, 4,095; groups 1, 3, 8;
-   Dh 64 and 128; (96, 64) at L 4,095, 1,000 and 300; bf16 on the tensor
+   [1, 40, 4096, 64]; deepseek's q, k [1, 16, 4096, 192], v [1, 16,
+   4096, 128]) and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64
+   and 128; (96, 64) and (192, 128) at L 4,095 (group 1), 1,000 (group 3)
+   and 300 (minicpm3's 40 heads, deepseek's 16); bf16 on the tensor
    cores from the forward's log-sum-exp, float32 on the CUDA cores): every
    element of dQ, dK and dV within ``ref.flash_attention_bwd_limits`` of
    the plain version on the inputs in float32, two launches bitwise equal;
@@ -401,7 +406,7 @@ since the script started (all but the last line):
    which is within 1e-5 of ``torch.logsumexp``; with the kernel's, the
    plain backward's, SDPA's forward + backward and SDPA's backward-alone
    median ms beside the bound (five causal products at the bf16
-   tensor-core rate); a ``flash_kernels`` line with the five kernels'
+   tensor-core rate); a ``flash_kernels`` line with the six kernels'
    registers and spills (the tensor-core ones must not spill).
 
 Then a ``device`` line with the card's name and power limit (the
@@ -414,9 +419,10 @@ from 0; the three attention
 kernels' ``launches_by_path``: the five LM kernel serves, phi4, minicpm3,
 deepseek, granite and command_r, the four float32 gates' kernel serves,
 ``<path>_f32_gate`` (none for command_r), and ``lm_train``,
-``lm_train_minicpm3-4b``, ``lm_train_granite-moe-3b-a800m`` and ``lm_mesh``,
+``lm_train_minicpm3-4b``, ``lm_train_granite-moe-3b-a800m``,
+``lm_train_deepseek-v2-lite-16b`` and ``lm_mesh``,
 their sum in ``launches``; ``embedding_bag``'s ``dlrm_serve`` and
-``dlrm_train``; ``flash_attention_bwd``'s four LM training paths and
+``dlrm_train``; ``flash_attention_bwd``'s five LM training paths and
 ``launches_by_route``, ``tc`` or ``simt``),
 and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
@@ -567,8 +573,17 @@ LM_TRAIN_LIMIT = 2e-2
 # 1.30e9 bytes against the 2e9 target, a granite one's 4.03e8 against 5e8);
 # bf16 weights and gradients and float32 moments take 51 / 48 GB. Each as
 # (arch, its key in the kernels line's launches_by_path).
+# deepseek-v2-lite-16b (MLA at (Dqk, Dv) = (192, 128) + 64 experts, top-6, 2
+# shared, a dense first layer) at batch 1 too (an example saves 2 x 27 x
+# 4,096 x 2,048 bytes = 4.53e8 against 5e8); at 12 bytes a parameter its
+# embedding and head take 5.03 GB, the dense layer 0.97 GB and each MoE layer
+# 7.02 GB: 188 GB at its 27 layers, so its depth is cut to LM_TRAIN_LAYERS,
+# the most that fit (11: 76.2 GB, 70.95 GiB, before the step's working set;
+# 12 would take 77.49 GiB).
 LM_TRAIN_CELLS = ((LM_ARCH, "lm_train"), ("minicpm3-4b", "lm_train_minicpm3-4b"),
-                  ("granite-moe-3b-a800m", "lm_train_granite-moe-3b-a800m"))
+                  ("granite-moe-3b-a800m", "lm_train_granite-moe-3b-a800m"),
+                  ("deepseek-v2-lite-16b", "lm_train_deepseek-v2-lite-16b"))
+LM_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 11}
 # The sharded step on a (1, 1) grid: granite at full width, 4 of its 32 layers.
 LM_MESH_ARCH, LM_MESH_LAYERS = "granite-moe-3b-a800m", 4
 
@@ -2324,7 +2339,9 @@ def profiled(fn, kernels=()):
     """``fn()`` under ``torch.profiler``: its result, and wall time, summed
     device time of its kernels, idle share, the kernels that took most of
     it and, for each name in ``kernels``, the device seconds and launches
-    of every kernel whose name contains it."""
+    of every kernel whose name contains it. Read from the profiler's raw
+    events: its per-op tables (``key_averages()``) took ~100 s to build
+    after a 9-s DDSL batch, the raw events a second or two."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2334,22 +2351,37 @@ def profiled(fn, kernels=()):
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Kernels only: a CPU-side op also reports its kernels' device time, and
-    # "Command Buffer Full" marks a full launch queue, not device work.
-    dev = [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-           and not e.key.startswith("Command Buffer")]
-    busy = sum(s for _, s, _ in dev)
+    events = prof.profiler.kineto_results.events()
+    cuda = [e for e in events if e.device_type() == DeviceType.CUDA]
+    # host ops by correlation id: a kernel links to the op that launched it
+    # (a kernel launched outside any op, as the port's are, links to none)
+    ops = {e.correlation_id(): e.name() for e in events
+           if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0
+           and e.correlation_id() > 0 and not e.is_async()}
+    op_calls = {}
+    for name in ops.values():
+        op_calls[name] = op_calls.get(name, 0) + 1
+    # Kernels only: "Command Buffer Full" marks a full launch queue, not device work.
+    by_kernel, by_op = {}, {}
+    for e in cuda:
+        if e.name().startswith("Command Buffer") or e.is_async():
+            continue
+        sec = e.duration_ns() / 1e9
+        acc = by_kernel.setdefault(e.name(), [0.0, 0])
+        acc[0] += sec
+        acc[1] += 1
+        op = ops.get(e.linked_correlation_id())
+        if op is not None:
+            by_op[op] = by_op.get(op, 0.0) + sec
+    dev = [(k, sec, n) for k, (sec, n) in by_kernel.items() if sec > 0]
+    busy = sum(sec for _, sec, _ in dev)
     top = sorted(dev, key=lambda r: -r[1])[:12]
-    # device time of the kernels each host op launched itself (a kernel
-    # launched outside any op, as the port's are, is in "top" only)
-    by_op = sorted(((e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+    # device time of the kernels each host op launched itself
+    by_op = sorted(((k, sec, op_calls[k]) for k, sec in by_op.items() if sec > 0),
                    key=lambda r: -r[1])[:12]
     # the device timeline: the profiler may miss the first kernels after it
     # starts, so the kernel count and the span show what it saw
-    kern = [(e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+    kern = [(e.start_ns(), e.duration_ns()) for e in cuda]
     span = (max(a + d for a, d in kern) - min(a for a, _ in kern)) / 1e9 if kern else 0.0
     named = {k: {"s": sum(t for key, t, _ in dev if k in key),
                  "calls": sum(c for key, _, c in dev if k in key)} for k in kernels}
@@ -2358,8 +2390,8 @@ def profiled(fn, kernels=()):
                     "device_events": len(kern), "device_span_s": span,
                     "span_idle_share": max(0.0, 1 - sum(d for _, d in kern) / 1e9 / span)
                     if span else None,
-                    "top": [{"kernel": k[:90], "s": s, "calls": n} for k, s, n in top],
-                    "by_op": [{"op": k, "s": s, "calls": n} for k, s, n in by_op]}
+                    "top": [{"kernel": k[:90], "s": sec, "calls": n} for k, sec, n in top],
+                    "by_op": [{"op": k, "s": sec, "calls": n} for k, sec, n in by_op]}
 
 
 def profile_batch(pipe):
@@ -4342,9 +4374,13 @@ def lm_train_value_and_norm(params, tok, lab, cfg, use_kernels: bool):
     """One loss and gradient from the current state, without an update:
     (loss, global norm, each leaf's norm), the gradient freed."""
     from repro_torch.launch.steps import lm_value_and_grad
+    from repro_torch.optim.adamw import _sum_squares
 
     loss, grads = lm_value_and_grad(params, tok, lab, cfg, use_kernels=use_kernels)
-    leaf = {k: float(torch.linalg.vector_norm(g.float())) for k, g in grads.items()}
+    # the optimizer's sum of squares: a leaf over NORM_BLOCK_BYTES by blocks
+    # of rows (a whole float32 copy of deepseek's expert gradients, 6.88 GiB,
+    # would not fit beside its state)
+    leaf = {k: math.sqrt(float(_sum_squares(g))) for k, g in grads.items()}
     norm = math.sqrt(sum(x * x for x in leaf.values()))
     del grads
     free_device_memory()
@@ -4396,7 +4432,8 @@ def one_micro_batch(cfg, spec, seq: int) -> int:
 
 def lm_train_phase(arch: str, path: str):
     """``arch`` training at full width at train_4k's sequence (the batch cut
-    to the largest with one microbatch): LM_TRAIN_STEPS in-place AdamW steps
+    to the largest with one microbatch at the published depth; the depth
+    cut to ``LM_TRAIN_LAYERS`` where it names the arch): LM_TRAIN_STEPS in-place AdamW steps
     with remat, a profiled step, then the loss and gradient of the next
     batch with the kernels and with the plain versions from the same state.
     For MoE also each layer's rows past their expert's window and whether
@@ -4410,9 +4447,10 @@ def lm_train_phase(arch: str, path: str):
     from repro_torch.optim import adamw_init
 
     spec = get_arch(arch)
-    cfg = spec.config
+    published = spec.config
+    cfg = dataclasses.replace(published, n_layers=LM_TRAIN_LAYERS.get(arch, published.n_layers))
     s = LM_TRAIN_SEQ
-    b = one_micro_batch(cfg, spec, s)
+    b = one_micro_batch(published, spec, s)
     check(arch != LM_ARCH or b == LM_TRAIN_BATCH, f"{path}: batch {b} != {LM_TRAIN_BATCH}")
     shape = dataclasses.replace(spec.shape("train_4k"), global_batch=b)
     n_micro = lm_micro_batches(cfg, b, s)
@@ -4434,6 +4472,7 @@ def lm_train_phase(arch: str, path: str):
     widths = ((cfg.qk_nope + cfg.qk_rope, cfg.v_head) if cfg.attn == "mla"
               else (cfg.d_head, cfg.d_head))
     emit({"phase": "lm_train_plan", "path": path, "arch": cfg.name,
+          "layers": cfg.n_layers, "layers_published": published.n_layers,
           "params": cfg.param_count(), "active_params": cfg.active_param_count(),
           "batch": b, "seq": s, "global_batch_published": spec.shape("train_4k").global_batch,
           "n_micro": n_micro, "remat": cfg.remat, "dtype": cfg.dtype, "lr": LM_TRAIN_LR,
@@ -4674,9 +4713,10 @@ def attention_bwd_work(b, hq, hkv, l, dh, elem, dv=None):
 
 def flash_attention_bwd_phase(train_batch: int):
     """The attention backward kernels against their plain version at the LM
-    training shapes (phi4-mini's, and minicpm3-4b's MLA at (Dqk, Dv) = (96,
-    64)) and at edge cases (L 1, 17, 4,095; groups 1, 3, 8; Dh 64 and 128;
-    (96, 64) at L 4,095, 1,000 and 300; bf16 on the tensor cores from the
+    training shapes (phi4-mini's, and MLA's at (Dqk, Dv) = (96, 64),
+    minicpm3-4b, and (192, 128), deepseek-v2-lite-16b) and at edge cases (L
+    1, 17, 4,095; groups 1, 3, 8; Dh 64 and 128; (96, 64) and (192, 128) at
+    L 4,095, 1,000 and 300; bf16 on the tensor cores from the
     forward's log-sum-exp, float32 on the CUDA cores), each element of dQ, dK and dV within
     ``ref.flash_attention_bwd_limits``, two launches bitwise equal; the
     forward's output bitwise the same with and without the log-sum-exp, and
@@ -4703,7 +4743,11 @@ def flash_attention_bwd_phase(train_batch: int):
              "group8_dh128": (1, 16, 2, 300, 128, 128, (bf16,)),
              "mla_l4095_group1": (1, 4, 4, 4095, 96, 64, (bf16,)),
              "mla_l1000_group3": (2, 6, 2, 1000, 96, 64, (bf16,)),
-             "mla_l300": (1, 40, 40, 300, 96, 64, (bf16,))}
+             "mla_l300": (1, 40, 40, 300, 96, 64, (bf16,)),
+             "mla_deepseek_train": (1, 16, 16, LM_TRAIN_SEQ, 192, 128, (bf16,)),
+             "mla192_l4095_group1": (1, 4, 4, 4095, 192, 128, (bf16,)),
+             "mla192_l1000_group3": (2, 6, 2, 1000, 192, 128, (bf16,)),
+             "mla192_l300": (1, 16, 16, 300, 192, 128, (bf16,))}
     out = []
     for name, (b, hq, hkv, l, dh, dv, dtypes) in cases.items():
         for dtype in dtypes:
@@ -4784,9 +4828,10 @@ def flash_attention_bwd_phase(train_batch: int):
     attrs = {f"{kind}_dh{dh}": kernel_attributes(kind, dh)
              for kind in ("tc", "simt") for dh in (64, 128)}
     attrs["tc_dqk96_dv64"] = kernel_attributes("tc", 96, 64)
+    attrs["tc_dqk192_dv128"] = kernel_attributes("tc", 192, 128)
     emit({"phase": "flash_kernels", "flash_attention_bwd": attrs})
     # the tensor-core kernels (the training paths') keep everything in registers
-    for key in ("tc_dh64", "tc_dh128", "tc_dqk96_dv64"):
+    for key in ("tc_dh64", "tc_dh128", "tc_dqk96_dv64", "tc_dqk192_dv128"):
         check(all(a["local_bytes"] == 0 for a in attrs[key].values()),
               f"flash_attention_bwd {key} spills: {attrs[key]}")
     return out
@@ -5137,8 +5182,9 @@ def main() -> None:
 
     # 17. dlrm-rm2 training; launches counted over the kernel run's steps
     dlrm_train_counts, bag_case, table_case = dlrm_train_phase()
-    # 18. LM training: phi4-mini-3.8b, minicpm3-4b (MLA) and
-    #     granite-moe-3b-a800m (MoE); launches counted over each one's steps
+    # 18. LM training: phi4-mini-3.8b, minicpm3-4b (MLA), granite-moe-3b-a800m
+    #     (MoE) and deepseek-v2-lite-16b (MLA + MoE, 11 of 27 layers);
+    #     launches counted over each one's steps
     train_counts = {}
     for arch, path in LM_TRAIN_CELLS:
         train_counts[path], tokens = lm_train_phase(arch, path)

@@ -1,7 +1,7 @@
 // The backward of causal grouped-query attention on Hopper's tensor cores
 // (sm_90a): bf16, (Dqk, Dv) (64, 64), (128, 128) or MLA's (96, 64)
-// (minicpm3-4b: V at its own width), query offset 0, as many queries as
-// keys.
+// (minicpm3-4b) and (192, 128) (deepseek-v2-lite-16b), V at its own width,
+// query offset 0, as many queries as keys.
 //
 // Differentiates the function of the TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_pallas) as the LM training step calls it; the JAX
@@ -30,14 +30,17 @@
 // warpgroups of 64 rows and one producer warpgroup: one thread of it
 // streams tiles by TMA (the forward's 3-D tensor maps [b * heads, rows,
 // width], 64 x 64 boxes, 128-byte swizzle; a box past l is zero-filled) into
-// a ring of four stages with full and empty mbarriers, and the warpgroup
-// gives its registers to the consumers (setmaxnreg 24 against 240). A row
+// a ring of four stages (three at (192, 128), where four would take
+// 248,904 / 246,856 bytes of shared memory in (b) / (a) against a block's
+// 232,448) with full and empty mbarriers, and the warpgroup gives its
+// registers to the consumers (setmaxnreg 24 against 240). A row
 // of Q or K takes ceil(dqk / 64) boxes, of dO or V dv / 64: at dqk 96 the
 // second box starts at column 64 and lies half past the tensor map's 96
 // columns, TMA zero-fills columns 96-127 without reading memory, and the
 // whole box's bytes count toward the stage's transaction bytes (as the
 // forward, flash_attention_tc.cu). S and dP then run dqk / 16 and dv / 16
-// k-steps, and the zero half is never multiplied.
+// k-steps, and the zero half is never multiplied. At dqk 192 a row is three
+// whole boxes: S runs 12 k-steps, dP 8.
 // (a) flash_attention_bwd_tc_dq_kernel, one block per (b * hq, 128 query
 //     rows), the latest rows first. Q and dO of its rows are resident; K
 //     and V tiles of 64 keys stream up to the diagonal. Each consumer
@@ -60,6 +63,21 @@
 //     a pass: both at once, with S^T, dP^T and the fragments, left ptxas
 //     spilling at Dh 128 (and a kernel that spilled under setmaxnreg
 //     faulted). The group's heads are summed in the block in a fixed order.
+// At (192, 128) dQ and dK are computed in two column chunks, 128 then 64,
+// each a pass over the streamed tiles that recomputes S and dP (two more
+// products a tile in each kernel: (a) runs S, dP twice and dQ once, (b) S
+// three times, dP twice, dV twice and dK once, 2.5x the function's work).
+// Whole, a thread's dQ or dK accumulator is 96 floats beside S, dP (32
+// each) and 16 fragment registers: ptxas holds the consumers to the
+// launch's 168 registers (65,536 / 384), not setmaxnreg's 240, and
+// spilled (kernel_attributes("tc", 192, 128) on the H100: 168 / 176 local
+// bytes a thread in (a) / (b), and it serialized the wgmmas). A chunk of
+// 128 holds the registers of the (128, 128) instantiation, which spills
+// nothing. Chunks of 96 would not do: the second would start 64 bytes into
+// a 128-byte swizzle row of the MN-major B, not on a whole block. With the
+// chunks (and product_ss's descriptors remade a call) kernel_attributes
+// reads (a) 168 registers, 0 local bytes, 205,880 dynamic shared bytes;
+// (b) 168, 0, 207,416.
 // Only a tile that crosses the diagonal or l is masked; a warpgroup skips
 // the tiles it sees nothing of (and releases them once loaded).
 //
@@ -73,11 +91,15 @@
 // hq * l (l + 1) / 2 FLOP a column: S, dQ and dK over dqk, dP and dV over
 // dv (3 * dqk + 2 * dv columns); this design runs nine (S in (a) and both
 // passes of (b), dP in both kernels, dV twice for the split): 3 dqk + 2 dv
-// columns more, 1.8x the work at dqk = dv, 2.0x at (96, 64).
+// columns more, 1.8x the work at dqk = dv, 2.0x at (96, 64); at (192, 128)
+// the chunks run S and dP once more in each kernel, 2,112 columns against
+// the function's 832, 2.5x.
 // phi4-mini's training shape (b 2, hq 24, l 4,096, dh 128) needs 0.52 TFLOP,
 // 0.52 ms at the card's 989 TFLOP/s bf16 peak; minicpm3-4b's (b 1, hq 40,
-// l 4,096, (96, 64)) 832 FLOP a pair and head, 0.28 TFLOP, 0.283 ms. Their
-// times are in PERF.md (chip_smoke.py, kernel_check "flash_attention_bwd").
+// l 4,096, (96, 64)) 832 FLOP a pair and head, 0.28 TFLOP, 0.283 ms;
+// deepseek-v2-lite-16b's (b 1, hq 16, l 4,096, (192, 128)) 1,664 FLOP a
+// pair and head, 0.223 TFLOP, 0.226 ms. Their times are in PERF.md
+// (chip_smoke.py, kernel_check "flash_attention_bwd").
 
 #include "hopper.cuh"
 
@@ -88,8 +110,8 @@ constexpr int kConsumers = 128 * kWGs;
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
 constexpr int kRows = 64 * kWGs;          // query rows (a) or keys (b) a block owns
 constexpr int kTile = 64;                 // keys (a) or query rows (b) a streamed tile
-constexpr int kStages = 4;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kMaxSmem = 232448;          // dynamic shared bytes a block may have
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared bytes: two resident bf16 tiles, [kRows, DQK] (Q, or K) then
@@ -98,10 +120,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // (128-byte) blocks, all multiples of the swizzle's 1024-byte period; in
 // (b) then each stage's kTile LSE and kTile D floats of its Q rows; the
 // mbarriers (full and empty per stage and the resident tiles'); + 1024 to
-// align the base.
+// align the base. Four stages where they fit, else three ((192, 128)).
 template <int DQK, int DV, bool kWithStats>
 struct Smem {
-  static_assert(DV % 64 == 0 && DV <= DQK && DQK % 16 == 0 && DQK <= 128, "unsupported widths");
+  static_assert(DV % 64 == 0 && DV <= DQK && DQK % 16 == 0 && DQK <= 192, "unsupported widths");
   static constexpr int kQKBlocks = (DQK + 63) / 64;  // 64-column blocks of a Q or K row
   static constexpr int kVBlocks = DV / 64;           // of a dO or V row
   static constexpr int kRes1 = kRows * kQKBlocks * 128;
@@ -109,10 +131,28 @@ struct Smem {
   static constexpr int kT1 = kTile * kQKBlocks * 128;
   static constexpr int kT2 = kTile * kVBlocks * 128;
   static constexpr int kStage = kT1 + kT2;
-  static constexpr int kStatBytes = 2 * kTile * 4;  // a stage's LSE and D
+  static constexpr int kStatBytes = kWithStats ? 2 * kTile * 4 : 0;  // a stage's LSE and D
+  static constexpr int kFixed = kRes1 + kRes2 + 8 + 1024;  // resident tiles, their mbarrier, alignment
+  static constexpr int kPerStage = kStage + kStatBytes + 16;  // and two mbarriers a stage
+  static constexpr int kStages = kFixed + 4 * kPerStage <= kMaxSmem ? 4 : 3;
   static constexpr int kStats = kRes1 + kRes2 + kStages * kStage;
-  static constexpr int kBars = kStats + (kWithStats ? kStages * kStatBytes : 0);
+  static constexpr int kBars = kStats + kStages * kStatBytes;
   static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+// dQ and dK in column chunks of whole 64-column blocks, at most 128 wide
+// (a chunk's float32 accumulator within the consumers' registers): one at
+// every width but 192, where 128 then 64. Chunk c is a pass over the
+// streamed tiles.
+template <int DQK>
+struct Chunks {
+  static constexpr int kCount = DQK > 128 ? 2 : 1;
+  static constexpr int kFirst = DQK > 128 ? 128 : DQK;  // the first chunk's columns
+};
+template <int N>
+struct Width {
+  static constexpr int value = N;
 };
 
 // Each k-step of a [64 rows, K] x [kTile rows, K]^T product over K columns:
@@ -120,6 +160,10 @@ struct Smem {
 // warpgroup wg's 64 from row 64 wg), B from the streamed tile at `b`.
 template <int K>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b, int wg) {
+  // Over 128 columns the compiler would hold the resident tile's k-step
+  // descriptors (loop invariants) live across every pass: 40 registers at
+  // (192, 128), which spilled in (b). Hidden from it, they are remade a call.
+  if constexpr (K > 128) asm volatile("" : "+r"(a));
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;
@@ -159,10 +203,11 @@ __device__ __forceinline__ void to_fragments(const float (&x)[32], uint32_t (&f)
     }
 }
 
-// Writes scale * acc of this thread's two rows, row0 and row0 + 8, of a
-// [rows, N] bf16 matrix at p, rows at or past n left out.
+// Writes scale * acc of this thread's two rows, row0 and row0 + 8, into N
+// columns at p of a bf16 matrix of rows ld elements apart, rows at or past
+// n left out.
 template <int N>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* p, const float (&acc)[N / 2],
+__device__ __forceinline__ void store_rows(__nv_bfloat16* p, int ld, const float (&acc)[N / 2],
                                            int row0, int n, float scale, int t4) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -170,7 +215,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* p, const float (&acc)[
     if (row >= n) continue;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + static_cast<size_t>(row) * N + 8 * j + 2 * t4) =
+      *reinterpret_cast<__nv_bfloat162*>(p + static_cast<size_t>(row) * ld + 8 * j + 2 * t4) =
           __floats2bfloat162_rn(scale * acc[4 * j + 2 * hh], scale * acc[4 * j + 2 * hh + 1]);
   }
 }
@@ -208,6 +253,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                      int ld, __nv_bfloat16* __restrict__ dq, int hq, int group,
                                      int l, float scale_log2, float scale) {
   using S = Smem<DQK, DV, false>;
+  using C = Chunks<DQK>;
+  constexpr int kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base, sdo = base + S::kRes1, skv = base + S::kRes1 + S::kRes2;
@@ -240,9 +287,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect(rbar, S::kRes1 + S::kRes2);
       load_resident<S::kQKBlocks>(sq, tq, q0, bh, rbar);
       load_resident<S::kVBlocks>(sdo, tdo, q0, bh, rbar);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(empty(s), ((t / kStages) - 1) & 1);
+      for (int it = 0; it < C::kCount * ntiles; ++it) {  // the tiles once a chunk
+        const int s = it % kStages, t = it % ntiles;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
         const uint32_t ks = skv + s * S::kStage;
         mbar_expect(full(s), S::kStage);
         load_tile<S::kQKBlocks>(ks, tk, t * kTile, kvh, full(s));
@@ -290,55 +337,62 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row < ld && t4 == 0) delta[soff + row] = acc;
   }
 
-  float acc[DQK / 2];
-#pragma unroll
-  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
   mbar_wait(rbar, 0);
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int stage = it % kStages;
-    mbar_wait(full(stage), (it / kStages) & 1);
-    if (it < ntiles_w) {  // warpgroup-uniform: some key of the tile is visible
-      const int k0 = it * kTile;
-      const uint32_t ks = skv + stage * S::kStage, vs = ks + S::kT1;
-      float s[32], dp[32];
-      wgmma_fence();
-      product_ss<DQK>(s, sq, ks, wg);
-      product_ss<DV>(dp, sdo, vs, wg);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(s);
-      fence_regs(dp);
+  // dQ's columns [c0, c0 + N): pass `pass` over the K / V tiles
+  auto dq_chunk = [&](auto width, int c0, int pass) {
+    constexpr int N = decltype(width)::value;
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      const int it = pass * ntiles + t, stage = it % kStages;
+      mbar_wait(full(stage), (it / kStages) & 1);
+      if (t < ntiles_w) {  // warpgroup-uniform: some key of the tile is visible
+        const int k0 = t * kTile;
+        const uint32_t ks = skv + stage * S::kStage, vs = ks + S::kT1;
+        float s[32], dp[32];
+        wgmma_fence();
+        product_ss<DQK>(s, sq, ks, wg);
+        product_ss<DV>(dp, sdo, vs, wg);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(s);
+        fence_regs(dp);
 
-      // dS = P (dP - D), P = 2^(S scale log2 e - LSE); a tile crossing the
-      // diagonal of the warpgroup's first row is masked (keys past a row)
-      const bool masked = k0 + kTile - 1 > r0;
+        // dS = P (dP - D), P = 2^(S scale log2 e - LSE); a tile crossing the
+        // diagonal of the warpgroup's first row is masked (keys past a row)
+        const bool masked = k0 + kTile - 1 > r0;
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
+        for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
+          for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * hh + c;
-            float p = ex2(fmaf(s[e], scale_log2, -ls[hh]));
-            if (masked && k0 + 8 * j + 2 * t4 + c > row0 + 8 * hh) p = 0.f;
-            s[e] = p * (dp[e] - dd[hh]);
-          }
-      uint32_t f[kTile / 16][4];
-      to_fragments(s, f);
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * hh + c;
+              float p = ex2(fmaf(s[e], scale_log2, -ls[hh]));
+              if (masked && k0 + 8 * j + 2 * t4 + c > row0 + 8 * hh) p = 0.f;
+              s[e] = p * (dp[e] - dd[hh]);
+            }
+        uint32_t f[kTile / 16][4];
+        to_fragments(s, f);
 
-      // dQ += dS K, K as the MN-major B
-      fence_regs(acc);
-      wgmma_fence();
+        // dQ += dS K, the chunk's columns of K as the MN-major B
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) product_rs<DQK>(acc, f[kk], ks, kk);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc);
+        for (int kk = 0; kk < kTile / 16; ++kk)
+          product_rs<N>(acc, f[kk], ks + (c0 / 64) * kTile * 128, kk);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+      }
+      mbar_arrive(empty(stage));  // this thread is done with the stage
     }
-    mbar_arrive(empty(stage));  // this thread is done with the stage
-  }
-  store_rows<DQK>(dq + off * DQK, acc, row0, l, scale, t4);
+    store_rows<N>(dq + off * DQK + c0, DQK, acc, row0, l, scale, t4);
+  };
+  dq_chunk(Width<C::kFirst>{}, 0, 0);
+  if constexpr (C::kCount == 2) dq_chunk(Width<DQK - C::kFirst>{}, C::kFirst, 1);
   }
 }
 
@@ -356,8 +410,9 @@ __device__ __forceinline__ float2 p_pair(float s0, float s1, float2 lse, bool ma
   return p;
 }
 
-// (b) dV, then dK: two passes over the streamed tiles, each holding one
-// float32 accumulator (dV and dK at once spill at Dh 128).
+// (b) dV, then dK: two passes over the streamed tiles (three at Dqk 192, dK
+// in two chunks), each holding one float32 accumulator (dV and dK at once
+// spill at Dh 128).
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -370,6 +425,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                        __nv_bfloat16* __restrict__ dv, int hq, int group, int l,
                                        int ld, float scale_log2, float scale) {
   using S = Smem<DQK, DV, true>;
+  using C = Chunks<DQK>;
+  constexpr int kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
@@ -404,10 +461,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect(rbar, S::kRes1 + S::kRes2);
       load_resident<S::kQKBlocks>(sk, tk, kb0, bkv, rbar);
       load_resident<S::kVBlocks>(sv, tv, kb0, bkv, rbar);
-      for (int it = 0; it < 2 * ntiles; ++it) {
-        const int s = it % kStages;
+      for (int it = 0; it < (1 + C::kCount) * ntiles; ++it) {  // dV's pass, dK's chunks
+        const int s = it % kStages, t = it % ntiles;
         if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
-        const int t = it < ntiles ? it : it - ntiles;
         const int hg = t / nq, q0 = kb0 + (t - hg * nq) * kTile;
         const uint32_t qs = sst + s * S::kStage, st = base + S::kStats + s * S::kStatBytes;
         mbar_expect(full(s), S::kStage + S::kStatBytes);
@@ -479,16 +535,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       mbar_arrive(empty(stage));
     }
-    store_rows<DV>(dv + off * DV, adv, key0, l, 1.f, t4);
+    store_rows<DV>(dv + off * DV, DV, adv, key0, l, 1.f, t4);
   }
 
-  // pass 2: dK += dS^T Q, dS^T = P^T (dP^T - D), dP^T = V dO^T
-  {
-    float adk[DQK / 2];
+  // pass 2 (and 3): dK += dS^T Q, dS^T = P^T (dP^T - D), dP^T = V dO^T, dK's
+  // columns [c0, c0 + N) in pass `pass`
+  auto dk_chunk = [&](auto width, int c0, int pass) {
+    constexpr int N = decltype(width)::value;
+    float adk[N / 2];
 #pragma unroll
-    for (int i = 0; i < DQK / 2; ++i) adk[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) adk[i] = 0.f;
     for (int t = 0; t < ntiles; ++t) {
-      const int it = ntiles + t, stage = it % kStages;
+      const int it = pass * ntiles + t, stage = it % kStages;
       mbar_wait(full(stage), (it / kStages) & 1);
       const int hg = t / nq, q0 = kb0 + (t - hg * nq) * kTile;
       if (kw < l && q0 + kTile - 1 >= kw) {
@@ -524,15 +582,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(adk);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) product_rs<DQK>(adk, f[kk], qs, kk);
+        for (int kk = 0; kk < kTile / 16; ++kk)
+          product_rs<N>(adk, f[kk], qs + (c0 / 64) * kTile * 128, kk);
         wgmma_commit();
         wgmma_wait0();
         fence_regs(adk);
       }
       mbar_arrive(empty(stage));
     }
-    store_rows<DQK>(dk + off * DQK, adk, key0, l, scale, t4);
-  }
+    store_rows<N>(dk + off * DQK + c0, DQK, adk, key0, l, scale, t4);
+  };
+  dk_chunk(Width<C::kFirst>{}, 0, 1);
+  if constexpr (C::kCount == 2) dk_chunk(Width<DQK - C::kFirst>{}, C::kFirst, 2);
   }
 }
 
@@ -606,7 +667,7 @@ int attributes(int which, int* out) {
 
 // q, dq: [b, hq, l, dqk]; o, dout: [b, hq, l, dv]; k, dk: [b, hkv, l, dqk];
 // v, dv: [b, hkv, l, dv], all contiguous bfloat16, 16-byte aligned; (dqk,
-// dv) one of (64, 64), (128, 128), (96, 64); lse: the forward's float32 LSE
+// dv) one of (64, 64), (128, 128), (96, 64), (192, 128); lse: the forward's float32 LSE
 // (flash_attention_tc_launch's), b * hq rows of ld floats; delta: float32
 // scratch of the same layout; both 16-byte aligned, ld >= l a multiple of
 // 64 (whole TMA boxes, each starting 16-byte aligned). Causal with query
@@ -623,6 +684,7 @@ extern "C" int flash_attention_bwd_tc_launch(const void* q, const void* k, const
   if (dqk == 64 && dv_cols == 64) return launch<64, 64>(FAB_ARGS);
   if (dqk == 128 && dv_cols == 128) return launch<128, 128>(FAB_ARGS);
   if (dqk == 96 && dv_cols == 64) return launch<96, 64>(FAB_ARGS);
+  if (dqk == 192 && dv_cols == 128) return launch<192, 128>(FAB_ARGS);
 #undef FAB_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -634,5 +696,6 @@ extern "C" int flash_attention_bwd_tc_attributes(int dqk, int dv, int which, int
   if (dqk == 64 && dv == 64) return attributes<64, 64>(which, out);
   if (dqk == 128 && dv == 128) return attributes<128, 128>(which, out);
   if (dqk == 96 && dv == 64) return attributes<96, 64>(which, out);
+  if (dqk == 192 && dv == 128) return attributes<192, 128>(which, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

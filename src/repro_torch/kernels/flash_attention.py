@@ -43,7 +43,7 @@ zero-padded to Dqk by this wrapper (one ``F.pad``) and their output sliced
 back to Dv, so the zero columns cost bytes and FLOP on those routes only.
 
 The backward's route, :func:`bwd_route`, is ``"tc"`` (bf16, ``(Dqk, Dv)``
-in :data:`BWD_WIDTHS`: (64, 64), (128, 128) and minicpm3-4b's MLA (96, 64);
+in :data:`BWD_WIDTHS`: (64, 64), (128, 128) and MLA's (96, 64) and (192, 128);
 ``csrc/flash_attention_bwd_tc.cu``, from the forward's log-sum-exp) or
 ``"simt"`` (float32, Dqk = Dv of 64 or 128: ``csrc/flash_attention_bwd.cu``).
 
@@ -72,7 +72,7 @@ DECODE_ROWS = 16  # Lq up to this takes the decode kernel
 # each), and those the tensor-core backward is built for; the float32
 # backward takes Dqk = Dv of BWD_SIMT_DIMS
 TC_WIDTHS = ((64, 64), (128, 128), (96, 64), (192, 128))
-BWD_WIDTHS = ((64, 64), (128, 128), (96, 64))
+BWD_WIDTHS = ((64, 64), (128, 128), (96, 64), (192, 128))
 BWD_SIMT_DIMS = (64, 128)
 LSE_ROW_ALIGN = 64  # the log-sum-exp's rows: whole boxes of the backward's TMA loads
 DECODE_BLOCK_ROWS = 8  # query rows a decode block holds at most

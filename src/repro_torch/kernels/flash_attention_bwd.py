@@ -13,8 +13,9 @@ heads inside the block, the causal tiles skipped. Deterministic, no
 atomics. :func:`~repro_torch.kernels.flash_attention.bwd_route` picks the
 kernels:
 
-- ``"tc"`` — bf16, ``(Dqk, Dv)`` (64, 64), (128, 128) or minicpm3-4b's
-  MLA (96, 64) (V at its own width): the products on the tensor cores
+- ``"tc"`` — bf16, ``(Dqk, Dv)`` (64, 64), (128, 128) or MLA's (96, 64)
+  (minicpm3-4b) and (192, 128) (deepseek-v2-lite-16b), V at its own width:
+  the products on the tensor cores
   (``wgmma``, tiles by TMA), P from the forward's log-sum-exp
   (``flash_attention_cuda(..., return_lse=True)``), P split into bf16
   ``hi + lo`` for dV and dS rounded once to bf16 for dQ and dK. Counted in

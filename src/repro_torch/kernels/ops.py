@@ -275,7 +275,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     (:class:`_FlashAttention`): on the card the backward is the
     ``flash_attention_bwd`` kernels (causal, offset 0, ``Lq = Lk``, the
     route :func:`~repro_torch.kernels.flash_attention.bwd_route` names: bf16
-    at ``(Dqk, Dv)`` (64, 64), (128, 128) and MLA's (96, 64) on the tensor
+    at ``(Dqk, Dv)`` (64, 64), (128, 128) and MLA's (96, 64), (192, 128) on the tensor
     cores, float32 at Dqk = Dv of 64 or 128; it raises on anything else, a
     float32 MLA gradient among them), with ``use_kernels=False`` the plain
     :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref` (any Dv)."""

@@ -12,7 +12,7 @@ Each step is :func:`repro_torch.launch.steps.lm_train_step` (one batch, no
 microbatches, as the JAX driver's step) at the warm-up cosine rate
 (peak 3e-4, 10 warm-up steps). On the card the attention runs the CUDA
 kernels forward and backward (MLA's at its own V width, (96, 64) for
-minicpm3-4b) and the embedding's backward the ``segment_sum`` kernel; MoE
+minicpm3-4b, (192, 128) for deepseek-v2-lite-16b) and the embedding's backward the ``segment_sum`` kernel; MoE
 layers take the routed sum JAX trains with; ``--device cpu`` runs the
 kernels' plain versions. Without a card the default device raises (so does
 a float32 MLA gradient on the card: no kernel takes it).

@@ -35,6 +35,9 @@ Tree = Dict[str, torch.Tensor]
 # (read when it is called): its float32 temporaries stay a few times this
 # whatever the leaf's size.
 BLOCK_BYTES = 1 << 28
+# Bytes of float32 over which the gradient norm sums a leaf by blocks of rows
+# (``_sum_squares``), in every AdamW function alike.
+NORM_BLOCK_BYTES = 1 << 30
 
 
 @dataclasses.dataclass
@@ -61,7 +64,7 @@ def global_norm_clip(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
     """The gradients scaled by ``min(1, max_norm / (norm + 1e-9))``, each
     in its own type, and the float32 global norm before scaling."""
     keys = sorted(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float())) for k in keys))
+    norm = torch.sqrt(sum(_sum_squares(grads[k]) for k in keys))
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return {k: (grads[k].float() * scale).to(grads[k].dtype) for k in keys}, norm
 
@@ -94,7 +97,14 @@ def adamw_update(params: Tree, grads: Tree, state: AdamWState,
 def _sum_squares(g: torch.Tensor) -> torch.Tensor:
     """``torch.sum(torch.square(g.float()))``, squaring in place where
     ``g.float()`` is a copy (a bf16 leaf): the same float32 products and
-    the same reduction, one float32 copy of the leaf fewer."""
+    the same reduction, one float32 copy of the leaf fewer. A leaf of more
+    than :data:`NORM_BLOCK_BYTES` of float32 is summed a block of rows at a
+    time (each within it, or one row), the blocks' sums added in order: its
+    whole float32 copy would be the step's largest temporary (6.88 GiB for
+    deepseek-v2-lite-16b's expert weights at 11 layers)."""
+    if 4 * g.numel() > NORM_BLOCK_BYTES and g.dim() > 0 and g.shape[0] > 1:
+        rows = max(1, NORM_BLOCK_BYTES // (4 * (g.numel() // g.shape[0])))
+        return sum(_sum_squares(g[i:i + rows]) for i in range(0, g.shape[0], rows))
     x = g.float()
     return torch.sum(x.square_() if x.data_ptr() != g.data_ptr() else torch.square(x))
 
@@ -112,7 +122,8 @@ def adamw_update_(params: Tree, grads: Tree, state: AdamWState,
 
     The same float32 arithmetic in the same order, leaf by leaf in sorted-
     key order, so the results are :func:`adamw_update`'s bit for bit. The
-    norm sums each leaf whole (a blocked sum would round otherwise); the
+    norm sums each leaf as :func:`global_norm_clip` does (``_sum_squares``:
+    whole, or over :data:`NORM_BLOCK_BYTES` of float32 by blocks of rows); the
     clip and the update, which are elementwise, go a block of rows at a
     time, each block spanning at most :data:`BLOCK_BYTES` of float32, so the
     temporaries stay a few blocks whatever the leaf's size.
@@ -176,8 +187,10 @@ def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
     (:func:`adamw_init_zero1`). Leaf by leaf in sorted order, the gradient
     is summed in float32 over the data axes, reduce-scattered into this
     rank's slice of ``data_dims[k]`` (all-reduced whole where that is
-    ``None``), divided by their size and cast to the leaf's type: the
-    average over the data ranks (the LM's batch split). With ``grad_axes``
+    ``None``; a leaf over :data:`BLOCK_BYTES` of float32 a block of rows of
+    another dimension at a time), divided by their size and cast to the
+    leaf's type: the average over the data ranks (the LM's batch split).
+    With ``grad_axes``
     (the data axes among them) the gradient is instead summed over those
     axes and not divided: a GNN's, whose graph is split over every axis,
     so that each rank holds a share of the sum. The norm's sum of squares counts each
@@ -194,20 +207,38 @@ def adamw_update_zero1_(params: Tree, grads: Tree, state: AdamWState,
     coords = mesh.coords(mesh.rank)
     views, pieces = {}, {}
     share = None
-    for k in sorted(params):
-        g, d, p = grads.pop(k), data_dims[k], params[k]
+
+    def reduced(g, d, dtype):
         acc = g.to(torch.float32, copy=True).contiguous()
         if d is None:
             acc = mesh.all_reduce(acc, grad_axes)
-            views[k] = p
         else:
             acc = mesh.reduce_scatter(acc, daxes, d)
             if rest:
                 acc = mesh.all_reduce(acc, rest)
+        return (acc / n if average else acc).to(dtype)
+
+    for k in sorted(params):
+        g, d, p = grads.pop(k), data_dims[k], params[k]
+        if d is None:
+            views[k] = p
+        else:
             width = p.shape[d] // n
             views[k] = p.narrow(d, r * width, width)
+        # a leaf of more than BLOCK_BYTES of float32 goes a block of rows of
+        # another dimension at a time (the same sums, element by element):
+        # its whole float32 copy (8.94 GiB for deepseek-v2-lite-16b's expert
+        # leaves at (2, 2)) would not fit beside the state
+        j = next((i for i in range(g.dim()) if i != d and g.shape[i] > 1), None)
+        if j is None or 4 * g.numel() <= BLOCK_BYTES:
+            pieces[k] = reduced(g, d, p.dtype)
+        else:
+            rows = max(1, BLOCK_BYTES // (4 * (g.numel() // g.shape[j])))
+            pieces[k] = torch.empty(views[k].shape, dtype=p.dtype, device=g.device)
+            for i in range(0, g.shape[j], rows):
+                m = min(rows, g.shape[j] - i)
+                pieces[k].narrow(j, i, m).copy_(reduced(g.narrow(j, i, m), d, p.dtype))
         del g
-        pieces[k] = (acc / n if average else acc).to(p.dtype)
         split = ({"model"} if model_split[k] else set()) | (set(daxes) if d is not None else set())
         if all(coords[a] == 0 for a in mesh.axis_names if a not in split):
             sq = _sum_squares(pieces[k])

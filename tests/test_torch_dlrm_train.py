@@ -274,3 +274,27 @@ def test_dlrm_rows_blocked_like_the_tables(monkeypatch):
     n2 = adamw_update_(p, g, o2, 1e-3)
     assert torch.equal(n, n2) and torch.equal(want["tables"], p["tables"])
     assert torch.equal(o.mu["tables"], o2.mu["tables"])
+
+
+def test_norm_of_a_leaf_over_the_norm_block_sums_its_blocks(monkeypatch):
+    """Past ``NORM_BLOCK_BYTES`` of float32 a leaf's squares are summed a
+    block of rows at a time, the blocks' sums added in order, in the
+    functional and the in-place AdamW alike (bit for bit), and the norm
+    stays within float32 rounding of the whole-leaf sum."""
+    rng = np.random.default_rng(7)
+    p = {"w": torch.from_numpy(rng.normal(size=(10, 30, 4)).astype(np.float32)).to(torch.bfloat16),
+         "b": torch.from_numpy(rng.normal(size=(5,)).astype(np.float32))}
+    g = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)).to(v.dtype)
+         for k, v in p.items()}
+    whole = torch.sqrt(sum(torch.sum(torch.square(g[k].float())) for k in sorted(g)))
+    monkeypatch.setattr(adamw_module, "NORM_BLOCK_BYTES", 3 * 30 * 4 * 4)   # three rows a block
+    want = torch.sqrt(sum(torch.sum(torch.square(g["w"][i:i + 3].float()))
+                          for i in range(0, 10, 3)) + torch.sum(torch.square(g["b"])))
+    p_fun, o_fun, n_fun = adamw_update(dict(p), dict(g), adamw_init(p), 1e-3)
+    p_inp, g_inp, o_inp = ({k: v.clone() for k, v in t.items()} for t in (p, g, p))
+    o_inp = adamw_init(o_inp)
+    n_inp = adamw_update_(p_inp, g_inp, o_inp, 1e-3)
+    assert torch.equal(n_fun, want) and torch.equal(n_inp, want)
+    assert float(abs(n_fun - whole)) <= 1e-6 * float(whole)
+    for k in p:
+        assert torch.equal(p_fun[k], p_inp[k]) and torch.equal(o_fun.mu[k], o_inp.mu[k])

@@ -12,10 +12,10 @@ its three kernels, at MLA's widths too (V of 64 / 128 columns under Q and
 K of 96 / 192: the tensor-core kernel at V's own width, the others on V
 padded by the wrapper); flash_attention_bwd's dQ, dK and dV element by element
 within ref.flash_attention_bwd_limits on both routes (bf16 on the tensor
-cores from the forward's log-sum-exp, at minicpm3's MLA widths (96, 64)
-too; float32 on the CUDA cores), repeatable, and through autograd; the
-forward's log-sum-exp within 1e-5 of torch.logsumexp, at (96, 64) too, its
-output bitwise unchanged by it; a float32 MLA gradient raising). Imports no
+cores from the forward's log-sum-exp, at MLA's widths (96, 64) and (192,
+128) too; float32 on the CUDA cores), repeatable, and through autograd; the
+forward's log-sum-exp within 1e-5 of torch.logsumexp, at MLA's widths too,
+its output bitwise unchanged by it; a float32 MLA gradient raising). Imports no
 JAX, so it runs on the machine with the card:
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -751,24 +751,27 @@ def test_flash_attention_bwd_kernel_through_autograd(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
 @pytest.mark.parametrize("b,hq,hkv,l", [
     (1, 40, 40, 300),    # minicpm3's heads, MHA
+    (1, 16, 16, 300),    # deepseek's
     (2, 6, 2, 37),       # group 3, a partial tile
     (1, 4, 4, 1000),     # the last tile crossing l
     (1, 8, 1, 129),      # group 8, one row past two tiles
 ])
-def test_flash_attention_bwd_kernel_at_mla_widths(cuda_device, b, hq, hkv, l):
-    """bf16 at (Dqk, Dv) = (96, 64), V and dO at their own width, on the
-    tensor cores from the forward's log-sum-exp: dQ, dK and dV element by
-    element within ``ref.flash_attention_bwd_limits``, two launches bitwise
-    equal."""
+def test_flash_attention_bwd_kernel_at_mla_widths(cuda_device, b, hq, hkv, l, dqk, dv):
+    """bf16 at (Dqk, Dv) = (96, 64) and (192, 128), V and dO at their own
+    width, on the tensor cores from the forward's log-sum-exp: dQ, dK and dV
+    element by element (every column, so all three 64-column blocks of a
+    192-wide row) within ``ref.flash_attention_bwd_limits``, two launches
+    bitwise equal."""
     from repro_torch.kernels.flash_attention import bwd_route, flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
     bf16 = torch.bfloat16
-    assert bwd_route(bf16, 96, 64) == "tc"
-    q, k, v = _attn_inputs(l + 7, b, hq, hkv, l, l, 96, bf16, cuda_device, 64)
-    (dout,) = _attn_inputs(l + 8, b, hq, hkv, l, l, 64, bf16, cuda_device)[:1]
+    assert bwd_route(bf16, dqk, dv) == "tc"
+    q, k, v = _attn_inputs(l + 7, b, hq, hkv, l, l, dqk, bf16, cuda_device, dv)
+    (dout,) = _attn_inputs(l + 8, b, hq, hkv, l, l, dv, bf16, cuda_device)[:1]
     out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
     before = flash_attention_bwd_cuda.tc_launches
     got = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
@@ -782,29 +785,31 @@ def test_flash_attention_bwd_kernel_at_mla_widths(cuda_device, b, hq, hkv, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
 @pytest.mark.parametrize("l", [17, 300, 1000])
-def test_flash_attention_forward_lse_at_mla_widths(cuda_device, l):
-    """The tensor-core forward's log-sum-exp at (96, 64) within 1e-5 of
-    max(1, |lse|) of ``torch.logsumexp`` of the masked scores (scaled by
-    1/√96); the output bitwise the same as without it."""
+def test_flash_attention_forward_lse_at_mla_widths(cuda_device, l, dqk, dv):
+    """The tensor-core forward's log-sum-exp at (96, 64) and (192, 128)
+    within 1e-5 of max(1, |lse|) of ``torch.logsumexp`` of the masked
+    scores (scaled by 1/√Dqk); the output bitwise the same as without it."""
     import math
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    q, k, v = _attn_inputs(l + 3, 2, 6, 2, l, l, 96, torch.bfloat16, cuda_device, 64)
+    q, k, v = _attn_inputs(l + 3, 2, 6, 2, l, l, dqk, torch.bfloat16, cuda_device, dv)
     out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=0, return_lse=True)
     assert torch.equal(out, flash_attention_cuda(q, k, v, causal=True, q_offset=0))
     assert lse.shape == (2, 6, l) and lse.stride(1) % 64 == 0
     s = torch.matmul(q.float(), k.float().repeat_interleave(3, dim=1).transpose(-1, -2))
-    s = (s / math.sqrt(96)).masked_fill(
+    s = (s / math.sqrt(dqk)).masked_fill(
         torch.ones(l, l, dtype=torch.bool, device=cuda_device).triu(1), -math.inf)
     want = torch.logsumexp(s, -1) / math.log(2.0)
     assert float(((lse - want).abs() / want.abs().clamp(min=1.0)).max()) <= 1e-5
 
 
 @pytest.mark.cuda
-def test_flash_attention_autograd_takes_tc_at_mla_widths(cuda_device):
-    """``ops.flash_attention`` with grad at (96, 64) in bf16, V a
+@pytest.mark.parametrize("dqk,dv", MLA_WIDTHS)
+def test_flash_attention_autograd_takes_tc_at_mla_widths(cuda_device, dqk, dv):
+    """``ops.flash_attention`` with grad at (96, 64) and (192, 128) in bf16, V a
     head-major view as MLA makes it: the forward keeps the log-sum-exp
     (the tensor-core route), the backward launches the tensor-core kernels
     once, with the kernel's gradients; in float32 the backward raises (no
@@ -813,9 +818,9 @@ def test_flash_attention_autograd_takes_tc_at_mla_widths(cuda_device):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
-    q, k, v = _attn_inputs(21, 1, 8, 8, 150, 150, 96, torch.bfloat16, cuda_device, 64)
-    (dout,) = _attn_inputs(22, 1, 8, 8, 150, 150, 64, torch.bfloat16, cuda_device)[:1]
-    view = v.transpose(1, 2).contiguous().transpose(1, 2)   # [b, h, l, 64], head-major
+    q, k, v = _attn_inputs(21, 1, 8, 8, 150, 150, dqk, torch.bfloat16, cuda_device, dv)
+    (dout,) = _attn_inputs(22, 1, 8, 8, 150, 150, dv, torch.bfloat16, cuda_device)[:1]
+    view = v.transpose(1, 2).contiguous().transpose(1, 2)   # [b, h, l, dv], head-major
     ops.reset_launch_counts()
     leaves = [t.clone().requires_grad_() for t in (q, k, view)]
     out = ops.flash_attention(*leaves, use_kernels=True)

@@ -7,9 +7,11 @@
   devices needed); the grid's rank layout equals ``jax.make_mesh``'s.
 - Two training steps on 4 gloo ranks at ``(2, 2)`` against ``_lm_cell``'s
   step on ``make_local_mesh(2, 2)`` over 4 fake CPU devices: the
-  phi4-mini, minicpm3 (MLA) and granite-moe (MoE, ep = 2, the sequence
-  split) smoke configs in float32, and granite with a vocabulary of 255,
-  whose embedding and head stay whole. Loss, gradient norm, every parameter
+  phi4-mini, minicpm3 (MLA), granite-moe (MoE, ep = 2, the sequence
+  split) and deepseek-v2-lite-16b (MLA without q-LoRA, a dense first layer,
+  MoE at ep = 2 with its shared experts tensor-parallel) smoke configs in
+  float32, and granite with a vocabulary of 255, whose embedding and head
+  stay whole. Loss, gradient norm, every parameter
   and both moments gathered whole, and each rank's moment shard against
   the slice JAX's ``NamedSharding`` gives that device.
 - One MoE layer at ep = 2 against JAX's ``_moe_routed`` under
@@ -21,6 +23,9 @@
 - The sharded step at ``n_micro = 2`` (with remat, whose recompute repeats
   the collectives and the exchange) against the one-process step at
   ``n_micro = 2``.
+- deepseek's first step again with ``optim.adamw.BLOCK_BYTES`` at 1 KiB, so
+  that ZeRO-1 reduces every larger leaf a block of rows at a time: bit for
+  bit the whole-leaf step.
 
 Every rank and the JAX program run in subprocesses spawned once for the
 module, single-threaded, side by side. Tolerances are the float32 ones of
@@ -61,7 +66,8 @@ BATCHES = (1, 2, 3, 4, 8, 16, 24, 256, 512)
 # the (2, 2) training cases: (arch, vocabulary or None)
 CASES = {"phi4": ("phi4-mini-3.8b", None), "minicpm3": ("minicpm3-4b", None),
          "granite": ("granite-moe-3b-a800m", None),
-         "granite_v255": ("granite-moe-3b-a800m", 255)}
+         "granite_v255": ("granite-moe-3b-a800m", 255),
+         "deepseek": ("deepseek-v2-lite-16b", None)}
 BATCH, SEQ, STEPS = 4, 12, 2
 REL = 1e-5
 # the MoE layer: granite smoke widths with 20 experts (32 padded, 16 a rank
@@ -298,6 +304,7 @@ for case in CASES:
             out[f"{case}/nu{i}/{k}"] = opt.nu[k].numpy().copy()
     out[f"{case}/overflow"] = stats.summary()["overflow"]
     out[f"{case}/calls"] = np.array([v for k, v in sorted(mesh.calls.items())])
+    out[f"{case}/reduce_scatters"] = mesh.calls["reduce_scatter/data"]
     mesh.reset_counts()
 
 # the MoE layer: this rank's tokens and experts
@@ -323,6 +330,25 @@ for name in MOE_CASES:
     out[f"moe/{name}/d_x"], out[f"moe/{name}/d_w"] = x.grad.numpy(), w.grad.numpy()
     for k in lp:
         out[f"moe/{name}/d_{k}"] = lp[k].grad.numpy()
+
+# ZeRO-1 by blocks of rows: deepseek's first step with every leaf over
+# 1 KiB of float32 reduced a block at a time
+from repro_torch.optim import adamw as adamw_module
+cfg = _cfg("deepseek")
+inp = np.load(f"{tmp}/inputs_deepseek.npz")
+params = lm_params_shard(nested(inp), cfg, mesh, device="cpu")
+opt = steps.lm_adamw_init(params, cfg, mesh)
+whole_bytes, adamw_module.BLOCK_BYTES = adamw_module.BLOCK_BYTES, 1024
+mesh.reset_counts()
+params, opt, loss, gnorm = steps.lm_train_step(
+    params, opt, torch.from_numpy(inp["tokens"][0]), torch.from_numpy(inp["labels"][0]), cfg,
+    use_kernels=False, mesh=mesh)
+adamw_module.BLOCK_BYTES = whole_bytes
+out["blocks/loss"], out["blocks/gnorm"] = float(loss), float(gnorm)
+out["blocks/reduce_scatters"] = mesh.calls["reduce_scatter/data"]
+for k, v in steps.flat_params(params).items():
+    out[f"blocks/p/{k}"] = v.numpy().copy()
+    out[f"blocks/mu/{k}"], out[f"blocks/nu/{k}"] = opt.mu[k].numpy(), opt.nu[k].numpy()
 
 # microbatches: granite with remat at n_micro = 2, and on one process
 cfg = dataclasses.replace(_cfg("granite"), remat=True)
@@ -569,3 +595,19 @@ def test_microbatched_mesh_step_matches_one_process(runs):
         want = one[f"micro1/p/{k}"]
         limit = REL * np.abs(want).max() + _update_slack(mu, nu, np.zeros_like(mu), 1, REL)
         assert (np.abs(whole["p"][k] - want) <= limit).all(), k
+
+
+def test_zero1_by_blocks_is_bitwise_whole(runs):
+    """ZeRO-1 reducing each leaf over ``BLOCK_BYTES`` of float32 a block of
+    rows at a time (more reduce-scatters) gives deepseek's first step bit
+    for bit: loss, norm, every parameter shard and both moments."""
+    _, ranks = runs
+    for z in ranks:
+        assert int(z["blocks/reduce_scatters"]) > int(z["deepseek/reduce_scatters"]) // STEPS
+        assert float(z["blocks/loss"]) == float(z["deepseek/loss0"])
+        assert float(z["blocks/gnorm"]) == float(z["deepseek/gnorm0"])
+        keys = [k[len("blocks/p/"):] for k in z if k.startswith("blocks/p/")]
+        assert keys
+        for k in keys:
+            for name in ("p", "mu", "nu"):
+                assert np.array_equal(z[f"blocks/{name}/{k}"], z[f"deepseek/{name}0/{k}"]), (name, k)

@@ -8,8 +8,8 @@ experts) smoke configs against ``_lm_cell``'s step on a one-device mesh
 ``_moe_ffn`` on that mesh and against the dense serving sum; the plain
 attention backward at MLA's widths (V narrower than Q and K) against
 ``jax.vjp`` of JAX's ``_attention`` and torch autograd, and the tensor-core
-backward's mirror at (96, 64) within the card's limits; ``bwd_route`` at
-those widths; remat against no remat, and the recompute's routing; the
+backward's mirror at (96, 64) and (192, 128) within the card's limits;
+``bwd_route`` at those widths; remat against no remat, and the recompute's routing; the
 training driver on MLA and MoE archs. Inputs come from NumPy or JAX with a
 seed.
 
@@ -302,14 +302,18 @@ def test_moe_window_masks_the_rows_jax_masks():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dqk,dv,b,hq,hkv,l", [(24, 16, 2, 4, 4, 37), (96, 64, 1, 4, 4, 50),
-                                               (96, 64, 2, 6, 2, 23)])
+                                               (96, 64, 2, 6, 2, 23), (192, 128, 1, 4, 4, 45),
+                                               (192, 128, 2, 6, 2, 21)])
 def test_attention_bwd_ref_at_mla_widths_matches_jax_and_autograd(dqk, dv, b, hq, hkv, l):
+    """At (192, 128), deepseek-v2-lite-16b's widths, against its smoke
+    config's ``_attention``; the others against minicpm3-4b's."""
     rng = np.random.default_rng([dqk, dv, l])
     q = rng.normal(size=(b, hq, l, dqk)).astype(np.float32)
     k = rng.normal(size=(b, hkv, l, dqk)).astype(np.float32)
     v = rng.normal(size=(b, hkv, l, dv)).astype(np.float32)
     dout = rng.normal(size=(b, hq, l, dv)).astype(np.float32)
-    jcfg = dataclasses.replace(j_get_arch("minicpm3-4b").smoke, q_chunk=16)
+    arch = "deepseek-v2-lite-16b" if (dqk, dv) == (192, 128) else "minicpm3-4b"
+    jcfg = dataclasses.replace(j_get_arch(arch).smoke, q_chunk=16)
     _, vjp = jax.vjp(lambda a, b_, c: jtf._attention(a, b_, c, jcfg, q_offset=0),
                      *(jnp.asarray(x) for x in (q, k, v)))
     want = vjp(jnp.asarray(dout))
@@ -322,16 +326,11 @@ def test_attention_bwd_ref_at_mla_widths_matches_jax_and_autograd(dqk, dv, b, hq
         _close(g, a.grad, 1e-5)
 
 
-@pytest.mark.parametrize("b,hq,hkv,l", [(1, 4, 4, 130), (1, 3, 1, 300)])
-def test_tc_mirror_at_96_64_within_limits(b, hq, hkv, l):
-    """The tensor-core backward's arithmetic at minicpm3's widths (S over
-    96 columns, dP and D over V's 64, P from the forward mirror's
-    log-sum-exp) within ``ref.flash_attention_bwd_limits``, as the card
-    holds the kernel."""
+def _tc_mirror_within_limits(b, hq, hkv, l, dqk, dv):
     rng = np.random.default_rng([b, hq, hkv, l])
     q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
-                     for s in ((b, hq, l, 96), (b, hkv, l, 96), (b, hkv, l, 64),
-                               (b, hq, l, 64)))
+                     for s in ((b, hq, l, dqk), (b, hkv, l, dqk), (b, hkv, l, dv),
+                               (b, hq, l, dv)))
     out, lse = ref.flash_attention_hilo_ref(q, k, v, causal=True, return_lse=True)
     got = ref.flash_attention_bwd_tc_ref(q, k, v, out, dout, lse)
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
@@ -340,9 +339,26 @@ def test_tc_mirror_at_96_64_within_limits(b, hq, hkv, l):
     assert max(worst) <= 1.0, worst
 
 
+@pytest.mark.parametrize("b,hq,hkv,l", [(1, 4, 4, 130), (1, 3, 1, 300)])
+def test_tc_mirror_at_96_64_within_limits(b, hq, hkv, l):
+    """The tensor-core backward's arithmetic at minicpm3's widths (S over
+    96 columns, dP and D over V's 64, P from the forward mirror's
+    log-sum-exp) within ``ref.flash_attention_bwd_limits``, as the card
+    holds the kernel."""
+    _tc_mirror_within_limits(b, hq, hkv, l, 96, 64)
+
+
+@pytest.mark.parametrize("b,hq,hkv,l", [(1, 4, 4, 130), (1, 3, 1, 300), (1, 16, 16, 70)])
+def test_tc_mirror_at_192_128_within_limits(b, hq, hkv, l):
+    """The same at deepseek-v2-lite-16b's widths: S over 192 columns, dP and
+    D over V's 128, at group 1 and 3 and at deepseek's 16 heads."""
+    _tc_mirror_within_limits(b, hq, hkv, l, 192, 128)
+
+
 @pytest.mark.parametrize("dtype,dqk,dv,want", [
     (torch.bfloat16, 96, 64, "tc"), (torch.float32, 96, 64, None),
-    (torch.bfloat16, 192, 128, None), (torch.bfloat16, 64, 64, "tc"),
+    (torch.bfloat16, 192, 128, "tc"), (torch.bfloat16, 64, 64, "tc"),
+    (torch.float32, 192, 128, None), (torch.bfloat16, 192, 192, None),
 ])
 def test_bwd_route_at_mla_widths(dtype, dqk, dv, want):
     assert bwd_route(dtype, dqk, dv) == want
