@@ -318,7 +318,9 @@ since the script started (all but the last line):
 15. ``kernel_check`` (``embedding_bag``) — the embedding-bag kernel against
    its plain version on a ``[26,000,000, 64]`` float32 table (the 26
    stacked DLRM tables): ``serve_bulk`` (6,815,744 one-row bags) and
-   ``serve_p99`` (13,312) must be equal; ``multi_hot`` (batch 4,096 with
+   ``serve_p99`` (13,312) must be equal, as must ``retrieval_cand``
+   (the user's 26 one-row bags and 1,000,000 one-row candidate bags in the
+   last table, one launch of ``dlrm._candidates``); ``multi_hot`` (batch 4,096 with
    MLPerf DLRM-DCNv2's per-field bag sizes, 214 rows a sample) within
    n_b * 2**-23 * sum |rows| of the float64 sum, kernel and plain alike;
    edge cases (bf16 within one bf16 rounding more, empty bags, bag ids
@@ -358,6 +360,28 @@ since the script started (all but the last line):
    ``F.embedding_bag``; the bound counts the distinct rows) and
    ``segment_sum`` at the tables' gradient (``dlrm_table_grad``, 1,703,936
    float32 rows summed into the touched rows, row 0 of each field heavy).
+17b. ``dlrm_mesh`` — dlrm-rm2 at its full config through ``_dlrm_cell``'s
+   sharding on a ``(1, 1)`` ``GridMesh`` at NCCL world 1 (the tables split
+   by rows over ``"model"``, the bags summed over it, the batch over
+   ``"data"``, the candidates over both, ZeRO-1 moments): one request of
+   each ``DLRM_MESH_SHAPES`` shape (``serve_p99`` 512, ``serve_bulk``
+   262,144, ``retrieval_cand`` 1 x 1,000,000) through ``serve_recsys(...,
+   mesh=)`` after a warm-up, each against the one-device request on the
+   same parameters, logits and scores bit for bit, one ``embedding_bag``
+   launch a request; the grid's lookups with the kernel against the plain
+   version's (one-row bags, bit for bit); the lookups of model rank 0 of a
+   ``(1, 2)`` grid on ``train_batch``'s ids (``dlrm._lookups`` over the
+   first half of the rows, a valid id in the other half to the dropped bag),
+   kernel against plain: the bags bit for bit and the half-row shard's
+   gradient through the backward's filtered lookups within 1e-5 of max
+   |plain| (``model_rank_0_of_2``); then one ``train_batch`` step of
+   ``dlrm_train_step(..., mesh=)`` (the data line's communicators made
+   first) against the one-device step from the same state: loss, norm,
+   every parameter and both moments bit for bit, one ``embedding_bag`` and
+   one ``segment_sum`` launch as one device's; the collectives' calls and
+   bytes by kind and axis, seconds and peak GiB (under 79.2, the grid's
+   state beside the one-device step); ``dlrm_mesh_done`` times the phase.
+   The four-card cell (``(2, 2)``) is ``examples/torch_train_dlrm_mesh.py``'s.
 18. ``lm_train_plan`` / ``lm_train`` — for each of ``LM_TRAIN_CELLS``
    (phi4-mini-3.8b, minicpm3-4b with MLA, granite-moe-3b-a800m with MoE,
    deepseek-v2-lite-16b with MLA and MoE, its depth cut to
@@ -414,15 +438,15 @@ Then a ``device`` line with the card's name and power limit (the
 summary (``segment_sum``'s ``launches_by_path``: the gatedgcn forward,
 the molecule and full_graph_sm kernel requests, the chunked forward,
 the four GNN training paths' 10 steps, ``gnn_mesh``'s two steps,
-``dlrm_train``, the three LM training paths and ``lm_mesh``, each counted
+``dlrm_train``, ``dlrm_mesh``, the three LM training paths and ``lm_mesh``, each counted
 from 0; the three attention
 kernels' ``launches_by_path``: the five LM kernel serves, phi4, minicpm3,
 deepseek, granite and command_r, the four float32 gates' kernel serves,
 ``<path>_f32_gate`` (none for command_r), and ``lm_train``,
 ``lm_train_minicpm3-4b``, ``lm_train_granite-moe-3b-a800m``,
 ``lm_train_deepseek-v2-lite-16b`` and ``lm_mesh``,
-their sum in ``launches``; ``embedding_bag``'s ``dlrm_serve`` and
-``dlrm_train``; ``flash_attention_bwd``'s five LM training paths and
+their sum in ``launches``; ``embedding_bag``'s ``dlrm_serve``,
+``dlrm_train`` and ``dlrm_mesh`` (its warm-ups, requests and step); ``flash_attention_bwd``'s five LM training paths and
 ``launches_by_route``, ``tc`` or ``simt``),
 and last
 ``{"ok": true, "device": ...}``. Any mismatch, nonzero overflow or
@@ -556,6 +580,9 @@ MULTI_HOT_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 
 # relative: the plain segment sum adds with float64 atomics in no fixed
 # order, so where a float64 sum is not exact its rounding may fall either way.
 DLRM_TRAIN_STEPS, DLRM_TRAIN_LR, DLRM_TRAIN_LIMIT = 10, 1e-3, 1e-6
+# dlrm-rm2 on a (1, 1) grid at NCCL world 1 (dlrm_mesh): one request of each
+# shape after a warm-up, one train_batch step
+DLRM_MESH_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
 # phi4-mini-3.8b at train_4k's sequence of 4,096; the global batch cut from
 # 256 to LM_TRAIN_BATCH, the largest at which lm_micro_batches gives one
 # microbatch: the bf16 weights, their gradient and the float32 moments take
@@ -3998,6 +4025,14 @@ def embedding_bag_phase():
     cases = {"serve_bulk": (big, *dlrm_lookups(262_144, one, v, gen)),
              "serve_p99": (big, *dlrm_lookups(512, one, v, gen)),
              "multi_hot": (big, *dlrm_lookups(4096, MULTI_HOT_SIZES, v, gen))}
+    # retrieval_cand's launch (models/dlrm.py ``_candidates``): the user's
+    # 26 one-row bags, then a one-row bag a candidate in the last table
+    n_cand = get_arch(DLRM_ARCH).shape("retrieval_cand").n_candidates
+    u_idx = dlrm_lookups(1, one, v, gen)[0]
+    c_idx = torch.randint(0, v, (n_cand,), generator=gen, device="cuda").add_((n_f - 1) * v)
+    cases["retrieval_cand"] = (big, torch.cat([u_idx, c_idx.to(torch.int32)]),
+                               torch.arange(n_f + n_cand, dtype=torch.int32, device="cuda"),
+                               n_f + n_cand)
     t = small(5000, 64, torch.bfloat16)
     cases["bf16"] = (t, *unsorted(60_000, 7000, 5000), 7000)
     t = small(5000, 64)
@@ -4022,7 +4057,7 @@ def embedding_bag_phase():
     # shows as a gap, a latency limit as none
     rows_1g = (1 << 30) // (d * big.element_size())
     cases["serve_bulk_1gib"] = (big, cases["serve_bulk"][1] % rows_1g, *cases["serve_bulk"][2:])
-    exact = ("serve_bulk", "serve_p99", "serve_bulk_1gib")
+    exact = ("serve_bulk", "serve_p99", "serve_bulk_1gib", "retrieval_cand")
     out = []
     for name, (table, idx, bag, nb) in cases.items():
         idx, bag = ops.sort_by_bag(idx, bag)
@@ -4368,6 +4403,250 @@ def dlrm_train_phase():
     del uniq, compact, grad_rows, batches, rows
     free_device_memory()
     return counts, rec, seg
+
+
+def dlrm_shard_case(cfg, tables, sparse):
+    """The embedding bag and its backward as model rank 0 of a ``(1, 2)``
+    grid runs them on ``sparse`` (``train_batch``'s ids): ``dlrm._lookups``
+    over the first half of every table's rows, a valid id in the other half
+    sent to the dropped bag (sorted to the tail); the bags and the half-row
+    shard's gradient (the backward's filtered lookups into
+    ``ops._touched_sum``) with the kernels against the plain versions on
+    the same inputs, in float32: the one-row bags bit for bit, the gradient
+    within 1e-5 of max |plain| (float64 sums, rounded once). No launch
+    is counted: these check, they do not train."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+
+    f, v, d = tables.shape
+    vl = v // 2
+    b, _, h = sparse.shape
+    nb = b * f
+    field = torch.arange(f, dtype=torch.int32, device="cuda")[None, :, None]
+    bags = torch.arange(nb, dtype=torch.int32, device="cuda").view(b, f, 1).expand(-1, -1, h)
+    rows, bags = dlrm._lookups(sparse.to(torch.int32), field, bags, nb, cfg.rows_per_table, vl,
+                               0, True)
+    rows, bags = rows.reshape(-1), bags.reshape(-1)
+    half = tables[:, :vl].contiguous().view(f * vl, d)
+    up = torch.randn((nb, d), generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda").mul_(1e-5)
+    got = {}
+    for use_kernels in (True, False):
+        leaf = half.detach().requires_grad_()
+        with torch.enable_grad():
+            out = ops.embedding_bag(leaf, rows, bags, nb, use_kernels=use_kernels)
+            (grad,) = torch.autograd.grad(out, leaf, up)
+        got[use_kernels] = (out.detach(), grad)
+        del leaf, out
+    (bags_k, grad_k), (bags_p, grad_p) = got[True], got[False]
+    top = float(grad_p.abs().max())
+    rec = {"lookups": int(rows.shape[0]), "rows_in_shard": vl,
+           "dropped_share": float((bags == nb).float().mean()),
+           "bags_bitwise": torch.equal(bags_k, bags_p), "grad_bitwise": torch.equal(grad_k, grad_p),
+           "grad_max_abs_err": float((grad_k - grad_p).abs().max()), "grad_max_abs_ref": top,
+           "grad_limit": 1e-5 * top,
+           "rows_touched": int((grad_p != 0).any(dim=1).sum())}
+    del got, bags_k, grad_k, bags_p, grad_p, half, up, rows, bags
+    free_device_memory()
+    return rec
+
+
+def dlrm_mesh_phase():
+    """``dlrm_mesh``: dlrm-rm2 at ``_FULL`` on a ``(1, 1)`` ``GridMesh`` over a
+    process group of world size 1 started here (NCCL), through
+    ``_dlrm_cell``'s sharding: the tables split by rows over ``"model"``
+    (one shard here), the bags summed over it, the batch over ``"data"``,
+    the candidates over both. One request of each DLRM_MESH_SHAPES shape
+    through ``serve_recsys(..., mesh=)`` after a warm-up, each against the
+    one-device request on the same parameters (logits and scores bit for
+    bit), the grid's lookups with the kernel against the plain version's
+    (one-row bags, bit for bit); then one ``train_batch`` step of
+    ``dlrm_train_step(..., mesh=)`` against the one-device step from the
+    same state: loss, norm, every parameter and both moments bit for bit,
+    one ``embedding_bag`` and one ``segment_sum`` launch as one device's.
+    Returns the grid runs' launches (warm-ups, requests and the step), each
+    counted from 0."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import dlrm_params_shard
+    from repro_torch.data import click_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_grid_mesh
+    from repro_torch.launch.serve import serve_recsys
+    from repro_torch.models import dlrm
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    spec = get_arch(DLRM_ARCH)
+    cfg = spec.config
+    check(not torch.backends.cuda.matmul.allow_tf32, "DLRM runs its float32 products in float32")
+    free_device_memory()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    mesh = init_grid_mesh(1, 1, "cuda", timeout_s=300)
+    init_s = time.perf_counter() - t0
+    totals = {name: 0 for name in ops.launch_counts()}
+
+    def counted():
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            totals[name] += n
+        return {k: n for k, n in counts.items() if n}
+
+    try:
+        backend = dist.get_backend()
+        whole = dlrm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = dlrm_params_shard(whole, cfg, mesh, device="cuda")
+        place = dlrm.dlrm_placements(cfg, mesh)
+        for name in DLRM_MESH_SHAPES:
+            shape = spec.shape(name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            warm = serve_recsys(cfg, params, shape, 1, use_kernels=True, device="cuda", seed=1000,
+                                mesh=mesh)
+            warm_launches = counted()
+            ops.reset_launch_counts()
+            res = serve_recsys(cfg, params, shape, 1, use_kernels=True, device="cuda", mesh=mesh)
+            launches = counted()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            serve_recsys(cfg, whole, shape, 1, use_kernels=True, device="cuda", seed=1000)
+            one = serve_recsys(cfg, whole, shape, 1, use_kernels=True, device="cuda")
+            got, want = res.outputs[0], one.outputs[0]
+            rec = {"phase": "dlrm_mesh", "part": "serve", "shape": name, "kind": shape.kind,
+                   "batch": shape.batch, "candidates": shape.n_candidates, "grid": [1, 1],
+                   "backend": backend, "answered": int(got.shape[0]),
+                   "bitwise_equal": torch.equal(got, want),
+                   "max_abs_diff": float((got - want).abs().max()),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "seconds": res.records[0]["seconds"], "warmup_s": warm.records[0]["seconds"],
+                   "single_seconds": one.records[0]["seconds"], "peak_gib": peak,
+                   "launches": launches, "warmup_launches": warm_launches,
+                   "collective_calls": res.records[0]["collective_calls"],
+                   "collective_bytes": res.records[0]["collective_bytes"]}
+            emit(rec)
+            check(rec["bitwise_equal"] and rec["finite"],
+                  f"dlrm_mesh {name}: the grid's outputs differ from one device's by "
+                  f"{rec['max_abs_diff']} (finite {rec['finite']})")
+            check(launches == {"embedding_bag": 1} and warm_launches == {"embedding_bag": 1},
+                  f"dlrm_mesh {name}: launches {launches}, warm-up {warm_launches}")
+            want_calls = (("all_reduce/model", "reduce_scatter/model")
+                          if shape.kind == "retrieval" else ("all_reduce/model",))
+            check(sorted(rec["collective_calls"]) == sorted(want_calls),
+                  f"dlrm_mesh {name}: collectives {rec['collective_calls']}")
+            del warm, res, one, got, want
+        # the grid's lookups with the kernel against the plain version's (no
+        # count: these launches check, they do not serve)
+        with torch.inference_mode():
+            _, sparse = dlrm_requests(cfg, spec.shape("serve_bulk"), 0)
+            bags_k = dlrm._embedding_bags(params, sparse, cfg, use_kernels=True, mesh=mesh)
+            bags_p = dlrm._embedding_bags(params, sparse, cfg, use_kernels=False, mesh=mesh)
+            lookups_equal = torch.equal(bags_k, bags_p)
+            del bags_k, bags_p, sparse
+            dense, sparse = dlrm_requests(cfg, spec.shape("retrieval_cand"), 0)
+            cand = torch.from_numpy(steps.retrieval_candidates(
+                cfg, spec.shape("retrieval_cand").n_candidates, 0)).cuda()
+            (uk, ck), (up, cp) = (dlrm._candidates(params, sparse, cand, cfg, k, mesh)
+                                  for k in (True, False))
+            candidates_equal = torch.equal(uk, up) and torch.equal(ck, cp)
+            del uk, ck, up, cp, dense, sparse, cand
+        free_device_memory()
+
+        shape = spec.shape("train_batch")
+        batch = tuple(torch.from_numpy(a).cuda() for a in next(click_batches(
+            cfg.n_dense, cfg.n_sparse, cfg.rows_per_table, shape.batch,
+            multi_hot=cfg.multi_hot, seed=0)))
+        shard_case = dlrm_shard_case(cfg, whole["tables"], batch[1])
+        opt = steps.dlrm_adamw_init(params, cfg, mesh)
+        # NCCL makes a line's communicator at its first call: make the data
+        # line's and the whole grid's here, outside the timed step
+        for axes in ("data", ("data", "model")):
+            mesh.all_reduce(torch.zeros(1, device="cuda"), axes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        _, _, loss, norm = steps.dlrm_train_step(params, opt, *batch, cfg, lr=DLRM_TRAIN_LR,
+                                                 use_kernels=True, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counted()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        calls, nbytes = dict(mesh.calls), dict(mesh.bytes)
+    finally:
+        dist.destroy_process_group()
+    loss, norm = float(loss), float(norm)
+    # the one-device step from the same state: ``whole`` holds the initial
+    # parameters (the grid stepped its own copy)
+    free_device_memory()
+    opt1 = adamw_init(whole)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, loss1, norm1 = steps.dlrm_train_step(whole, opt1, *batch, cfg, lr=DLRM_TRAIN_LR,
+                                               use_kernels=True)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = {k: n for k, n in ops.launch_counts().items() if n}
+    peak_both = torch.cuda.max_memory_allocated() / 2**30
+    loss1, norm1 = float(loss1), float(norm1)
+    # at (1, 1) a rank's shards and ZeRO-1 moments are the whole leaves
+    state_gap = {}
+    for kind, grid_t, one_t in (("param", params, whole), ("mu", opt.mu, opt1.mu),
+                                ("nu", opt.nu, opt1.nu)):
+        check(sorted(grid_t) == sorted(one_t), f"dlrm_mesh: {kind} leaves differ")
+        gaps = {k: float((grid_t[k] - one_t[k]).abs().max()) for k in one_t}
+        state_gap[kind] = {"max_abs_diff": max(gaps.values()),
+                           "leaves_differing": sorted(k for k in one_t
+                                                      if not torch.equal(grid_t[k], one_t[k]))}
+    del params, opt, whole, opt1, batch
+    free_device_memory()
+    rec = {"phase": "dlrm_mesh", "part": "train", "shape": shape.name, "batch": shape.batch,
+           "grid": [1, 1], "backend": backend, "params": cfg.param_count(),
+           "tables_spec": list(place["tables"].spec),
+           "tables_moment_spec": list(place["tables"].moment_spec),
+           "loss_mesh": loss, "loss_single": loss1, "gnorm_mesh": norm, "gnorm_single": norm1,
+           "loss_gnorm_bitwise": loss == loss1 and norm == norm1,
+           "state_after_step": state_gap, "step_seconds": seconds,
+           "single_step_seconds": single_s, "peak_gib": peak,
+           "peak_gib_grid_state_beside_one_device_step": peak_both,
+           "launches": launches, "single_launches": single,
+           "lookups_kernel_plain_bitwise": lookups_equal,
+           "candidates_kernel_plain_bitwise": candidates_equal,
+           "model_rank_0_of_2": shard_case,
+           "collective_calls": calls, "collective_bytes": nbytes}
+    emit(rec)
+    check(backend == "nccl", f"dlrm_mesh: backend {backend}")
+    check(math.isfinite(loss) and math.isfinite(norm), f"dlrm_mesh: loss {loss}, norm {norm}")
+    check(rec["loss_gnorm_bitwise"], f"dlrm_mesh: loss / norm {loss} / {norm} against one "
+          f"device's {loss1} / {norm1}")
+    for kind, gap in state_gap.items():
+        check(not gap["leaves_differing"],
+              f"dlrm_mesh: the updated {kind} differs from one device's in "
+              f"{gap['leaves_differing']} (max |diff| {gap['max_abs_diff']})")
+    check(launches == single == {"embedding_bag": 1, "segment_sum": 1},
+          f"dlrm_mesh: launches {launches}, one device's {single}")
+    check(lookups_equal and candidates_equal,
+          f"dlrm_mesh: the grid's lookups with the kernel differ from plain "
+          f"(bags {lookups_equal}, retrieval {candidates_equal})")
+    check(shard_case["dropped_share"] > 0 and shard_case["bags_bitwise"]
+          and shard_case["grad_max_abs_err"] <= shard_case["grad_limit"],
+          f"dlrm_mesh: model rank 0 of 2, kernel against plain: {shard_case}")
+    for kind in ("all_reduce/model", "all_reduce/data"):
+        check(calls.get(kind, 0) > 0, f"dlrm_mesh: no {kind} collective: {calls}")
+    check(max(peak, peak_both) < 79.2, f"dlrm_mesh: peak {peak} / {peak_both} GiB")
+    emit({"phase": "dlrm_mesh_done", "backend": backend, "init_process_group_s": init_s,
+          "launches": {k: n for k, n in totals.items() if n},
+          "seconds": time.perf_counter() - t_phase})
+    return totals
 
 
 def lm_train_value_and_norm(params, tok, lab, cfg, use_kernels: bool):
@@ -5182,6 +5461,9 @@ def main() -> None:
 
     # 17. dlrm-rm2 training; launches counted over the kernel run's steps
     dlrm_train_counts, bag_case, table_case = dlrm_train_phase()
+    # 17b. dlrm-rm2 on a (1, 1) grid at NCCL world 1: serving, retrieval and
+    #      a training step through _dlrm_cell's sharding
+    dlrm_mesh_counts = dlrm_mesh_phase()
     # 18. LM training: phi4-mini-3.8b, minicpm3-4b (MLA), granite-moe-3b-a800m
     #     (MoE) and deepseek-v2-lite-16b (MLA + MoE, 11 of 27 layers);
     #     launches counted over each one's steps
@@ -5202,6 +5484,7 @@ def main() -> None:
     emit({"phase": "kernel_check", "flash_attention_bwd": checks["flash_attention_bwd"],
           "embedding_bag": [bag_case], "segment_sum": [table_case, embed_case]})
     segment_paths["dlrm_train"] = dlrm_train_counts["segment_sum"]
+    segment_paths["dlrm_mesh"] = dlrm_mesh_counts["segment_sum"]
     attention_paths["flash_attention_bwd"] = {}
     for path, c in train_counts.items():
         segment_paths[path] = c["segment_sum"]
@@ -5215,7 +5498,8 @@ def main() -> None:
     for name, paths in attention_paths.items():
         launches[name] = sum(paths.values())
     bag_paths = {"dlrm_serve": launches["embedding_bag"],
-                 "dlrm_train": dlrm_train_counts["embedding_bag"]}
+                 "dlrm_train": dlrm_train_counts["embedding_bag"],
+                 "dlrm_mesh": dlrm_mesh_counts["embedding_bag"]}
     launches["embedding_bag"] = sum(bag_paths.values())
 
     # summary lines

@@ -10,9 +10,10 @@ parameters and a ``build_graph_data`` dict across (:func:`graph_shard` a
 rank's shard of it on a grid mesh, :func:`graph_unshard` the ranks' shards
 whole again), :func:`dlrm_params_from_numpy`
 the DLRM parameters, :func:`lm_params_from_numpy` the transformer's nested
-parameter dict; :func:`lm_params_shard` cuts one rank's shards of it on a
-grid mesh, and :func:`lm_params_unshard` puts every rank's shards (of the
-parameters, or of the ZeRO-1 moments) back together whole.
+parameter dict; :func:`lm_params_shard` / :func:`dlrm_params_shard` cut one
+rank's shards of either on a grid mesh, and :func:`lm_params_unshard` /
+:func:`dlrm_params_unshard` put every rank's shards (of the parameters, or
+of the ZeRO-1 moments) back together whole.
 :func:`adamw_state_from_numpy` carries a JAX ``AdamWState`` across, so that
 a JAX run's optimizer state continues in the port.
 """
@@ -28,7 +29,8 @@ from .sharded import MatchStore
 
 __all__ = ["partitions_from_numpy", "comp_from_numpy", "store_from_numpy",
            "comp_to_numpy", "to_numpy", "gnn_params_from_numpy", "dlrm_params_from_numpy",
-           "lm_params_from_numpy", "lm_params_shard", "lm_params_unshard", "graph_from_numpy",
+           "lm_params_from_numpy", "lm_params_shard", "lm_params_unshard", "dlrm_params_shard",
+           "dlrm_params_unshard", "graph_from_numpy",
            "graph_shard", "graph_unshard", "node_rows", "adamw_state_from_numpy"]
 
 
@@ -101,6 +103,18 @@ def lm_params_from_numpy(params, device="cuda"):
             for name, v in params.items()}
 
 
+def _cut(place, mesh, rank, device):
+    """One leaf's slice for rank ``rank`` by its fixed spec, a tensor of
+    its own on ``device`` (from a port tensor or anything NumPy takes)."""
+    def cut(name, v):
+        sl = mesh.slices(place[name].spec, place[name].shape, rank)
+        if isinstance(v, torch.Tensor):
+            return v[sl].to(device, copy=True)
+        return _param(np.asarray(v)[sl], device)
+
+    return cut
+
+
 def lm_params_shard(params, cfg, mesh, rank: int | None = None, device="cuda"):
     """Rank ``rank``'s shards (``mesh.rank`` by default) of a whole
     transformer parameter dict, JAX's (NumPy-convertible leaves) or the
@@ -110,28 +124,31 @@ def lm_params_shard(params, cfg, mesh, rank: int | None = None, device="cuda"):
     model layer is imported here, as in :func:`graph_from_numpy`."""
     from .models.transformer import lm_placements
 
-    place = lm_placements(cfg, mesh)
-    rank = mesh.rank if rank is None else rank
-
-    def cut(name, v):
-        sl = mesh.slices(place[name].spec, place[name].shape, rank)
-        if isinstance(v, torch.Tensor):
-            return v[sl].to(device, copy=True)
-        return _param(np.asarray(v)[sl], device)
-
+    cut = _cut(lm_placements(cfg, mesh), mesh, mesh.rank if rank is None else rank, device)
     return {k: ({n: cut(f"{k}/{n}", t) for n, t in v.items()} if isinstance(v, dict)
                 else cut(k, v)) for k, v in params.items()}
 
 
-def lm_params_unshard(pieces, cfg, mesh, moments: bool = False):
-    """The whole leaves, by flat name, from ``pieces[r]``, rank ``r``'s flat
-    dict of NumPy shards: of the parameters by their fixed specs, or with
-    ``moments`` of AdamW's ZeRO-1 moments by theirs. Ranks that hold the
-    same slice must hold the same values; a difference raises."""
-    from .models.transformer import lm_placements
+def dlrm_params_shard(params, cfg, mesh, rank: int | None = None, device="cuda"):
+    """Rank ``rank``'s shards (``mesh.rank`` by default) of DLRM's flat
+    parameter dict, JAX's (NumPy-convertible leaves, as
+    :func:`dlrm_params_from_numpy` takes them) or the port's tensors, cut by
+    ``models.dlrm.dlrm_placements``: its rows of the tables (all of them
+    where ``"model"`` does not divide them), the MLP leaves whole; each a
+    tensor of its own on ``device``."""
+    from .models.dlrm import dlrm_placements
 
+    cut = _cut(dlrm_placements(cfg, mesh), mesh, mesh.rank if rank is None else rank, device)
+    return {k: cut(k, v) for k, v in params.items()}
+
+
+def _unshard(place, pieces, mesh, moments: bool):
+    """The whole leaves, by flat name, from ``pieces[r]``, rank ``r``'s flat
+    dict of NumPy shards placed by ``place`` (parameter or, with
+    ``moments``, moment specs). Ranks that hold the same slice must hold the
+    same values; a difference raises."""
     out = {}
-    for name, p in lm_placements(cfg, mesh).items():
+    for name, p in place.items():
         spec = p.moment_spec if moments else p.spec
         whole, seen = None, set()
         for r, piece in enumerate(pieces):
@@ -148,6 +165,25 @@ def lm_params_unshard(pieces, cfg, mesh, moments: bool = False):
                 seen.add(key)
         out[name] = whole
     return out
+
+
+def lm_params_unshard(pieces, cfg, mesh, moments: bool = False):
+    """The whole leaves, by flat name, from ``pieces[r]``, rank ``r``'s flat
+    dict of NumPy shards: of the parameters by their fixed specs, or with
+    ``moments`` of AdamW's ZeRO-1 moments by theirs. Ranks that hold the
+    same slice must hold the same values; a difference raises."""
+    from .models.transformer import lm_placements
+
+    return _unshard(lm_placements(cfg, mesh), pieces, mesh, moments)
+
+
+def dlrm_params_unshard(pieces, cfg, mesh, moments: bool = False):
+    """:func:`lm_params_unshard` for DLRM's flat dict: the whole leaves from
+    every rank's NumPy shards of the parameters, or with ``moments`` of the
+    ZeRO-1 moments (``models.dlrm.dlrm_placements``)."""
+    from .models.dlrm import dlrm_placements
+
+    return _unshard(dlrm_placements(cfg, mesh), pieces, mesh, moments)
 
 
 def graph_from_numpy(raw, device="cuda"):

@@ -1,7 +1,8 @@
 """R-MAT and planted near-clique graphs, batch updates and padded GNN graphs.
 
-Host copy (NumPy only) of ``rmat_graph``, ``sample_update`` and
-``build_graph_data`` from ``repro/data/graphs.py``, and of ``planted_graph``
+Host copy (NumPy only) of ``rmat_graph``, ``sample_update``,
+``build_graph_data`` and ``NeighborSampler`` from ``repro/data/graphs.py``,
+and of ``planted_graph``
 from ``benchmarks/bench_wcoj.py``. Each draws from
 ``numpy.random.default_rng(seed)`` exactly as the original does, so a seed
 gives the same arrays in both packages.
@@ -9,11 +10,14 @@ gives the same arrays in both packages.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from ..core.graph import Graph, GraphUpdate
 
-__all__ = ["rmat_graph", "planted_graph", "sample_update", "build_graph_data"]
+__all__ = ["rmat_graph", "planted_graph", "sample_update", "build_graph_data",
+           "NeighborSampler"]
 
 # The planted near-clique graph: a uniform background of PLANTED_M_BG edges
 # over PLANTED_N vertices and an Erdős–Rényi core of PLANTED_CORE_K vertices
@@ -103,3 +107,33 @@ def build_graph_data(n_nodes: int, n_edges: int, d_feat: int, d_edge: int = 0,
     if geometric:
         pos[:n_nodes] = rng.normal(size=(n_nodes, 3)).astype(np.float32)
     return dict(x=x, src=src, dst=dst, edge_attr=ea, node_mask=nm, edge_mask=em, positions=pos)
+
+
+class NeighborSampler:
+    """Copy of ``repro.data.graphs.NeighborSampler``: uniform k-hop neighbour
+    sampling over the graph's CSR (GraphSAGE ``minibatch_lg``), fixed
+    fanouts with replacement, so every frontier has a static shape; an
+    isolated vertex samples itself."""
+
+    def __init__(self, graph: Graph, features: np.ndarray, fanouts: Tuple[int, ...],
+                 seed: int = 0):
+        self.g = graph
+        self.features = features
+        self.fanouts = fanouts
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, seeds: np.ndarray):
+        """The feature rows of each frontier, seeds first: ``[B · f1 ⋯ fk,
+        d_feat]`` for layer k."""
+        frontiers = [seeds.astype(np.int64)]
+        for f in self.fanouts:
+            cur = frontiers[-1]
+            starts = self.g.indptr[cur]
+            degs = np.maximum(self.g.degrees[cur], 1)
+            offs = self.rng.integers(0, 1 << 62, size=(cur.shape[0], f)) % degs[:, None]
+            nbrs = self.g.indices[np.minimum(starts[:, None] + offs,
+                                             self.g.indptr[cur + 1][:, None] - 1)]
+            isolated = self.g.degrees[cur] == 0
+            nbrs[isolated] = cur[isolated, None]  # self-loop fallback
+            frontiers.append(nbrs.reshape(-1))
+        return [self.features[f] for f in frontiers]

@@ -33,6 +33,7 @@ import argparse
 import dataclasses
 import json
 import time
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -117,13 +118,20 @@ class RecsysResult:
 
 
 def serve_recsys(cfg: dlrm.DLRMConfig, params, shape: ShapeSpec, requests: int, *,
-                 use_kernels: bool, device="cuda", seed: int = 0) -> RecsysResult:
+                 use_kernels: bool, device="cuda", seed: int = 0, mesh=None) -> RecsysResult:
     """Answer ``requests`` requests of ``shape`` (``recsys_serve``: a batch
     of ``shape.batch`` examples; ``retrieval``: one query against
     ``shape.n_candidates`` candidates). Request ``r`` is drawn from seed
     ``seed + r`` (:func:`steps.recsys_requests`) and copied to ``device``
     before its clock starts; its record holds the host seconds of the step,
-    ending in a device synchronisation."""
+    ending in a device synchronisation.
+
+    On a grid ``mesh`` (``_dlrm_cell``'s serving and retrieval placements)
+    ``params`` are this rank's shards and every rank draws every request
+    whole: it answers its part (a data rank's examples, a rank's slice of
+    the candidates; all of them where the axes do not divide them), which
+    ``outputs`` hold. Each record adds the collectives' calls and bytes of
+    the request by kind and axis."""
     device = torch.device(device)
     outputs, records = [], []
     for r in range(requests):
@@ -134,20 +142,28 @@ def serve_recsys(cfg: dlrm.DLRMConfig, params, shape: ShapeSpec, requests: int, 
                 cfg, shape.n_candidates, seed + r)).to(device)
             examples = shape.n_candidates
             step = lambda: steps.dlrm_retrieval_step(params, dense, sparse, cand, cfg,  # noqa: E731
-                                                     use_kernels=use_kernels)
+                                                     use_kernels=use_kernels, mesh=mesh)
         else:
             examples = shape.batch
             step = lambda: steps.dlrm_serve_step(params, dense, sparse, cfg,  # noqa: E731
-                                                 use_kernels=use_kernels)
+                                                 use_kernels=use_kernels, mesh=mesh)
+        calls = bytes_ = None
+        if mesh is not None:
+            calls, bytes_ = Counter(mesh.calls), Counter(mesh.bytes)
         _sync(device)
         t0 = time.perf_counter()
         out = step()
         _sync(device)
         seconds = time.perf_counter() - t0
         outputs.append(out)
-        records.append({"stage": shape.kind, "shape": shape.name, "request": r,
-                        "batch": shape.batch, "candidates": shape.n_candidates,
-                        "seconds": seconds, "examples_per_s": examples / seconds})
+        rec = {"stage": shape.kind, "shape": shape.name, "request": r,
+               "batch": shape.batch, "candidates": shape.n_candidates,
+               "seconds": seconds, "examples_per_s": examples / seconds}
+        if mesh is not None:
+            rec.update(rank=mesh.rank, answered=int(out.shape[0]),
+                       collective_calls=dict(Counter(mesh.calls) - calls),
+                       collective_bytes=dict(Counter(mesh.bytes) - bytes_))
+        records.append(rec)
     return RecsysResult(outputs, records)
 
 

@@ -18,6 +18,14 @@ axis, the weights replicated, the node-masked mean loss summed over every
 axis, the gradient summed over every axis into ZeRO-1 moments
 (:func:`gnn_adamw_init`).
 
+``_dlrm_cell``'s three branches on a mesh, too: each step with
+``mesh=grid`` takes the global batch (or candidates) on every rank and
+computes this rank's part: the tables split by rows over ``"model"``
+(``dlrm.dlrm_placements``), the examples over the data axes where they
+divide them (replicated otherwise), the candidates over every axis; the
+training step averages the loss over the data axes and runs ZeRO-1 AdamW
+(:func:`dlrm_adamw_init`).
+
 ``_lm_cell``'s train branch on a mesh, too (the placements of its leaves
 by :mod:`repro_torch.sharding`): :func:`lm_adamw_init` and
 ``lm_train_step(..., mesh=grid)``: tensor-parallel layers and experts over
@@ -45,7 +53,7 @@ __all__ = ["dlrm_serve_step", "dlrm_retrieval_step", "dlrm_flops", "dlrm_loss",
            "dlrm_value_and_grad", "dlrm_train_step", "lm_flops", "lm_micro_batches",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "flat_params", "gnn_flops",
            "gnn_counts", "gnn_loss", "gnn_value_and_grad", "gnn_train_step", "recsys_requests",
-           "retrieval_candidates", "lm_adamw_init", "gnn_adamw_init"]
+           "retrieval_candidates", "lm_adamw_init", "gnn_adamw_init", "dlrm_adamw_init"]
 
 
 def lm_adamw_init(params, cfg: tf.TransformerConfig, mesh) -> AdamWState:
@@ -57,17 +65,40 @@ def lm_adamw_init(params, cfg: tf.TransformerConfig, mesh) -> AdamWState:
                             mesh)
 
 
-def dlrm_serve_step(params, dense, sparse, cfg: dlrm.DLRMConfig, *, use_kernels: bool):
-    """Logits ``[B]`` of one batch of requests (the ``recsys_serve`` cell)."""
-    return dlrm.forward(params, dense, sparse, cfg, use_kernels=use_kernels)
+def dlrm_adamw_init(params, cfg: dlrm.DLRMConfig, mesh) -> AdamWState:
+    """Zero ZeRO-1 moments for this rank's shards ``params``
+    (:func:`~repro_torch.convert.dlrm_params_shard`): each leaf's slice of
+    the data axes on its ``data_dim`` (``_dlrm_cell``'s ``_zero1_specs``)."""
+    place = dlrm.dlrm_placements(cfg, mesh)
+    return adamw_init_zero1(params, {k: p.data_dim for k, p in place.items()}, mesh)
+
+
+def _data_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's rows of a global batch (``sharding.batch_axes``),
+    or all of them where the data axes do not divide it, or off a mesh."""
+    if mesh is None or batch_axes(x.shape[0], mesh) is None:
+        return x
+    rows = x.shape[0] // mesh.size(mesh.data_axes)
+    return x.narrow(0, mesh.coord(mesh.data_axes) * rows, rows)
+
+
+def dlrm_serve_step(params, dense, sparse, cfg: dlrm.DLRMConfig, *, use_kernels: bool,
+                    mesh=None):
+    """Logits ``[B]`` of one batch of requests (the ``recsys_serve`` cell).
+    On a grid ``mesh`` ``params`` are this rank's shards and the batch the
+    global one: the logits of this data rank's rows."""
+    return dlrm.forward(params, _data_rows(dense, mesh), _data_rows(sparse, mesh), cfg,
+                        use_kernels=use_kernels, mesh=mesh)
 
 
 def dlrm_retrieval_step(params, dense, sparse, candidates, cfg: dlrm.DLRMConfig, *,
-                        use_kernels: bool):
+                        use_kernels: bool, mesh=None):
     """Scores ``[N]`` of one query against ``candidates [N]`` (the
-    ``retrieval`` cell)."""
-    return dlrm.retrieval_scores(params, dense, sparse, candidates, cfg,
-                                 use_kernels=use_kernels)
+    ``retrieval`` cell). On a grid ``mesh`` ``candidates`` are all of them:
+    the scores of this rank's slice where every axis together divides N
+    (``_dlrm_cell``'s ``_fix_spec(P(all_axes), (nc,))``), else of all."""
+    return dlrm.retrieval_scores(params, dense, sparse, candidates, cfg, use_kernels=use_kernels,
+                                 mesh=mesh)
 
 
 def dlrm_flops(cfg: dlrm.DLRMConfig, batch: int, train: bool = False) -> Dict[str, float]:
@@ -93,30 +124,58 @@ def dlrm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def dlrm_value_and_grad(params, dense, sparse, labels, cfg: dlrm.DLRMConfig, *,
-                        use_kernels: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                        use_kernels: bool, mesh=None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss and its gradient by parameter name, as ``jax.value_and_grad``
     of ``_dlrm_cell``'s loss gives them. The leaves share the parameters'
     storage; the tables' gradient is dense (``[F, V, D]``, zero in the rows
-    no lookup touched)."""
+    no lookup touched).
+
+    On a grid ``mesh`` ``params`` are this rank's shards and the batch the
+    global one, of which each data rank computes its rows
+    (:func:`_data_rows`): the loss returned is averaged over the data axes
+    (the global batch's mean, ``jnp.mean`` over the sharded batch), the
+    gradient is this rank's own, of its rows' mean (:func:`dlrm_train_step`
+    averages it over the data axes); a table shard's is its rows'."""
     names = sorted(params)
     leaves = [params[k].detach().requires_grad_() for k in names]
+    dense, sparse, labels = (_data_rows(x, mesh) for x in (dense, sparse, labels))
     with torch.enable_grad():
         logits = dlrm.train_forward(dict(zip(names, leaves)), dense, sparse, cfg,
-                                    use_kernels=use_kernels)
+                                    use_kernels=use_kernels, mesh=mesh)
         loss = dlrm_loss(logits, labels)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), dict(zip(names, grads))
+    loss = loss.detach()
+    if mesh is not None:
+        daxes = mesh.data_axes
+        loss = mesh.all_reduce(loss.reshape(1).clone(), daxes)[0] / mesh.size(daxes)
+    return loss, dict(zip(names, grads))
 
 
 def dlrm_train_step(params, opt: AdamWState, dense, sparse, labels, cfg: dlrm.DLRMConfig, *,
-                    lr=1e-3, use_kernels: bool):
+                    lr=1e-3, use_kernels: bool, mesh=None):
     """One training step (the ``step`` of ``_dlrm_cell``'s ``recsys_train``
     branch): the loss's gradient, then AdamW at ``lr`` **in place**
     (:func:`~repro_torch.optim.adamw_update_`): ``params`` and ``opt`` are
-    overwritten and returned. Returns ``(params, opt, loss, gnorm)``."""
+    overwritten and returned. Returns ``(params, opt, loss, gnorm)``.
+
+    On a grid ``mesh`` ``params`` are this rank's shards
+    (:func:`~repro_torch.convert.dlrm_params_shard`), ``opt`` its ZeRO-1
+    moments (:func:`dlrm_adamw_init`) and the batch the global one: the
+    gradient is averaged over the data axes into each leaf's ZeRO-1 slice,
+    clipped by the norm of the whole gradient (a table shard's counted on
+    its own model rank) and the updated slices gathered
+    (:func:`~repro_torch.optim.adamw_update_zero1_`)."""
     loss, grads = dlrm_value_and_grad(params, dense, sparse, labels, cfg,
-                                      use_kernels=use_kernels)
-    gnorm = adamw_update_(params, grads, opt, lr)
+                                      use_kernels=use_kernels, mesh=mesh)
+    if mesh is None:
+        gnorm = adamw_update_(params, grads, opt, lr)
+    else:
+        place = dlrm.dlrm_placements(cfg, mesh)
+        gnorm = adamw_update_zero1_(params, grads, opt, lr, mesh=mesh,
+                                    data_dims={k: p.data_dim for k, p in place.items()},
+                                    model_split={k: p.model_dim is not None
+                                                 for k, p in place.items()})
     return params, opt, loss, gnorm
 
 

@@ -180,6 +180,24 @@ with tempfile.TemporaryDirectory() as rdv:
     assert int(mo.step) == 1 and float(mloss) == float(tr_loss) and float(mnorm) == float(tr_norm)
     assert grid.calls["all_to_all/model"] > 0 and grid.calls["reduce_scatter/data"] > 0, grid.calls
     dist.destroy_process_group()
+# one DLRM training step on a (1, 1) grid (gloo, one rank): the tables' rows
+# over "model", the bags' sum over it, ZeRO-1 moments; at world 1 the
+# one-device step bit for bit
+from repro_torch.convert import dlrm_params_shard
+with tempfile.TemporaryDirectory() as rdv:
+    grid = init_grid_mesh(1, 1, "cpu", timeout_s=30, init_method=f"file://{rdv}/store")
+    d1 = dlrm.init_params(rec, torch.Generator().manual_seed(0), "cpu")
+    dg = dlrm_params_shard(d1, rec, grid, device="cpu")
+    dg, dgo, dgl, dgn = steps.dlrm_train_step(dg, steps.dlrm_adamw_init(dg, rec, grid), dd, ds,
+                                              dy, rec, use_kernels=False, mesh=grid)
+    d1, d1o, d1l, d1n = steps.dlrm_train_step(d1, adamw_init(d1), dd, ds, dy, rec,
+                                              use_kernels=False)
+    assert float(dgl) == float(d1l) and float(dgn) == float(d1n), (dgl, d1l, dgn, d1n)
+    for k in d1:
+        assert torch.equal(dg[k], d1[k]) and torch.equal(dgo.mu[k], d1o.mu[k]), k
+        assert torch.equal(dgo.nu[k], d1o.nu[k]), k
+    assert grid.calls["all_reduce/model"] > 0 and grid.calls["all_reduce/data"] > 0, grid.calls
+    dist.destroy_process_group()
 lm4 = make_local_mesh(4)
 assert torch.equal(ring_all_reduce([torch.ones(3)] * 4, lm4)[2], torch.full((3,), 4.0))
 assert torch.equal(butterfly_compressed_all_reduce([torch.ones(3)] * 4, lm4)[0],
@@ -214,6 +232,8 @@ def _sources():
     yield os.path.join(REPO, "examples", "torch_train_lm.py")
     yield os.path.join(REPO, "examples", "torch_train_lm_mesh.py")
     yield os.path.join(REPO, "examples", "torch_train_gnn_mesh.py")
+    yield os.path.join(REPO, "examples", "torch_train_dlrm_mesh.py")
+    yield os.path.join(REPO, "examples", "torch_quickstart.py")
 
 
 def test_no_source_imports_jax_or_repro():
@@ -233,7 +253,10 @@ def test_no_source_imports_jax_or_repro():
                 ("launch", "mesh.py"), ("dist", "collectives.py"), ("models", "common.py"),
                 ("models", "transformer.py"), ("convert.py",), ("sharding.py",),
                 ("..", "..", "examples", "torch_train_lm_mesh.py"),
-                ("..", "..", "examples", "torch_train_gnn_mesh.py"), ("models", "gnn.py")):
+                ("..", "..", "examples", "torch_train_gnn_mesh.py"), ("models", "gnn.py"),
+                ("..", "..", "examples", "torch_train_dlrm_mesh.py"),
+                ("..", "..", "examples", "torch_quickstart.py"), ("models", "dlrm.py"),
+                ("data", "graphs.py")):
         assert os.path.join(*rel) in scanned, rel
     bad = []
     for path in _sources():
